@@ -10,14 +10,26 @@ Phases, in order; any failure raises and the exit code is non-zero:
 
 1. device: require a CUDA card; print nvidia-smi's name and power limit;
 2. build: compile the kernels from fftlab_torch/csrc with nvcc;
-3. kernels: each kernel's wrapper on card tensors at the main path's
-   shapes, forward, inverse and scale=0.5, against its plain version
-   (SNR >= 110 dB) and a float64 oracle (torch.fft on complex128, used as
-   an oracle only: >= 120 dB two-pass, >= 110 dB rows);
-4. main path: plan_dft_1d_split(2^20, batch=16) forward and inverse,
-   fft_split_auto at 256 x 16384, with the kernels' launch counts;
-5. timing: CUDA events, median of 25 runs after warm-up, of each kernel,
-   its plain version and torch.fft.fft on complex64 (cuFFT, comparator);
+3. kernels: each kernel's wrapper on card tensors at the main paths'
+   shapes against its plain version (SNR >= 110 dB) and a float64 oracle
+   (torch.fft on complex128 and np.convolve, used as oracles only):
+   the c2c kernels forward, inverse and scale=0.5 (>= 120 dB two-pass,
+   >= 110 dB rows); the sandwiches ifft(fft(x) * H) with a random H
+   (>= 110 dB `filter_rows`, >= 120 dB `fourstep_pass2_filter` and the
+   four-launch sandwich); `os_filter` at 2 x 2^20 with 9, 129 and 1025
+   taps in 16K frames and 129 taps in 1K frames against np.convolve
+   (>= 100 dB);
+4. main paths, each with every launch count set to 0 just before it and
+   read just after: (a) the FFT, plan_dft_1d_split(2^20, batch=16)
+   forward and inverse and fft_split_auto at 256 x 16384; (b) the filter
+   path, spectral_filter_auto at 16 x 2^20, fft_filter_split at
+   256 x 16384, fft_split_auto at 4 x 500009 (Bluestein, m = 2^20) and
+   FilterPlan on a 2^23-sample signal (two planes, packed real, stream).
+   Every output of a main path is held against the plain versions on
+   the same inputs (>= 110 dB, over every sample) and against an oracle;
+5. timing: CUDA events around 10 back-to-back calls, median of 25 such
+   runs after warm-up, of each kernel, its plain version and torch.fft on
+   complex64 (cuFFT, comparator);
 6. result: one JSON line of kernels, then the device line last.
 """
 
@@ -31,12 +43,28 @@ import subprocess
 import sys
 import time
 
-ROWS_SHAPES = ((256, 8192), (128, 16384))
+ROWS_SHAPES = ((256, 8192), (128, 16384), (256, 16384))
 TWO_PASS_SHAPES = ((64, 1 << 15), (16, 1 << 20), (4, 1 << 21))
 MAIN_SHAPE = (16, 1 << 20)
 ROWS_MAIN_SHAPE = (256, 16384)
+FILTER_ROWS_MAIN_SHAPE = (256, 16384)
+FILTER_MAIN_SHAPE = (16, 1 << 20)
+OS_SHAPE = (2, 1 << 20)
+# (taps, frame): bench.py's 16K frames, and FilterPlan's default frame for
+# its 129 taps (fft_size = next_pow2(4 * 129) = 1024), which the serving
+# main path runs
+OS_CASES = ((9, 16384), (129, 16384), (1025, 16384), (129, 1024))
+BLUESTEIN_SHAPE = (4, 500009)
+SERVING_N = 1 << 23
+SERVING_TAPS = 129
+# the np.convolve gate of the serving shape reads this prefix (bench.py
+# bench_serving_filter); the stream runs over the first STREAM_CUTS[-1]
+# samples in chunks of uneven sizes
+PREFIX = 1 << 17
+STREAM_CUTS = (0, 1000, 4096, 4097, 70001, 300000, 1 << 19, 777777, 1 << 20)
 GATE_PLAIN_DB = 110.0
-GATE_ORACLE_DB = {"rows": 110.0, "two_pass": 120.0}
+GATE_ORACLE_DB = {"rows": 110.0, "two_pass": 120.0, "os_filter": 100.0,
+                  "bluestein": 95.0}
 
 
 class SmokeFailure(RuntimeError):
@@ -61,10 +89,15 @@ def main() -> int:
               "False)", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from fftlab_torch import INVERSE, fft_split_auto, plan_dft_1d_split
+    import numpy as np
+
+    from fftlab_torch import (INVERSE, FilterParams, FilterPlan, FilterType,
+                              fft_filter_split, fft_split_auto,
+                              plan_dft_1d_split, spectral_filter_auto)
     from fftlab_torch.core.types import FORWARD
-    from fftlab_torch.kernels import _build, fft_vmem, fourstep_vmem
-    from fftlab_torch.plan.dispatch import select_split_impl
+    from fftlab_torch.dsp.filtering import design_response
+    from fftlab_torch.kernels import _build, fft_vmem, fourstep_vmem, os_filter_vmem
+    from fftlab_torch.plan.dispatch import select_filter_impl, select_split_impl
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -91,7 +124,7 @@ def main() -> int:
     # phase 3: every kernel against its plain version and the oracle
     def snr_db(got, want) -> float:
         gr, gi = (g.double() for g in got)
-        wr, wi = (w.double() for w in want)
+        wr, wi = (w.to(gr.device, torch.float64) for w in want)
         num = (wr * wr + wi * wi).sum()
         den = ((gr - wr) ** 2 + (gi - wi) ** 2).sum().clamp_min(1e-300)
         return float(10 * torch.log10(num / den))
@@ -149,10 +182,87 @@ def main() -> int:
             require(s_oracle >= GATE_ORACLE_DB["two_pass"],
                     f"two_pass vs oracle {s_oracle:.1f} dB at B={B} n={n}")
 
-    # phase 4: the main path, through the public entry points
-    for counts in (fft_vmem.LAUNCHES, fourstep_vmem.LAUNCHES):
-        for k in counts:
-            counts[k] = 0
+    def sandwich_oracle(xr, xi, hr, hi):
+        z = torch.complex(xr.double(), xi.double())
+        y = torch.fft.ifft(torch.fft.fft(z) * torch.complex(hr.double(), hi.double()))
+        return y.real, y.imag
+
+    err.update({"filter_rows": 0.0, "fourstep_pass2_filter": 0.0, "os_filter": 0.0})
+    for B, n in ROWS_SHAPES:
+        xr, xi = planes(B, n)
+        hr, hi = planes(1, n)
+        hr, hi = hr[0], hi[0]
+        got = fft_vmem.filter_rows(xr, xi, hr, hi)
+        plain = fft_vmem.spectral_filter_rows_plain(xr, xi, hr, hi)
+        torch.cuda.synchronize()
+        s_plain = snr_db(got, plain)
+        s_oracle = snr_db(got, sandwich_oracle(xr, xi, hr, hi))
+        err["filter_rows"] = max(err["filter_rows"], max_abs(got, plain))
+        print(f"check filter_rows B={B} n={n}: vs plain {s_plain:.1f} dB, "
+              f"vs oracle {s_oracle:.1f} dB")
+        require(s_plain >= GATE_PLAIN_DB, f"filter_rows vs plain {s_plain:.1f} dB")
+        require(s_oracle >= GATE_ORACLE_DB["rows"],
+                f"filter_rows vs oracle {s_oracle:.1f} dB")
+    for B, n in TWO_PASS_SHAPES:
+        xr, xi = planes(B, n)
+        hr, hi = planes(1, n)
+        hr, hi = hr[0], hi[0]
+        mid = fourstep_vmem.fourstep_pass1(xr, xi, FORWARD)
+        got2 = fourstep_vmem.fourstep_pass2_filter(*mid, hr, hi)
+        plain2 = fourstep_vmem.fourstep_pass2_filter_plain(*mid, hr, hi)
+        got = fourstep_vmem.spectral_filter_large(xr, xi, hr, hi)
+        plain = fourstep_vmem.spectral_filter_large_plain(xr, xi, hr, hi)
+        torch.cuda.synchronize()
+        s2 = snr_db(got2, plain2)
+        s_plain = snr_db(got, plain)
+        s_oracle = snr_db(got, sandwich_oracle(xr, xi, hr, hi))
+        err["fourstep_pass2_filter"] = max(err["fourstep_pass2_filter"],
+                                           max_abs(got2, plain2))
+        print(f"check sandwich B={B} n={n}: pass2_filter vs plain {s2:.1f} dB, "
+              f"whole vs plain {s_plain:.1f} dB, vs oracle {s_oracle:.1f} dB")
+        require(s2 >= GATE_PLAIN_DB, f"fourstep_pass2_filter vs plain {s2:.1f} dB")
+        require(s_plain >= GATE_PLAIN_DB, f"sandwich vs plain {s_plain:.1f} dB")
+        require(s_oracle >= GATE_ORACLE_DB["two_pass"],
+                f"sandwich vs oracle {s_oracle:.1f} dB at B={B} n={n}")
+
+    def conv_oracle(x, h, m):
+        """np.convolve in float64 of the first m samples of every row."""
+        xs = x[..., :m].double().cpu().numpy().reshape(-1, m)
+        want = [np.convolve(row, np.asarray(h, np.float64))[:m] for row in xs]
+        return torch.from_numpy(np.stack(want).reshape(*x.shape[:-1], m))
+
+    rng = np.random.default_rng(args.seed)
+    C, n = OS_SHAPE
+    xr, xi = planes(C, n)
+    for nh, fsz in OS_CASES:
+        h = rng.standard_normal(nh) / nh
+        got = os_filter_vmem.pallas_os_filter_split(xr, xi, h, fft_size=fsz)
+        hr, hi = os_filter_vmem._cached_response(
+            np.asarray(h, np.float64).tobytes(), fsz, dev)
+        plain = os_filter_vmem.os_filter_plain(xr, xi, hr, hi, nh)
+        torch.cuda.synchronize()
+        s_plain = snr_db(got, plain)
+        s_oracle = snr_db(got, (conv_oracle(xr, h, n), conv_oracle(xi, h, n)))
+        err["os_filter"] = max(err["os_filter"], max_abs(got, plain))
+        print(f"check os_filter C={C} n={n} taps={nh} fft_size={fsz}: "
+              f"vs plain {s_plain:.1f} dB, "
+              f"vs np.convolve {s_oracle:.1f} dB")
+        require(s_plain >= GATE_PLAIN_DB, f"os_filter vs plain {s_plain:.1f} dB")
+        require(s_oracle >= GATE_ORACLE_DB["os_filter"],
+                f"os_filter vs np.convolve {s_oracle:.1f} dB at {nh} taps")
+
+    def reset_counts():
+        for counts in (fft_vmem.LAUNCHES, fourstep_vmem.LAUNCHES,
+                       os_filter_vmem.LAUNCHES):
+            for k in counts:
+                counts[k] = 0
+
+    def read_counts():
+        return {**fft_vmem.LAUNCHES, **fourstep_vmem.LAUNCHES,
+                **os_filter_vmem.LAUNCHES}
+
+    # phase 4a: the FFT main path, through the public entry points
+    reset_counts()
     B, n = MAIN_SHAPE
     xr, xi = planes(B, n)
     fwd = plan_dft_1d_split(n, batch=B)
@@ -163,14 +273,15 @@ def main() -> int:
     ur, ui = planes(B2, n2)
     vr, vi = fft_split_auto(ur, ui)
     torch.cuda.synchronize()
-    launches = {**fft_vmem.LAUNCHES, **fourstep_vmem.LAUNCHES}
-    print(f"main path launches: {launches}")
+    fft_launches = read_counts()
+    print(f"FFT main path launches: {fft_launches}")
     require(fwd.algorithm == "two_pass" and inv.algorithm == "two_pass",
             f"2^20 routes {fwd.algorithm}, {inv.algorithm}")
     require(select_split_impl(n2, B2) == "smem_rows",
             f"16384 route {select_split_impl(n2, B2)}")
-    for name, count in launches.items():
-        require(count > 0, f"kernel {name} was not launched on the main path")
+    for name in ("fft_rows", "fourstep_pass1", "fourstep_pass2"):
+        require(fft_launches[name] > 0,
+                f"kernel {name} was not launched on the FFT main path")
     for t, shape in ((yr, (B, n)), (yi, (B, n)), (br, (B, n)), (bi, (B, n)),
                      (vr, (B2, n2)), (vi, (B2, n2))):
         require(tuple(t.shape) == shape and t.dtype == torch.float32,
@@ -185,8 +296,138 @@ def main() -> int:
     require(s_rt >= 120.0, f"main path round trip {s_rt:.1f} dB")
     require(s_rows >= GATE_ORACLE_DB["rows"], f"rows main path {s_rows:.1f} dB")
 
+    def two_pass_plain(ar, ai, d, scale):
+        mid = fourstep_vmem.fourstep_pass1_plain(ar, ai, d)
+        return fourstep_vmem.fourstep_pass2_plain(*mid, d, scale)
+
+    def hold_plain(what, got, plain):
+        """A main-path output against the plain versions of its kernels on
+        the same inputs, over every sample."""
+        s = snr_db(got, plain)
+        print(f"main path {what} vs plain {s:.1f} dB")
+        require(s >= GATE_PLAIN_DB, f"main path {what} vs plain {s:.1f} dB")
+
+    hold_plain("16 x 2^20 forward", (yr, yi), two_pass_plain(xr, xi, FORWARD, 1.0))
+    hold_plain("16 x 2^20 inverse", (br, bi),
+               two_pass_plain(yr, yi, INVERSE, 1.0 / n))
+    hold_plain("256 x 16384 fft_split_auto", (vr, vi), fft_vmem.fft_rows_plain(ur, ui))
+
+    # phase 4b: the filter path, through the public entry points
+    reset_counts()
+    B, n = FILTER_MAIN_SHAPE
+    xr, xi = planes(B, n)
+    h_real = torch.randn(n, generator=gen, device=dev)
+    h_zero = torch.zeros_like(h_real)
+    fr, fi = spectral_filter_auto(xr, xi, h_real, h_zero)
+    B3, n3 = FILTER_ROWS_MAIN_SHAPE
+    ur, ui = planes(B3, n3)
+    lowpass = FilterParams(FilterType.LOWPASS, 0.1, transition_width=0.02)
+    lr, li = fft_filter_split(ur, ui, lowpass)
+    torch.cuda.synchronize()
+    before = read_counts()
+    B4, n4 = BLUESTEIN_SHAPE
+    pr, pi = planes(B4, n4)
+    qr, qi = fft_split_auto(pr, pi)
+    rr, ri = fft_split_auto(qr, qi, INVERSE)
+    torch.cuda.synchronize()
+    bluestein = {k: v - before[k] for k, v in read_counts().items()}
+    h_taps = rng.standard_normal(SERVING_TAPS) / SERVING_TAPS
+    plan = FilterPlan(h_taps, device=dev)
+    sr, si = planes(2, SERVING_N)
+    sr, si = sr[0], si[0]
+    yr, yi = plan(sr, si)
+    packed = plan(sr)
+    first = sr[: STREAM_CUTS[-1]]
+    plan.reset()
+    streamed = torch.cat([plan.stream(first[a:b])
+                          for a, b in zip(STREAM_CUTS, STREAM_CUTS[1:])])
+    whole = plan(first)
+    torch.cuda.synchronize()
+    filter_launches = read_counts()
+    print(f"filter path launches: {filter_launches}; of them Bluestein "
+          f"4 x 500009: {bluestein}")
+    require(select_filter_impl(n) == "two_pass", f"2^20 sandwich route "
+            f"{select_filter_impl(n)}")
+    require(select_filter_impl(n3) == "smem_rows", f"16384 sandwich route "
+            f"{select_filter_impl(n3)}")
+    require(plan.uses_kernel(), f"FilterPlan route: {plan.describe()}")
+    for name in ("fourstep_pass1", "fourstep_pass2_filter", "fourstep_pass2"):
+        require(bluestein[name] > 0, f"Bluestein did not launch {name}")
+    for name in ("filter_rows", "fourstep_pass1", "fourstep_pass2",
+                 "fourstep_pass2_filter", "os_filter"):
+        require(filter_launches[name] > 0,
+                f"kernel {name} was not launched on the filter path")
+    for t, shape in ((fr, (B, n)), (fi, (B, n)), (lr, (B3, n3)), (li, (B3, n3)),
+                     (qr, (B4, n4)), (qi, (B4, n4)), (yr, (SERVING_N,)),
+                     (yi, (SERVING_N,)), (packed, (SERVING_N,)),
+                     (streamed, (STREAM_CUTS[-1],))):
+        require(tuple(t.shape) == shape and t.dtype == torch.float32,
+                f"output {tuple(t.shape)} {t.dtype}, want {shape} float32")
+        require(bool(torch.isfinite(t).all()), "non-finite output")
+    s_sf = snr_db((fr, fi), sandwich_oracle(xr, xi, h_real, h_zero))
+    h_low = torch.from_numpy(design_response(n3, lowpass)).to(dev)
+    s_lp = snr_db((lr, li), sandwich_oracle(ur, ui, h_low, torch.zeros_like(h_low)))
+    s_bl = snr_db((qr, qi), oracle(pr, pi, FORWARD, 1.0))
+    s_bl_rt = snr_db((rr, ri), (pr, pi))
+    m = PREFIX
+    s_plan = snr_db((yr[:m], yi[:m]), (conv_oracle(sr, h_taps, m),
+                                       conv_oracle(si, h_taps, m)))
+    s_packed = snr_db((packed[:m], torch.zeros_like(packed[:m])),
+                      (conv_oracle(sr, h_taps, m), torch.zeros(m)))
+    # the packed path's second half starts at ceil(n/2): check a window there
+    half = SERVING_N // 2
+    want_half = conv_oracle(sr[half - SERVING_TAPS + 1: half + m], h_taps,
+                            m + SERVING_TAPS - 1)[SERVING_TAPS - 1:]
+    s_packed_half = snr_db((packed[half: half + m], torch.zeros(m, device=dev)),
+                           (want_half, torch.zeros(m)))
+    stream_err = float((streamed - whole).abs().max())
+    print(f"filter path: sandwich 16 x 2^20 vs oracle {s_sf:.1f} dB; "
+          f"fft_filter_split 256 x 16384 vs oracle {s_lp:.1f} dB; Bluestein "
+          f"4 x 500009 vs oracle {s_bl:.1f} dB, round trip {s_bl_rt:.1f} dB; "
+          f"{plan.describe()} 2^23 two planes vs np.convolve {s_plan:.1f} dB, "
+          f"packed real {s_packed:.1f} dB (second half {s_packed_half:.1f} dB), "
+          f"stream vs whole max abs {stream_err:.3g}")
+    require(s_sf >= GATE_ORACLE_DB["two_pass"], f"sandwich main path {s_sf:.1f} dB")
+    require(s_lp >= GATE_ORACLE_DB["rows"], f"fft_filter_split {s_lp:.1f} dB")
+    require(s_bl >= GATE_ORACLE_DB["bluestein"], f"Bluestein {s_bl:.1f} dB")
+    require(s_bl_rt >= GATE_ORACLE_DB["bluestein"],
+            f"Bluestein round trip {s_bl_rt:.1f} dB")
+    for what, v in (("FilterPlan", s_plan), ("packed real", s_packed),
+                    ("packed real second half", s_packed_half)):
+        require(v >= GATE_ORACLE_DB["os_filter"], f"{what} {v:.1f} dB")
+    require(stream_err <= 2e-4, f"stream vs whole call: max abs {stream_err:.3g}")
+
+    # the same outputs against the plain versions on the same inputs: the
+    # plain sandwiches on the card, and for Bluestein and FilterPlan the
+    # same entry points on host copies, where every kernel route runs its
+    # plain version
+    hold_plain("spectral_filter_auto 16 x 2^20", (fr, fi),
+               fourstep_vmem.spectral_filter_large_plain(xr, xi, h_real, h_zero))
+    h_low32 = h_low.float()
+    hold_plain("fft_filter_split 256 x 16384", (lr, li),
+               fft_vmem.spectral_filter_rows_plain(ur, ui, h_low32,
+                                                   torch.zeros_like(h_low32)))
+    host = lambda *ts: [t.cpu() for t in ts]
+    hold_plain("Bluestein 4 x 500009 forward", (qr, qi), fft_split_auto(*host(pr, pi)))
+    hold_plain("Bluestein 4 x 500009 inverse", (rr, ri),
+               fft_split_auto(*host(qr, qi), INVERSE))
+    host_plan = FilterPlan(h_taps, device="cpu")
+    zeros = torch.zeros(SERVING_N, device=dev)
+    hold_plain("FilterPlan 2^23 two planes", (yr, yi), host_plan(*host(sr, si)))
+    hold_plain("FilterPlan 2^23 packed real", (packed, zeros),
+               (host_plan(sr.cpu()), zeros))
+    first_host = first.cpu()
+    host_plan.reset()
+    host_streamed = torch.cat([host_plan.stream(first_host[a:b])
+                               for a, b in zip(STREAM_CUTS, STREAM_CUTS[1:])])
+    hold_plain("FilterPlan stream", (streamed, zeros[: STREAM_CUTS[-1]]),
+               (host_streamed, zeros[: STREAM_CUTS[-1]]))
+
     # phase 5: timing with CUDA events
-    def time_ms(fn, iters: int = 25, warmup: int = 3) -> float:
+    def time_ms(fn, iters: int = 25, inner: int = 10, warmup: int = 10) -> float:
+        """Median over `iters` runs of `inner` back-to-back calls, per
+        call: the device time, with the host's enqueue of one call hidden
+        behind the previous one."""
         for _ in range(warmup):
             fn()
         runs = []
@@ -194,10 +435,11 @@ def main() -> int:
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            fn()
+            for _ in range(inner):
+                fn()
             end.record()
             end.synchronize()
-            runs.append(start.elapsed_time(end))
+            runs.append(start.elapsed_time(end) / inner)
         return statistics.median(runs)
 
     ms = {}
@@ -221,9 +463,74 @@ def main() -> int:
     ms["fft_rows"] = time_ms(lambda: fft_vmem.fft_rows(ur, ui))
     ms["fft_rows_plain"] = time_ms(lambda: fft_vmem.fft_rows_plain(ur, ui))
     ms["cufft_16k"] = time_ms(lambda: torch.fft.fft(uc))
+    shapes = {name: ROWS_MAIN_SHAPE for name in ("fft_rows", "fft_rows_plain",
+                                                 "cufft_16k")}
+
+    B, n = FILTER_MAIN_SHAPE
+    xr, xi = planes(B, n)
+    hr, hi = planes(1, n)
+    hr, hi = hr[0], hi[0]
+    mid = fourstep_vmem.fourstep_pass1(xr, xi, FORWARD)
+    xc, hc = torch.complex(xr, xi), torch.complex(hr, hi)
+    ms["sandwich_1m"] = time_ms(
+        lambda: fourstep_vmem.spectral_filter_large(xr, xi, hr, hi))
+    ms["sandwich_1m_plain"] = time_ms(
+        lambda: fourstep_vmem.spectral_filter_large_plain(xr, xi, hr, hi))
+    ms["fourstep_pass2_filter"] = time_ms(
+        lambda: fourstep_vmem.fourstep_pass2_filter(*mid, hr, hi))
+    ms["fourstep_pass2_filter_plain"] = time_ms(
+        lambda: fourstep_vmem.fourstep_pass2_filter_plain(*mid, hr, hi))
+    ms["cufft_sandwich_1m"] = time_ms(
+        lambda: torch.fft.ifft(torch.fft.fft(xc) * hc))
+    shapes.update(dict.fromkeys(("sandwich_1m", "sandwich_1m_plain",
+                                 "fourstep_pass2_filter",
+                                 "fourstep_pass2_filter_plain",
+                                 "cufft_sandwich_1m"), FILTER_MAIN_SHAPE))
+    B, n = FILTER_ROWS_MAIN_SHAPE
+    ur, ui = planes(B, n)
+    hr, hi = planes(1, n)
+    hr, hi = hr[0], hi[0]
+    uc, hc = torch.complex(ur, ui), torch.complex(hr, hi)
+    ms["filter_rows"] = time_ms(lambda: fft_vmem.filter_rows(ur, ui, hr, hi))
+    ms["filter_rows_plain"] = time_ms(
+        lambda: fft_vmem.spectral_filter_rows_plain(ur, ui, hr, hi))
+    ms["cufft_sandwich_16k"] = time_ms(
+        lambda: torch.fft.ifft(torch.fft.fft(uc) * hc))
+    shapes.update(dict.fromkeys(("filter_rows", "filter_rows_plain",
+                                 "cufft_sandwich_16k"), FILTER_ROWS_MAIN_SHAPE))
+    # the serving shape: bench.py bench_serving_filter, one 2^23-sample
+    # signal of two planes, 129 taps; in FilterPlan's frame (the main
+    # path's launches, 1K) and in bench.py's 16K frames
+    sr, si = planes(1, SERVING_N)
+    nh = SERVING_TAPS
+    h_taps = rng.standard_normal(nh) / nh
+    for fsz, tag in ((plan.kernel_fft_size(), ""),
+                     (os_filter_vmem.MAX_FFT_SIZE, "_16k")):
+        kr, ki = os_filter_vmem._cached_response(
+            np.asarray(h_taps, np.float64).tobytes(), fsz, dev)
+        hop = fsz - (nh - 1)
+        n_blocks = -(-SERVING_N // hop)
+        kc = torch.complex(kr, ki)
+
+        def cufft_os():
+            z = torch.nn.functional.pad(torch.complex(sr, si),
+                                        (nh - 1, n_blocks * hop + fsz - SERVING_N))
+            y = torch.fft.ifft(torch.fft.fft(z.unfold(-1, fsz, hop)[:, :n_blocks]) * kc)
+            return y[..., nh - 1:].reshape(1, -1)[:, :SERVING_N]
+
+        s_cufft_os = snr_db((cufft_os().real, cufft_os().imag),
+                            os_filter_vmem.os_filter(sr, si, kr, ki, nh))
+        require(s_cufft_os >= GATE_PLAIN_DB,
+                f"os_filter vs its cuFFT comparator {s_cufft_os:.1f} dB at {fsz}")
+        names = [f"os_filter{tag}", f"os_filter{tag}_plain", f"cufft_os_blocks{tag}"]
+        ms[names[0]] = time_ms(lambda: os_filter_vmem.os_filter(sr, si, kr, ki, nh))
+        ms[names[1]] = time_ms(
+            lambda: os_filter_vmem.os_filter_plain(sr, si, kr, ki, nh))
+        ms[names[2]] = time_ms(cufft_os)
+        shapes.update(dict.fromkeys(names, (1, SERVING_N)))
+        print(f"serving shape: fft_size {fsz}, hop {hop}, {n_blocks} frames")
     for name, t in ms.items():
-        shape = ROWS_MAIN_SHAPE if name in ("fft_rows", "fft_rows_plain",
-                                           "cufft_16k") else MAIN_SHAPE
+        shape = shapes.get(name, MAIN_SHAPE)
         gsps = shape[0] * shape[1] / (t * 1e6)
         print(f"time {name} {shape[0]}x{shape[1]}: {t:.4f} ms "
               f"({gsps:.2f} GS/s) [{card}]")
@@ -233,18 +540,36 @@ def main() -> int:
     kernels = [
         {"name": "fft_rows", "route": "cuda", "source": src + "fft_rows.cu",
          "replaces": "fftlab/kernels/fft_vmem.py:176",
-         "launches": launches["fft_rows"], "max_abs_err": err["fft_rows"],
+         "launches": fft_launches["fft_rows"], "max_abs_err": err["fft_rows"],
          "ms": ms["fft_rows"], "plain_ms": ms["fft_rows_plain"]},
         {"name": "fourstep_pass1", "route": "cuda", "source": src + "fourstep.cu",
          "replaces": "fftlab/kernels/fourstep_vmem.py:584",
          "also_replaces": "fftlab/kernels/resident_vmem.py:433",
-         "launches": launches["fourstep_pass1"], "max_abs_err": err["fourstep_pass1"],
+         "launches": fft_launches["fourstep_pass1"], "max_abs_err": err["fourstep_pass1"],
          "ms": ms["fourstep_pass1"], "plain_ms": ms["fourstep_pass1_plain"]},
         {"name": "fourstep_pass2", "route": "cuda", "source": src + "fourstep.cu",
          "replaces": "fftlab/kernels/fourstep_vmem.py:628",
          "also_replaces": "fftlab/kernels/resident_vmem.py:433",
-         "launches": launches["fourstep_pass2"], "max_abs_err": err["fourstep_pass2"],
+         "launches": fft_launches["fourstep_pass2"], "max_abs_err": err["fourstep_pass2"],
          "ms": ms["fourstep_pass2"], "plain_ms": ms["fourstep_pass2_plain"]},
+        {"name": "fourstep_pass2_filter", "route": "cuda",
+         "source": src + "fourstep.cu",
+         "replaces": "fftlab/kernels/fourstep_vmem.py:628",
+         "also_replaces": "fftlab/kernels/resident_vmem.py:883",
+         "launches": filter_launches["fourstep_pass2_filter"],
+         "max_abs_err": err["fourstep_pass2_filter"],
+         "ms": ms["fourstep_pass2_filter"],
+         "plain_ms": ms["fourstep_pass2_filter_plain"]},
+        {"name": "filter_rows", "route": "cuda", "source": src + "filter.cu",
+         "replaces": "fftlab/kernels/fft_vmem.py:247",
+         "launches": filter_launches["filter_rows"],
+         "max_abs_err": err["filter_rows"],
+         "ms": ms["filter_rows"], "plain_ms": ms["filter_rows_plain"]},
+        {"name": "os_filter", "route": "cuda", "source": src + "filter.cu",
+         "replaces": "fftlab/kernels/os_filter_vmem.py:96",
+         "also_replaces": "fftlab/kernels/os_filter_vmem.py:213",
+         "launches": filter_launches["os_filter"], "max_abs_err": err["os_filter"],
+         "ms": ms["os_filter"], "plain_ms": ms["os_filter_plain"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
-"""fftlab_torch: the PyTorch/CUDA port of fftlab's split-plane FFT.
+"""fftlab_torch: the PyTorch/CUDA port of fftlab's split-plane FFT and
+spectral-filter path.
 
 Imports torch and never jax; the JAX package `fftlab` is the reference
 the port is tested against. Split re/im float32 planes [..., n],
@@ -8,19 +9,34 @@ kernels, built from `fftlab_torch/csrc` at first use; on a CPU tensor
 they run each kernel's plain tensor-op version.
 """
 
+from fftlab_torch.algos.bluestein import bluestein_fft_split
 from fftlab_torch.algos.split_stockham import fft_split, ifft_split
 from fftlab_torch.core.types import FORWARD, INVERSE, Direction
+from fftlab_torch.dsp.filtering import FilterParams, FilterType, fft_filter_split
 from fftlab_torch.plan.api import plan_dft_1d_split, plan_from_jax
-from fftlab_torch.plan.dispatch import fft_split_auto, select_split_impl
+from fftlab_torch.plan.dispatch import (
+    fft_split_auto,
+    select_filter_impl,
+    select_split_impl,
+    spectral_filter_auto,
+)
+from fftlab_torch.plan.filter_plan import FilterPlan
 
 __all__ = [
     "Direction",
     "FORWARD",
+    "FilterParams",
+    "FilterPlan",
+    "FilterType",
     "INVERSE",
+    "bluestein_fft_split",
+    "fft_filter_split",
     "fft_split",
     "fft_split_auto",
     "ifft_split",
     "plan_dft_1d_split",
     "plan_from_jax",
+    "select_filter_impl",
     "select_split_impl",
+    "spectral_filter_auto",
 ]

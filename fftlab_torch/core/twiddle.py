@@ -33,3 +33,14 @@ def stage_twiddle_np(r: int, m: int, direction: int = Direction.FORWARD) -> np.n
     b = np.arange(m, dtype=np.int64)
     ab = np.mod(np.outer(a, b), n).astype(np.float64)
     return np.exp(2j * np.pi * float(int(direction)) * ab / n)
+
+
+@functools.lru_cache(maxsize=None)
+def chirp_np(n: int, direction: int = Direction.FORWARD) -> np.ndarray:
+    """Bluestein chirp c[k] = exp(pi*i*direction*k^2/n), complex128.
+
+    k^2 is reduced mod 2n in integers before the exponential, which keeps
+    the phase exact for large n."""
+    k = np.arange(n, dtype=np.int64)
+    k2 = np.mod(k * k, 2 * n).astype(np.float64)
+    return np.exp(1j * np.pi * float(int(direction)) * k2 / n)

@@ -26,6 +26,13 @@ def is_power_of_two(n: int) -> bool:
     return n > 0 and (n & (n - 1)) == 0
 
 
+def next_power_of_two(n: int) -> int:
+    """Smallest power of two >= n."""
+    if n <= 1:
+        return 1
+    return 1 << (int(n - 1).bit_length())
+
+
 def log2_int(n: int) -> int:
     """Exact integer log2; raises for non-powers-of-two."""
     if not is_power_of_two(n):

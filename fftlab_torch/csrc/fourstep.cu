@@ -1,5 +1,6 @@
-// fourstep_pass1 / fourstep_pass2: the two-pass four-step FFT for
-// power-of-two n = L1*L2 in 2^15..2^21 (L1 <= L2, L1 <= 1024).
+// fourstep_pass1 / fourstep_pass2 / fourstep_pass2_filter: the two-pass
+// four-step FFT for power-of-two n = L1*L2 in 2^15..2^21 (L1 <= L2,
+// L1 <= 1024), and the FFT -> H -> IFFT sandwich on it.
 //
 // Replaces two TPU kernels that compute one transform:
 //   fftlab/kernels/resident_vmem.py `_fft_resident_v6_impl` (one VMEM
@@ -7,6 +8,14 @@
 //     shared memory ends at 227 KB), and
 //   fftlab/kernels/fourstep_vmem.py `_two_pass` (`_pass1_kernel`,
 //     `_pass2_kernel`), whose two passes these kernels follow.
+// With H multiplied in pass 2's epilogue (fourstep_pass2_filter) they
+// also replace the sandwich fftlab/kernels/fourstep_vmem.py
+// `_filter_large_impl` (`_two_pass(h2=...)`, `_pass2_filter_kernel`) and
+// the one-residency sandwiches of fftlab/kernels/resident_vmem.py
+// (`_filter_resident_impl`, `_filter_resident_cio_impl`,
+// `_filter_resident_v5_impl`, `_filter_resident_v7_impl`), whose signal
+// cannot stay in one block here either. The sandwich is four launches:
+// pass 1, pass 2 with H, then pass 1 and pass 2 of the inverse with 1/n.
 //
 // Pass 1: one block per (batch row b, tile of W consecutive columns j2).
 //   It loads x[b, j1, c*W .. c*W+W) for every j1 (W floats = 64 bytes
@@ -18,7 +27,9 @@
 //   whole rows, runs the length-L2 FFT along each with the output scale
 //   folded into the last stage, and stores element (k2, k1) at
 //   k2*L1 + k1: the natural-order spectrum, with the corner turn done by
-//   the store (runs of R consecutive k1).
+//   the store (runs of R consecutive k1). The filter entry multiplies
+//   each output by H[k2*L1 + k1] (natural order) before the store, so
+//   the response costs one read of H and no pass of its own.
 //
 // Bound on this card: device memory. Each pass reads and writes the
 // signal once (32 bytes per point in all, 64 MB per pass at 16 x 2^20),
@@ -65,10 +76,13 @@ fourstep_pass1_kernel(const float* __restrict__ xr, const float* __restrict__ xi
   }
 }
 
+// kFilter: multiply each output bin k by hr[k] + i*hi[k] before the store.
+template <bool kFilter>
 __global__ void __launch_bounds__(kMaxThreads)
 fourstep_pass2_kernel(const float* __restrict__ mr, const float* __restrict__ mi,
                       float* __restrict__ yr, float* __restrict__ yi,
-                      const float2* __restrict__ tw2, int log_l1, int log_l2, int log_r,
+                      const float2* __restrict__ tw2, const float* __restrict__ hr,
+                      const float* __restrict__ hi, int log_l1, int log_l2, int log_r,
                       float sign, float scale) {
   float2* s = smem_tile();
   const int log_g = log_l1 - log_r;
@@ -86,11 +100,12 @@ fourstep_pass2_kernel(const float* __restrict__ mr, const float* __restrict__ mi
   __syncthreads();
   fft_smem(s, tw2, log_l2, log_r, sign, scale);
   for (int e = threadIdx.x; e < tile; e += blockDim.x) {
-    // e = k2*R + r  ->  natural index k2*L1 + k1_0 + r
-    const size_t o = base + (static_cast<size_t>(e >> log_r) << log_l1) + k1_0 + (e & r_mask);
-    const float2 v = s[e];
-    yr[o] = v.x;
-    yi[o] = v.y;
+    // e = k2*R + r  ->  natural index k = k2*L1 + k1_0 + r
+    const size_t k = (static_cast<size_t>(e >> log_r) << log_l1) + k1_0 + (e & r_mask);
+    float2 v = s[e];
+    if constexpr (kFilter) v = cmul(v, make_float2(__ldg(hr + k), __ldg(hi + k)));
+    yr[base + k] = v.x;
+    yi[base + k] = v.y;
   }
 }
 
@@ -127,12 +142,13 @@ extern "C" int fftlab_fourstep_pass1(const float* xr, const float* xi, float* mr
   return cudaGetLastError();
 }
 
-// Pass 2. m: the (batch, L1, L2) intermediate planes; y: [batch, L1*L2]
-// natural-order output planes; tw2: L2 float2 twiddles W_L2^m; R = 2^log_r
-// rows per block. Returns a cudaError_t.
-extern "C" int fftlab_fourstep_pass2(const float* mr, const float* mi, float* yr, float* yi,
-                                     const void* tw2, long long batch, int log_l1, int log_l2,
-                                     int log_r, int direction, float scale, void* stream) {
+namespace {
+
+// Pass 2, with the response H multiplied before the store when kFilter.
+template <bool kFilter>
+int launch_pass2(const float* mr, const float* mi, float* yr, float* yi, const void* tw2,
+                 const float* hr, const float* hi, long long batch, int log_l1, int log_l2,
+                 int log_r, int direction, float scale, void* stream) {
   const long long blocks = batch << (log_l1 - log_r);
   if (!valid_tile(log_l2, log_r) || log_r > log_l1 || batch < 1 || blocks > INT_MAX ||
       (direction != 1 && direction != -1)) {
@@ -141,13 +157,38 @@ extern "C" int fftlab_fourstep_pass2(const float* mr, const float* mi, float* yr
   const int threads = (1 << (log_l2 + log_r)) / kPerThread;
   const int smem = static_cast<int>(sizeof(float2)) << (log_l2 + log_r);
   cudaError_t err = cudaFuncSetAttribute(
-      fourstep_pass2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      fourstep_pass2_kernel<kFilter>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  fourstep_pass2_kernel<<<static_cast<unsigned>(blocks), threads, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
-      mr, mi, yr, yi, static_cast<const float2*>(tw2), log_l1, log_l2, log_r,
+  fourstep_pass2_kernel<kFilter><<<static_cast<unsigned>(blocks), threads, smem,
+                                   static_cast<cudaStream_t>(stream)>>>(
+      mr, mi, yr, yi, static_cast<const float2*>(tw2), hr, hi, log_l1, log_l2, log_r,
       static_cast<float>(direction), scale);
   return cudaGetLastError();
+}
+
+}  // namespace
+
+// Pass 2. m: the (batch, L1, L2) intermediate planes; y: [batch, L1*L2]
+// natural-order output planes; tw2: L2 float2 twiddles W_L2^m; R = 2^log_r
+// rows per block. Returns a cudaError_t.
+extern "C" int fftlab_fourstep_pass2(const float* mr, const float* mi, float* yr, float* yi,
+                                     const void* tw2, long long batch, int log_l1, int log_l2,
+                                     int log_r, int direction, float scale, void* stream) {
+  return launch_pass2<false>(mr, mi, yr, yi, tw2, nullptr, nullptr, batch, log_l1, log_l2,
+                             log_r, direction, scale, stream);
+}
+
+// Pass 2 with the spectral response in its epilogue: as
+// fftlab_fourstep_pass2, then output bin k times hr[k] + i*hi[k] (n float32
+// each, natural order). Returns a cudaError_t.
+extern "C" int fftlab_fourstep_pass2_filter(const float* mr, const float* mi, float* yr,
+                                            float* yi, const void* tw2, const float* hr,
+                                            const float* hi, long long batch, int log_l1,
+                                            int log_l2, int log_r, int direction, float scale,
+                                            void* stream) {
+  if (hr == nullptr || hi == nullptr) return cudaErrorInvalidValue;
+  return launch_pass2<true>(mr, mi, yr, yi, tw2, hr, hi, batch, log_l1, log_l2, log_r,
+                            direction, scale, stream);
 }
 
 // Message for a cudaError_t returned by the functions above.

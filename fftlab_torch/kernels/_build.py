@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-`fftlab_torch/csrc/*.cu` compile with nvcc for sm_90a into one shared
-library with a plain C interface, at first use, into
+`fftlab_torch/csrc/*.cu` compile with nvcc for sm_90a, one nvcc process
+per source, all started together, and link into one shared library with
+a plain C interface, at first use, into
 `fftlab_torch/_build/<hash of the sources>/`. The library is loaded with
 ctypes; every pointer and the stream are declared `c_void_p`, so none is
 cut to 32 bits. Each C function returns a `cudaError_t`, which
@@ -26,7 +27,8 @@ BUILD_ROOT = _PKG / "_build"
 LIB_NAME = "libfftlab_torch_kernels.so"
 CUDA_HOME_DEFAULT = "/usr/local/cuda"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
+LINK_FLAGS = ("-shared",)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -43,6 +45,16 @@ SIGNATURES = {
     # mr, mi, yr, yi, tw2, batch, log_l1, log_l2, log_r, direction, scale,
     # stream
     "fftlab_fourstep_pass2": (_P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _F, _P),
+    # mr, mi, yr, yi, tw2, hr, hi, batch, log_l1, log_l2, log_r, direction,
+    # scale, stream
+    "fftlab_fourstep_pass2_filter": (_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I,
+                                     _I, _F, _P),
+    # xr, xi, yr, yi, tw_fwd, tw_inv, hr, hi, batch, log_n, scale, stream
+    "fftlab_filter_rows": (_P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _F, _P),
+    # xr, xi, yr, yi, tw_fwd, tw_inv, hr, hi, channels, n, hop, halo, log_n,
+    # scale, stream
+    "fftlab_os_filter": (_P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _I, _F,
+                         _P),
 }
 
 
@@ -52,7 +64,7 @@ def _sources() -> list[Path]:
 
 def source_digest() -> str:
     """Hash of every kernel source and the compiler flags."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for path in _sources():
         h.update(path.name.encode())
         h.update(path.read_bytes())
@@ -76,18 +88,32 @@ def find_nvcc() -> str:
         f"from {CSRC} at first use and need the CUDA toolkit")
 
 
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands at once; raise on the first that fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for c in cmds]
+    outs = [p.communicate() for p in procs]  # waits for every process
+    for cmd, proc, (out, err) in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed with exit code {proc.returncode}:\n"
+                f"{' '.join(cmd)}\n{out}{err}")
+
+
 def compile_library(out: Path) -> Path:
-    """Compile every csrc/*.cu into the shared library `out`."""
+    """Compile every csrc/*.cu (one nvcc each, in parallel) and link them
+    into the shared library `out`."""
     nvcc = find_nvcc()
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-           *(str(p) for p in sorted(CSRC.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n"
-            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    tag = f"{os.getpid()}.tmp"
+    sources = sorted(CSRC.glob("*.cu"))
+    objs = [out.with_name(f"{src.stem}.{tag}.o") for src in sources]
+    _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+              for src, o in zip(sources, objs)])
+    tmp = out.with_name(f"{out.name}.{tag}")
+    _run_all([[nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)]])
+    for o in objs:
+        o.unlink()
     os.replace(tmp, out)  # atomic: a concurrent build never loads half a file
     return out
 

@@ -30,6 +30,24 @@ def check_cuda(*tensors: torch.Tensor, name: str) -> None:
             raise ValueError(f"{name} takes contiguous tensors")
 
 
+def check_response(hr: torch.Tensor, hi: torch.Tensor, n: int,
+                   like: torch.Tensor, name: str) -> None:
+    """H for a kernel: two float32 planes of n bins on `like`'s device."""
+    check_planes(hr, hi, name)
+    if tuple(hr.shape) != (n,) or hr.device != like.device:
+        raise ValueError(f"{name} takes H as ({n},) planes on {like.device}; "
+                         f"got {tuple(hr.shape)} on {hr.device}")
+
+
+def response_planes(hr, hi, like: torch.Tensor):
+    """H (numpy or tensor, any float dtype) as contiguous float32 planes on
+    `like`'s device: the form the kernels read. A response is a constant
+    of the plan, so it is cast; the signal planes never are."""
+    as_t = lambda h: torch.as_tensor(h, dtype=torch.float32,
+                                     device=like.device).contiguous()
+    return as_t(hr), as_t(hi)
+
+
 def on_cpu(xr: torch.Tensor, name: str) -> bool:
     """True for a CPU tensor (the plain version runs), False for a CUDA
     tensor (the kernel runs); any other device raises."""

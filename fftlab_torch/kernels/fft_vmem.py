@@ -1,5 +1,6 @@
 """Batched row FFT for n = m*128 (m in 8..128, pow2): the `smem_rows`
-route (counterpart of fftlab/kernels/fft_vmem.py:42-75 and :158-215).
+route (counterpart of fftlab/kernels/fft_vmem.py:42-75 and :158-215), and
+the FFT -> H -> IFFT sandwich of such rows (:237-282).
 
 On a CUDA tensor the hand-written kernel `fft_rows` (csrc/fft_rows.cu)
 runs: one block per row, the whole row in shared memory, a radix-4
@@ -14,6 +15,11 @@ the JAX kernel's math (`_fwd_body`) in tensor ops with the same tables,
 
 Forward unscaled, inverse 1/n; `scale` multiplies the output on top and
 is folded into the last stage (the kernel) or the last table (plain).
+
+The sandwich `pallas_spectral_filter` launches `filter_rows`
+(csrc/filter.cu) on a CUDA tensor: forward FFT, times H in natural bin
+order, inverse FFT with 1/n, one read and one write of the row. Its plain
+version is the plain row FFT, the multiply and the plain inverse.
 """
 
 from __future__ import annotations
@@ -29,9 +35,11 @@ from fftlab_torch.kernels import _build
 from fftlab_torch.kernels._common import (
     check_cuda,
     check_planes,
+    check_response,
     complex_table,
     effective_scale,
     on_cpu,
+    response_planes,
     rows_of,
     stream_of,
     twiddle_np,
@@ -40,7 +48,7 @@ from fftlab_torch.kernels._common import (
 N1 = 128
 
 # Launches of the CUDA kernel since the count was last reset.
-LAUNCHES = {"fft_rows": 0}
+LAUNCHES = {"fft_rows": 0, "filter_rows": 0}
 
 
 def supported_size(n: int) -> bool:
@@ -136,4 +144,58 @@ def fft_split_rows(xr: torch.Tensor, xi: torch.Tensor, direction=FORWARD,
     B = rows_of(xr.shape)
     run = fft_rows_plain if on_cpu(xr, "fft_split_rows") else fft_rows
     yr, yi = run(xr.reshape(B, n), xi.reshape(B, n), direction, eff)
+    return yr.reshape(xr.shape), yi.reshape(xi.shape)
+
+
+def spectral_filter_rows_plain(xr: torch.Tensor, xi: torch.Tensor,
+                               hr: torch.Tensor, hi: torch.Tensor):
+    """Plain version of `filter_rows` on [B, n] planes: ifft(fft(x) * H),
+    1/n scaled, with H in natural bin order."""
+    n = int(xr.shape[-1])
+    fr, fi = fft_rows_plain(xr, xi, Direction.FORWARD, 1.0)
+    gr, gi = fr * hr - fi * hi, fr * hi + fi * hr
+    return fft_rows_plain(gr, gi, Direction.INVERSE, 1.0 / n)
+
+
+def filter_rows(xr: torch.Tensor, xi: torch.Tensor, hr: torch.Tensor,
+                hi: torch.Tensor):
+    """Launch the row sandwich on contiguous [B, n] CUDA float32 planes
+    (pow2 n, 512 <= n <= 16384); hr, hi: the n-bin response, natural
+    order. Returns ifft(fft(x) * H), 1/n scaled."""
+    check_planes(xr, xi, "filter_rows")
+    check_cuda(xr, xi, hr, hi, name="filter_rows")
+    B, n = xr.shape
+    if not (is_power_of_two(n) and 512 <= n <= 16384):
+        raise ValueError(f"filter_rows takes pow2 n in [512, 16384]; got {n}")
+    check_response(hr, hi, n, xr, "filter_rows")
+    lib = _build.load_library()
+    yr = torch.empty_like(xr)
+    yi = torch.empty_like(xi)
+    tw_fwd = _device_twiddle(n, Direction.FORWARD, xr.device)
+    tw_inv = _device_twiddle(n, Direction.INVERSE, xr.device)
+    with torch.cuda.device(xr.device):
+        rc = lib.fftlab_filter_rows(
+            xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
+            tw_fwd.data_ptr(), tw_inv.data_ptr(), hr.data_ptr(), hi.data_ptr(),
+            B, log2_int(n), 1.0 / n, stream_of(xr))
+    _build.check(lib, "filter_rows", rc)
+    LAUNCHES["filter_rows"] += 1
+    return yr, yi
+
+
+def pallas_spectral_filter(xr: torch.Tensor, xi: torch.Tensor, hr, hi):
+    """The FFT -> H -> IFFT sandwich of every row of [..., n] split planes,
+    n = m*128 with m in 8..128 pow2: `filter_rows` for a CUDA tensor, the
+    plain version for a CPU tensor. hr, hi: the n-bin response in natural
+    order. Equal to ifft(fft(x) * H), 1/n scaled."""
+    check_planes(xr, xi, "pallas_spectral_filter")
+    n = int(xr.shape[-1])
+    if not supported_size(n):
+        raise ValueError(f"pallas_spectral_filter supports n = m*128, m in "
+                         f"8..128 pow2; got {n}")
+    hr, hi = response_planes(hr, hi, xr)
+    B = rows_of(xr.shape)
+    run = (spectral_filter_rows_plain if on_cpu(xr, "pallas_spectral_filter")
+           else filter_rows)
+    yr, yi = run(xr.reshape(B, n), xi.reshape(B, n), hr, hi)
     return yr.reshape(xr.shape), yi.reshape(xi.shape)

@@ -16,6 +16,13 @@ the length-L FFT as the fa*fb contraction pair of `_col_fft_vmem` and
 the pass-1 twiddle in the rank-1 form A[c, k1]*P[k1, l] of
 `_rank1_twiddle_np`. Forward unscaled, inverse 1/n; `scale` multiplies
 the output on top and is folded into pass 2 only.
+
+`spectral_filter_large` is the FFT -> H -> IFFT sandwich on the same
+passes (fftlab/kernels/fourstep_vmem.py:667-749): pass 1, pass 2 with H
+multiplied in its epilogue (`fourstep_pass2_filter`), then the inverse
+pass 1 and pass 2 with 1/n, four launches. The JAX package's blocked
+hand-off between the forward and the inverse is a TPU DMA layout; the
+intermediates here stay in natural order.
 """
 
 from __future__ import annotations
@@ -26,14 +33,17 @@ import numpy as np
 import torch
 
 from fftlab_torch.core.twiddle import dft_matrix_np
-from fftlab_torch.core.types import FORWARD, Direction, is_power_of_two, log2_int
+from fftlab_torch.core.types import (FORWARD, INVERSE, Direction, is_power_of_two,
+                                     log2_int)
 from fftlab_torch.kernels import _build
 from fftlab_torch.kernels._common import (
     check_cuda,
     check_planes,
+    check_response,
     complex_table,
     effective_scale,
     on_cpu,
+    response_planes,
     rows_of,
     stream_of,
     twiddle_np,
@@ -48,7 +58,8 @@ PASS1_WIDTH = 16
 MAX_TILE = 16384
 
 # Launches of the CUDA kernels since the counts were last reset.
-LAUNCHES = {"fourstep_pass1": 0, "fourstep_pass2": 0}
+LAUNCHES = {"fourstep_pass1": 0, "fourstep_pass2": 0,
+            "fourstep_pass2_filter": 0}
 
 
 def supported_large(n: int) -> bool:
@@ -231,21 +242,41 @@ def fourstep_pass2(mr: torch.Tensor, mi: torch.Tensor, direction=FORWARD,
                    scale: float = 1.0):
     """Launch pass 2 on the contiguous [B, n] intermediate planes; returns
     the natural-order spectrum. `scale` is the whole output scale."""
+    return _launch_pass2("fourstep_pass2", mr, mi, None, direction, scale)
+
+
+def fourstep_pass2_filter(mr: torch.Tensor, mi: torch.Tensor, hr: torch.Tensor,
+                          hi: torch.Tensor, direction=FORWARD, scale: float = 1.0):
+    """Launch pass 2 with the response in its epilogue: the natural-order
+    spectrum times H (contiguous float32 CUDA planes of n bins)."""
+    return _launch_pass2("fourstep_pass2_filter", mr, mi, (hr, hi), direction,
+                         scale)
+
+
+def _launch_pass2(name: str, mr, mi, h, direction, scale: float):
     direction = Direction(int(direction))
-    n = _check_launch(mr, mi, "fourstep_pass2")
+    n = _check_launch(mr, mi, name)
+    if h is not None:
+        check_cuda(*h, name=name)
+        check_response(*h, n, mr, name)
     L1, L2 = _split_sides(n)
     lib = _build.load_library()
     yr = torch.empty_like(mr)
     yi = torch.empty_like(mi)
     tw2 = _pass2_twiddle(L2, direction, mr.device)
+    args = (mr.shape[0], log2_int(L1), log2_int(L2), log2_int(_pass2_rows(L2)),
+            int(direction), float(scale), stream_of(mr))
     with torch.cuda.device(mr.device):
-        rc = lib.fftlab_fourstep_pass2(
-            mr.data_ptr(), mi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
-            tw2.data_ptr(), mr.shape[0], log2_int(L1), log2_int(L2),
-            log2_int(_pass2_rows(L2)), int(direction), float(scale),
-            stream_of(mr))
-    _build.check(lib, "fourstep_pass2", rc)
-    LAUNCHES["fourstep_pass2"] += 1
+        if h is None:
+            rc = lib.fftlab_fourstep_pass2(
+                mr.data_ptr(), mi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
+                tw2.data_ptr(), *args)
+        else:
+            rc = lib.fftlab_fourstep_pass2_filter(
+                mr.data_ptr(), mi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
+                tw2.data_ptr(), h[0].data_ptr(), h[1].data_ptr(), *args)
+    _build.check(lib, name, rc)
+    LAUNCHES[name] += 1
     return yr, yi
 
 
@@ -269,4 +300,47 @@ def fft_split_large(xr: torch.Tensor, xi: torch.Tensor, direction=FORWARD,
     else:
         mr, mi = fourstep_pass1(x2r, x2i, direction)
         yr, yi = fourstep_pass2(mr, mi, direction, eff)
+    return yr.reshape(xr.shape), yi.reshape(xi.shape)
+
+
+def fourstep_pass2_filter_plain(mr: torch.Tensor, mi: torch.Tensor,
+                                hr: torch.Tensor, hi: torch.Tensor,
+                                direction=FORWARD, scale: float = 1.0):
+    """Plain version of `fourstep_pass2_filter`: pass 2, then times H."""
+    yr, yi = fourstep_pass2_plain(mr, mi, direction, scale)
+    return yr * hr - yi * hi, yr * hi + yi * hr
+
+
+def spectral_filter_large_plain(xr: torch.Tensor, xi: torch.Tensor,
+                                hr: torch.Tensor, hi: torch.Tensor):
+    """Plain version of the four-launch sandwich on [B, n] planes."""
+    n = int(xr.shape[-1])
+    gr, gi = fourstep_pass2_filter_plain(
+        *fourstep_pass1_plain(xr, xi, FORWARD), hr, hi, FORWARD)
+    return fourstep_pass2_plain(*fourstep_pass1_plain(gr, gi, INVERSE),
+                                INVERSE, 1.0 / n)
+
+
+def _filter_launches(xr, xi, hr, hi):
+    n = int(xr.shape[-1])
+    gr, gi = fourstep_pass2_filter(*fourstep_pass1(xr, xi, FORWARD), hr, hi,
+                                   FORWARD)
+    return fourstep_pass2(*fourstep_pass1(gr, gi, INVERSE), INVERSE, 1.0 / n)
+
+
+def spectral_filter_large(xr: torch.Tensor, xi: torch.Tensor, hr, hi):
+    """ifft(fft(x) * H), 1/n scaled, on split planes [..., n], pow2 n in
+    2^15..2^21: the four launches for a CUDA tensor, the plain version for
+    a CPU tensor. hr, hi: the n-bin response in natural order (numpy or
+    tensor)."""
+    check_planes(xr, xi, "spectral_filter_large")
+    n = int(xr.shape[-1])
+    if not supported_large(n):
+        raise ValueError(
+            f"spectral_filter_large supports pow2 n in [{MIN_N}, {MAX_N}]; got {n}")
+    hr, hi = response_planes(hr, hi, xr)
+    B = rows_of(xr.shape)
+    run = (spectral_filter_large_plain if on_cpu(xr, "spectral_filter_large")
+           else _filter_launches)
+    yr, yi = run(xr.reshape(B, n), xi.reshape(B, n), hr, hi)
     return yr.reshape(xr.shape), yi.reshape(xi.shape)

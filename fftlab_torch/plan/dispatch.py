@@ -1,5 +1,5 @@
-"""Route selection for the split-plane FFT (counterpart of
-fftlab/plan/dispatch.py:49-102 and :205-313).
+"""Route selection for the split-plane FFT and the FFT -> H -> IFFT
+sandwich (counterpart of fftlab/plan/dispatch.py:49-102 and :146-313).
 
 Routes (split re/im float32 planes, [..., n] batch-first):
 
@@ -11,9 +11,22 @@ Routes (split re/im float32 planes, [..., n] batch-first):
   einsum     every other size, 2^22 and above included until the
              three-pass kernel (ROADMAP K4) is ported: tensor-op Stockham
 
+Sandwich routes (`spectral_filter_auto`, ifft(fft(x) * H), 1/n scaled):
+
+  smem_rows  n = m*128, 1K <= n <= 16K: one block per row runs the
+             whole sandwich (kernel `filter_rows`, kernels/fft_vmem.py)
+  two_pass   pow2 n in 2^15..2^21: four launches, H in the forward
+             pass 2's epilogue (kernels/fourstep_vmem.py
+             `spectral_filter_large`); 2^21 included, where the JAX
+             package stops at 2^20 for a TPU compiler crash
+  einsum     every other size: the transpose-free tensor-op sandwich
+             (algos/split_stockham.spectral_filter_split_fused)
+
 The route depends on n only, never on the device: a kernel route on a
 CPU tensor runs that kernel's plain version, and on a CUDA tensor
-launches the kernel or raises. FFTLAB_FORCE_IMPL=<route> pins the route.
+launches the kernel or raises. FFTLAB_FORCE_IMPL=<route> pins the FFT
+route; for the sandwich, FFTLAB_FORCE_IMPL=einsum pins the tensor-op
+route and any other value leaves the route to n.
 """
 
 from __future__ import annotations
@@ -79,3 +92,43 @@ def fft_split_auto(xr: torch.Tensor, xi: torch.Tensor, direction=None):
     n = int(xr.shape[-1])
     return run_route(select_split_impl(n, math.prod(xr.shape[:-1])),
                      xr, xi, direction)
+
+
+def select_filter_impl(n: int) -> str:
+    """Route for an n-point FFT -> H -> IFFT sandwich."""
+    if os.environ.get("FFTLAB_FORCE_IMPL") == "einsum":
+        return "einsum"
+    from fftlab_torch.kernels.fft_vmem import supported_size
+    from fftlab_torch.kernels.fourstep_vmem import supported_large
+
+    if supported_size(n):
+        return "smem_rows"
+    if supported_large(n):
+        return "two_pass"
+    return "einsum"
+
+
+def spectral_filter_auto(xr: torch.Tensor, xi: torch.Tensor, hr, hi,
+                         permuted=None):
+    """ifft(fft(x) * H), 1/n scaled, on split planes [..., n] through the
+    route `select_filter_impl` picks: the one dispatcher that dsp.filtering,
+    dsp.convolution and Bluestein's convolution share.
+
+    hr, hi: the n-bin response in natural bin order, numpy or a tensor.
+    `permuted` optionally gives a digit-reversed copy (hr_p, hi_p) for the
+    einsum route (`split_stockham.permute_response`), so a cached
+    plan-time constant is not permuted again on every call."""
+    from fftlab_torch.algos.split_stockham import spectral_filter_split_fused
+
+    route = select_filter_impl(int(xr.shape[-1]))
+    if route == "smem_rows":
+        from fftlab_torch.kernels.fft_vmem import pallas_spectral_filter
+
+        return pallas_spectral_filter(xr, xi, hr, hi)
+    if route == "two_pass":
+        from fftlab_torch.kernels.fourstep_vmem import spectral_filter_large
+
+        return spectral_filter_large(xr, xi, hr, hi)
+    if permuted is not None:
+        return spectral_filter_split_fused(xr, xi, *permuted, h_permuted=True)
+    return spectral_filter_split_fused(xr, xi, hr, hi)

@@ -14,12 +14,18 @@ import numpy as np
 import pytest
 import torch
 
+import jax.numpy as jnp
+
 import fftlab.algos.stockham as jx_stockham
+import fftlab.core.bitrev as jx_bitrev
+import fftlab.core.framing as jx_framing
+import fftlab.core.hostfft as jx_hostfft
 import fftlab.core.twiddle as jx_twiddle
 import fftlab.core.types as jx_types
+import fftlab.core.window as jx_window
 import fftlab.plan.flags as jx_flags
 from fftlab_torch.algos import stockham
-from fftlab_torch.core import twiddle, types
+from fftlab_torch.core import bitrev, framing, hostfft, twiddle, types, window
 from fftlab_torch.plan import flags, hardware
 
 REPO = Path(__file__).resolve().parent.parent
@@ -28,7 +34,12 @@ PKG = REPO / "fftlab_torch"
 
 def test_import_loads_no_jax_triton_or_cuda():
     code = ("import sys, fftlab_torch, fftlab_torch.plan.api, "
-            "fftlab_torch.kernels.fft_vmem, fftlab_torch.kernels.resident_vmem; "
+            "fftlab_torch.kernels.fft_vmem, fftlab_torch.kernels.resident_vmem, "
+            "fftlab_torch.kernels.os_filter_vmem, fftlab_torch.algos.bluestein, "
+            "fftlab_torch.dsp.filtering, fftlab_torch.dsp.convolution, "
+            "fftlab_torch.plan.filter_plan, fftlab_torch.core.hostfft, "
+            "fftlab_torch.core.window, fftlab_torch.core.framing, "
+            "fftlab_torch.core.bitrev; "
             "bad = [m for m in ('jax', 'triton', 'fftlab') if m in sys.modules]; "
             "assert not bad, bad")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -115,3 +126,89 @@ def test_detect_hardware_cpu():
     caps = hardware.detect_hardware()
     assert caps.platform == "cpu"
     assert caps.sm_count is None and "platform=cpu" in caps.summary()
+
+
+def test_next_power_of_two():
+    for n in range(-2, 5000):
+        assert types.next_power_of_two(n) == jx_types.next_power_of_two(n)
+    assert types.next_power_of_two(2 * 500009 - 1) == 1 << 20
+
+
+@pytest.mark.parametrize("n", [1, 2, 7, 257, 10007, 500009])
+@pytest.mark.parametrize("direction", [-1, 1])
+def test_chirp_equal(n, direction):
+    assert np.array_equal(twiddle.chirp_np(n, direction),
+                          jx_twiddle.chirp_np(n, direction))
+
+
+@pytest.mark.parametrize("n", [1, 2, 8, 1024, 1 << 15])
+def test_bit_reverse_equal(n):
+    assert np.array_equal(bitrev.bit_reverse_indices(n),
+                          jx_bitrev.bit_reverse_indices(n))
+
+
+def test_bit_reverse_refuses_other_sizes():
+    with pytest.raises(ValueError, match="power-of-two"):
+        bitrev.bit_reverse_indices(12)
+
+
+@pytest.mark.parametrize("n", [1, 2, 64, 4096])
+@pytest.mark.parametrize("direction", [-1, 1])
+def test_host_fft_equal(n, direction):
+    rng = np.random.default_rng(n)
+    x = rng.standard_normal((3, n)) + 1j * rng.standard_normal((3, n))
+    ours = hostfft.host_fft_pow2(x, direction)
+    assert np.array_equal(ours, jx_hostfft.host_fft_pow2(x, direction))
+    want = np.fft.fft(x) if direction == -1 else np.fft.ifft(x)
+    assert np.allclose(ours, want, atol=1e-9)
+
+
+@pytest.mark.parametrize("n,m", [(2, 4), (257, 1024), (10007, 1 << 15)])
+@pytest.mark.parametrize("direction", [-1, 1])
+def test_bluestein_kernel_spectrum_equal(n, m, direction):
+    assert np.array_equal(hostfft.bluestein_kernel_spectrum_np(n, m, direction),
+                          jx_hostfft.bluestein_kernel_spectrum_np(n, m, direction))
+
+
+@pytest.mark.parametrize("name", sorted(jx_window.WINDOWS))
+@pytest.mark.parametrize("n", [1, 8, 129, 1024])
+@pytest.mark.parametrize("periodic", [True, False])
+def test_windows_equal(name, n, periodic):
+    assert np.array_equal(window.get_window(name, n, periodic),
+                          jx_window.get_window(name, n, periodic))
+
+
+def test_window_helpers_equal():
+    assert np.array_equal(window.hamming(129, periodic=False),
+                          jx_window.hamming(129, periodic=False))
+    for alpha in (0.0, 0.3, 1.0):
+        assert np.array_equal(window.tukey(64, alpha), jx_window.tukey(64, alpha))
+    w = window.hann(256)
+    assert window.coherent_gain(w) == jx_window.coherent_gain(w)
+    assert window.power_gain(w) == jx_window.power_gain(w)
+    with pytest.raises(ValueError, match="unknown window"):
+        window.get_window("nope", 8)
+    with pytest.raises(ValueError, match="expected"):
+        window.get_window(np.ones(3), 8)
+    got = window.get_window("hann", 8)
+    got[:] = 0  # a copy: the cached window is untouched
+    assert window.hann(8)[1] > 0
+
+
+@pytest.mark.parametrize("total,frame,hop,n_frames", [(100, 16, 8, 11), (100, 16, 8, 20),
+                                                      (100, 16, 8, 3), (1000, 128, 100, 9)])
+def test_frame_signal_equal(total, frame, hop, n_frames):
+    x = np.random.default_rng(total + hop).standard_normal((2, total)).astype(np.float32)
+    got = framing.frame_signal_strided(torch.from_numpy(x), frame, hop, n_frames)
+    want = np.asarray(jx_framing.frame_signal_strided(jnp.asarray(x), frame, hop,
+                                                      n_frames))
+    assert got.shape == want.shape == (2, n_frames, frame)
+    assert np.array_equal(got.numpy(), want)
+
+
+def test_frames_needed_and_refusal():
+    for total, frame, hop in ((100, 16, 8), (10, 16, 8), (4096, 1024, 512)):
+        assert framing.frames_needed(total, frame, hop) == jx_framing.frames_needed(
+            total, frame, hop)
+    with pytest.raises(ValueError, match="bad framing"):
+        framing.frame_signal_strided(torch.zeros(10), 4, 0, 2)

@@ -1,7 +1,7 @@
 """fftlab_torch's CUDA kernels on the card: each kernel against its plain
-version and a float64 oracle, the launch counts of the main path, and
-the wrappers' refusals. Every test here needs a CUDA card and skips
-without one.
+version and a float64 oracle, the launch counts of the main paths (the
+FFT and the spectral filter), and the wrappers' refusals. Every test
+here needs a CUDA card and skips without one.
 
 This file imports neither jax nor fftlab, so it runs where JAX is not
 installed. On the machine with the card, from the repo root:
@@ -9,17 +9,23 @@ installed. On the machine with the card, from the repo root:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Gates: kernel vs plain version >= 110 dB SNR; kernel vs the float64
-oracle >= 120 dB (two-pass) or >= 110 dB (rows), the JAX suite's gates
-(tests/test_resident_vmem.py:37, tests/test_kernels.py:39). The plain
-versions run with TF32 off: TF32 matmuls would cost about 60 dB."""
+oracle >= 120 dB (two-pass, and the two-pass sandwich) or >= 110 dB
+(rows, and the row sandwich), the JAX suite's gates
+(tests/test_resident_vmem.py:37, tests/test_kernels.py:39); the
+overlap-save filter >= 100 dB against np.convolve (bench.py's serving
+gate, :515-526); Bluestein >= 95 dB (tests/test_split.py:272); a stream
+within 2e-4 of the whole-signal call (tests/test_filter_plan.py:75-89).
+The plain versions run with TF32 off: TF32 matmuls would cost about
+60 dB."""
 
+import numpy as np
 import pytest
 import torch
 
 import fftlab_torch
 from _torch_parity import (CASE_IDS, CASES, cplx, hide_nvcc, oracle, planes,
                            requires_cuda, snr_db, tt, whole_scale)
-from fftlab_torch.kernels import _build, fft_vmem, fourstep_vmem
+from fftlab_torch.kernels import _build, fft_vmem, fourstep_vmem, os_filter_vmem
 from fftlab_torch.plan import hardware
 
 pytestmark = requires_cuda
@@ -88,6 +94,134 @@ def test_slice_launches_kernels(n, route, kernels):
         assert after[k] == before[k] + 1
     gate = 110.0 if route == "smem_rows" else 120.0
     assert snr_db(cplx(yr, yi), oracle(xr, xi, -1)) >= gate
+
+
+def _launches():
+    return {**fft_vmem.LAUNCHES, **fourstep_vmem.LAUNCHES, **os_filter_vmem.LAUNCHES}
+
+
+def _sandwich_oracle(xr, xi, hr, hi):
+    z = np.asarray(xr.cpu(), np.float64) + 1j * np.asarray(xi.cpu(), np.float64)
+    h = np.asarray(hr.cpu(), np.float64) + 1j * np.asarray(hi.cpu(), np.float64)
+    return np.fft.ifft(np.fft.fft(z) * h)
+
+
+@pytest.mark.parametrize("n", [1024, 8192, 16384])
+def test_filter_rows_matches_plain(no_tf32, n):
+    xr, xi = _cuda_pair(n, (8, n))
+    hr, hi = _cuda_pair(n + 1, (n,))
+    before = fft_vmem.LAUNCHES["filter_rows"]
+    got = cplx(*fft_vmem.filter_rows(xr, xi, hr, hi))
+    assert fft_vmem.LAUNCHES["filter_rows"] == before + 1
+    plain = cplx(*fft_vmem.spectral_filter_rows_plain(xr, xi, hr, hi))
+    assert snr_db(got, plain) >= 110.0
+    assert snr_db(got, _sandwich_oracle(xr, xi, hr, hi)) >= 110.0
+
+
+@pytest.mark.parametrize("n", [1 << 15, 1 << 18, 1 << 21])
+def test_two_pass_sandwich_matches_plain(no_tf32, n):
+    xr, xi = _cuda_pair(n % 89, (2, n))
+    hr, hi = _cuda_pair(n % 83, (n,))
+    mid = fourstep_vmem.fourstep_pass1(xr, xi)
+    got2 = cplx(*fourstep_vmem.fourstep_pass2_filter(*mid, hr, hi))
+    plain2 = cplx(*fourstep_vmem.fourstep_pass2_filter_plain(*mid, hr, hi))
+    assert snr_db(got2, plain2) >= 110.0
+    before = _launches()
+    got = cplx(*fourstep_vmem.spectral_filter_large(xr, xi, hr, hi))
+    after = _launches()
+    assert [after[k] - before[k] for k in
+            ("fourstep_pass1", "fourstep_pass2_filter", "fourstep_pass2")] == [2, 1, 1]
+    plain = cplx(*fourstep_vmem.spectral_filter_large_plain(xr, xi, hr, hi))
+    assert snr_db(got, plain) >= 110.0
+    assert snr_db(got, _sandwich_oracle(xr, xi, hr, hi)) >= 120.0
+
+
+@pytest.mark.parametrize("nh,fft_size", [(9, 2048), (129, 16384), (1025, 16384),
+                                         (1025, 2048), (1, 1024)])
+def test_os_filter_matches_plain(no_tf32, nh, fft_size):
+    C, n = 2, 200003
+    xr, xi = _cuda_pair(nh, (C, n))
+    h = np.random.default_rng(nh).standard_normal(nh) / nh
+    before = os_filter_vmem.LAUNCHES["os_filter"]
+    got = os_filter_vmem.pallas_os_filter_split(xr, xi, h, fft_size=fft_size)
+    assert os_filter_vmem.LAUNCHES["os_filter"] == before + 1
+    hr, hi = (torch.from_numpy(a).cuda()
+              for a in os_filter_vmem.os_response_np(h, fft_size))
+    plain = os_filter_vmem.os_filter_plain(xr, xi, hr, hi, nh)
+    assert snr_db(cplx(*got), cplx(*plain)) >= 110.0
+    want = [np.stack([np.convolve(row, h)[:n] for row in np.asarray(x.cpu(), np.float64)])
+            for x in (xr, xi)]
+    assert snr_db(cplx(*got), want[0] + 1j * want[1]) >= 100.0
+
+
+@pytest.mark.parametrize("n,kernels", [
+    (16384, ("filter_rows",)),
+    (1 << 20, ("fourstep_pass1", "fourstep_pass2_filter", "fourstep_pass2"))])
+def test_filter_path_launches_kernels(no_tf32, n, kernels):
+    xr, xi = _cuda_pair(n, (4, n))
+    hr = torch.randn(n, device="cuda")
+    before = _launches()
+    yr, yi = fftlab_torch.spectral_filter_auto(xr, xi, hr, torch.zeros_like(hr))
+    after = _launches()
+    for k in kernels:
+        assert after[k] > before[k]
+    gate = 110.0 if n == 16384 else 120.0
+    assert snr_db(cplx(yr, yi), _sandwich_oracle(xr, xi, hr, torch.zeros_like(hr))) >= gate
+
+
+def test_bluestein_launches_the_sandwich(no_tf32):
+    n = 500009
+    xr, xi = planes(n, (2, n))
+    before = _launches()
+    yr, yi = fftlab_torch.fft_split_auto(tt(xr, "cuda"), tt(xi, "cuda"))
+    after = _launches()
+    assert after["fourstep_pass2_filter"] > before["fourstep_pass2_filter"]
+    assert snr_db(cplx(yr, yi), oracle(xr, xi, -1)) >= 95.0
+    br, bi = fftlab_torch.fft_split_auto(yr, yi, fftlab_torch.INVERSE)
+    assert snr_db(cplx(br, bi), xr + 1j * xi.astype(np.float64)) >= 95.0
+
+
+def test_filter_plan_on_the_card(no_tf32):
+    rng = np.random.default_rng(5)
+    h = rng.standard_normal(129) / 129
+    x = rng.standard_normal(1 << 20).astype(np.float32)
+    plan = fftlab_torch.FilterPlan(h, device="cuda")
+    before = os_filter_vmem.LAUNCHES["os_filter"]
+    whole = plan(x)
+    assert os_filter_vmem.LAUNCHES["os_filter"] > before
+    assert whole.device.type == "cuda"
+    m = 1 << 17
+    want = np.convolve(x[:m].astype(np.float64), h)[:m]
+    assert snr_db(whole[:m].cpu().numpy(), want) >= 100.0
+    cuts = (0, 1000, 1001, 70000, 500000, 1 << 20)
+    streamed = torch.cat([plan.stream(x[a:b]) for a, b in zip(cuts, cuts[1:])])
+    assert float((streamed - whole).abs().max()) <= 2e-4
+
+
+def test_sandwich_wrappers_refuse():
+    x64 = torch.zeros(2, 1 << 15, dtype=torch.float64, device="cuda")
+    x = torch.zeros(2, 1 << 15, device="cuda")
+    h = torch.zeros(1 << 15, device="cuda")
+    with pytest.raises(TypeError, match="float32"):
+        fourstep_vmem.spectral_filter_large(x64, x64, h, h)
+    with pytest.raises(TypeError, match="float32"):
+        fourstep_vmem.fourstep_pass2_filter(x, x, h.double(), h.double())
+    with pytest.raises(ValueError, match="H as"):
+        fourstep_vmem.fourstep_pass2_filter(x, x, h[:1024], h[:1024])
+    x8 = torch.zeros(2, 8192, device="cuda")
+    x256 = torch.zeros(2, 256, device="cuda")
+    with pytest.raises(ValueError, match="H as"):
+        fft_vmem.filter_rows(x8, x8, h, h)
+    with pytest.raises(ValueError, match="512, 16384"):
+        fft_vmem.filter_rows(x256, x256, h[:256], h[:256])
+    with pytest.raises(ValueError, match="CUDA"):
+        fft_vmem.filter_rows(x8, x8, h[:8192].cpu(), h[:8192].cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        fft_vmem.filter_rows(x[:, ::4], x[:, ::4], h[:8192], h[:8192])
+    with pytest.raises(ValueError, match="too long"):
+        os_filter_vmem.pallas_os_filter_split(x, x, np.ones(2000), fft_size=1024)
+    with pytest.raises(ValueError, match="nh <= fft_size"):
+        os_filter_vmem.os_filter(x, x, h[:1024], h[:1024], 2000)
 
 
 def test_wrappers_refuse_without_casting():

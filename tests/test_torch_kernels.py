@@ -25,7 +25,8 @@ import fftlab.kernels.resident_vmem as jx_res
 from _torch_parity import (CASE_IDS, CASES, cplx, hide_nvcc, oracle, planes,
                            snr_db, tt, whole_scale)
 from fftlab.algos.split_stockham import fft_split as jx_fft_split
-from fftlab_torch.kernels import _build, fft_vmem, fourstep_vmem, resident_vmem
+from fftlab_torch.kernels import (_build, fft_vmem, fourstep_vmem, os_filter_vmem,
+                                  resident_vmem)
 
 # ---------------------------------------------------------------- tables
 
@@ -179,26 +180,38 @@ def test_wrappers_refuse_sizes_outside_window(fn, n):
         fn(torch.zeros(1, n), torch.zeros(1, n))
 
 
+def _all_launches():
+    return {**fft_vmem.LAUNCHES, **fourstep_vmem.LAUNCHES, **os_filter_vmem.LAUNCHES}
+
+
 @pytest.mark.parametrize("launch", [
     lambda x: fft_vmem.fft_rows(x, x),
     lambda x: fourstep_vmem.fourstep_pass1(x, x),
     lambda x: fourstep_vmem.fourstep_pass2(x, x),
-], ids=["fft_rows", "fourstep_pass1", "fourstep_pass2"])
+    lambda x: fourstep_vmem.fourstep_pass2_filter(x, x, x[0], x[0]),
+    lambda x: fft_vmem.filter_rows(x[:, :8192], x[:, :8192], x[0, :8192], x[0, :8192]),
+    lambda x: os_filter_vmem.os_filter(x, x, x[0, :2048], x[0, :2048], 9),
+], ids=["fft_rows", "fourstep_pass1", "fourstep_pass2", "fourstep_pass2_filter",
+        "filter_rows", "os_filter"])
 def test_kernel_wrappers_refuse_cpu_tensors(launch):
     """A kernel wrapper launches on CUDA tensors or raises; it never runs
     a plain version in the kernel's name."""
-    before = {**fft_vmem.LAUNCHES, **fourstep_vmem.LAUNCHES}
+    before = _all_launches()
     with pytest.raises(ValueError, match="CUDA"):
         launch(torch.zeros(2, 1 << 15))
-    assert {**fft_vmem.LAUNCHES, **fourstep_vmem.LAUNCHES} == before
+    assert _all_launches() == before
 
 
 def test_cpu_path_counts_no_launch():
-    before = {**fft_vmem.LAUNCHES, **fourstep_vmem.LAUNCHES}
+    before = _all_launches()
     x = torch.zeros(1, 1 << 15)
+    h = np.ones(1 << 15)
     fourstep_vmem.fft_split_large(x, x)
     fft_vmem.fft_split_rows(x[:, :8192], x[:, :8192])
-    assert {**fft_vmem.LAUNCHES, **fourstep_vmem.LAUNCHES} == before
+    fourstep_vmem.spectral_filter_large(x, x, h, h)
+    fft_vmem.pallas_spectral_filter(x[:, :8192], x[:, :8192], h[:8192], h[:8192])
+    os_filter_vmem.pallas_os_filter_split(x, x, np.ones(9))
+    assert _all_launches() == before
 
 
 # ------------------------------------------------------------- the build
@@ -216,6 +229,9 @@ def _c_entries():
 
 def test_ctypes_signatures_match_sources():
     assert _c_entries() == {k: len(v) for k, v in _build.SIGNATURES.items()}
+    assert set(_build.SIGNATURES) == {
+        "fftlab_fft_rows", "fftlab_fourstep_pass1", "fftlab_fourstep_pass2",
+        "fftlab_fourstep_pass2_filter", "fftlab_filter_rows", "fftlab_os_filter"}
     for args in _build.SIGNATURES.values():
         assert args[-1] is ctypes.c_void_p  # the stream
 

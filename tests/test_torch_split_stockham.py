@@ -72,9 +72,15 @@ def test_length_one_is_identity():
 
 @pytest.mark.parametrize("n", [257, 2 * 131, 1009])
 def test_bluestein_sizes_not_ported(n):
+    """Sizes with a prime factor above the leaf go to Bluestein, as in the
+    JAX package (split_stockham.py:137-142); they once raised here.
+    Gate: the JAX suite's float32 Bluestein gate, 95 dB
+    (tests/test_split.py:272)."""
     xr, xi = planes(n, (1, n))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        pt.fft_split(tt(xr), tt(xi))
+    got = cplx(*pt.fft_split(tt(xr), tt(xi)))
+    want = cplx(*jx.fft_split(jnp.asarray(xr), jnp.asarray(xi)))
+    assert snr_db(got, oracle(xr, xi, -1)) >= 95.0
+    assert snr_db(got, want) >= 95.0
 
 
 def test_shape_mismatch_raises():
