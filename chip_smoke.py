@@ -18,18 +18,31 @@ Phases, in order; any failure raises and the exit code is non-zero:
    (>= 110 dB `filter_rows`, >= 120 dB `fourstep_pass2_filter` and the
    four-launch sandwich); `os_filter` at 2 x 2^20 with 9, 129 and 1025
    taps in 16K frames and 129 taps in 1K frames against np.convolve
-   (>= 100 dB);
+   (>= 100 dB); the real-signal kernels at 8 x 2^21 and 4 x 2^22 reals
+   and 2^22 samples: `pack_real` and `interleave` bit-exact,
+   `herm_unpack`, `herm_repack`, the packed pass 1 and the interleaved
+   pass 2 (8 x 2^21) and
+   `stft_frames` (2048/512, 256/128) >= 110 dB against their plain
+   versions and np.fft-style float64 oracles;
 4. main paths, each with every launch count set to 0 just before it and
    read just after: (a) the FFT, plan_dft_1d_split(2^20, batch=16)
    forward and inverse and fft_split_auto at 256 x 16384; (b) the filter
    path, spectral_filter_auto at 16 x 2^20, fft_filter_split at
    256 x 16384, fft_split_auto at 4 x 500009 (Bluestein, m = 2^20) and
-   FilterPlan on a 2^23-sample signal (two planes, packed real, stream).
+   FilterPlan on a 2^23-sample signal (two planes, packed real, stream);
+   (c) the real-signal path, plan_r2c_1d_split(2^21, batch=8) (the fused
+   kernels) and plan_c2r_1d_split on its output, the r2c/c2r plans at
+   4 x 2^22 (pack -> two_pass at 2^21 -> unpack, and back), stft_split of
+   2^22 samples at 2048/512 and 256/128, istft_split of the first, and
+   welch_psd_split and coherence_split on 2^22 samples.
    Every output of a main path is held against the plain versions on
    the same inputs (>= 110 dB, over every sample) and against an oracle;
 5. timing: CUDA events around 10 back-to-back calls, median of 25 such
    runs after warm-up, of each kernel, its plain version and torch.fft on
-   complex64 (cuFFT, comparator);
+   complex64 (cuFFT, comparator: torch.fft.rfft / irfft and
+   torch.stft(center=False) for the real-signal path), and the A/B of the
+   fused r2c (3 launches) against the pipeline (4 launches) at 8 x 2^21,
+   in turns;
 6. result: one JSON line of kernels, then the device line last.
 """
 
@@ -62,9 +75,17 @@ SERVING_TAPS = 129
 # samples in chunks of uneven sizes
 PREFIX = 1 << 17
 STREAM_CUTS = (0, 1000, 4096, 4097, 70001, 300000, 1 << 19, 777777, 1 << 20)
+# the real-signal path: bench.py bench_rfft (8 x 2^21 reals, the fused
+# kernels), the K7 pipeline at a half size of 2^21, and bench_stft's
+# 2^22 samples at 2048/512 beside Welch's default segmenting (256/128)
+RFFT_SHAPE = (8, 1 << 21)
+RFFT_PIPE_SHAPE = (4, 1 << 22)
+STFT_N = 1 << 22
+STFT_CASES = ((2048, 512), (256, 128))
+WELCH = 256 // 2 + 1  # bins of welch_psd_split's default 256-point segments
 GATE_PLAIN_DB = 110.0
 GATE_ORACLE_DB = {"rows": 110.0, "two_pass": 120.0, "os_filter": 100.0,
-                  "bluestein": 95.0}
+                  "bluestein": 95.0, "real": 110.0}
 
 
 class SmokeFailure(RuntimeError):
@@ -92,11 +113,14 @@ def main() -> int:
     import numpy as np
 
     from fftlab_torch import (INVERSE, FilterParams, FilterPlan, FilterType,
-                              fft_filter_split, fft_split_auto,
-                              plan_dft_1d_split, spectral_filter_auto)
+                              coherence_split, fft_filter_split, fft_split_auto,
+                              istft_split, plan_c2r_1d_split, plan_dft_1d_split,
+                              plan_r2c_1d_split, spectral_filter_auto, stft_split,
+                              welch_psd_split)
     from fftlab_torch.core.types import FORWARD
     from fftlab_torch.dsp.filtering import design_response
-    from fftlab_torch.kernels import _build, fft_vmem, fourstep_vmem, os_filter_vmem
+    from fftlab_torch.kernels import (_build, fft_vmem, fourstep_vmem, os_filter_vmem,
+                                      rfft_resident, rfft_vmem, stft_vmem)
     from fftlab_torch.plan.dispatch import select_filter_impl, select_split_impl
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -251,15 +275,120 @@ def main() -> int:
         require(s_oracle >= GATE_ORACLE_DB["os_filter"],
                 f"os_filter vs np.convolve {s_oracle:.1f} dB at {nh} taps")
 
+    # the real-signal kernels
+    def reals(B, n):
+        return torch.randn(B, n, generator=gen, device=dev)
+
+    def rfft_oracle(x):
+        y = torch.fft.rfft(x.double())
+        return y.real, y.imag
+
+    def stft_oracle(x, fft_size, hop, n_frames, onesided=True):
+        """float64 framed FFT over the zero-extended signal."""
+        need = (n_frames - 1) * hop + fft_size
+        xp = torch.nn.functional.pad(x.double(), (0, max(need - x.numel(), 0)))
+        w = stft_vmem.window_table("hann", fft_size, dev).double()
+        frames = xp.unfold(-1, fft_size, hop)[:n_frames] * w
+        y = torch.fft.rfft(frames) if onesided else torch.fft.fft(frames)
+        return y.real, y.imag
+
+    def real_snr(got, want):
+        return snr_db((got, torch.zeros_like(got)), (want, torch.zeros_like(want)))
+
+    def check(name, s, gate):
+        require(s >= gate, f"{name} {s:.1f} dB (gate {gate})")
+
+    # the pipeline's shape (pack_real, interleave, herm_unpack, herm_repack
+    # at a half size of 2^21) and the fused path's (herm_unpack and
+    # herm_repack at 2^20); x, pr, pi stay the fused path's signal
+    err.update(dict.fromkeys(("pack_real", "interleave", "herm_unpack", "herm_repack"), 0.0))
+    for B, n in (RFFT_PIPE_SHAPE, RFFT_SHAPE):
+        m = n // 2
+        x = reals(B, n)
+        zr, zi = rfft_vmem.pack_real(x)
+        pr, pi = (t.contiguous() for t in rfft_vmem.pack_real_plain(x))
+        back = rfft_vmem.interleave(zr, zi)
+        torch.cuda.synchronize()
+        err["pack_real"] = max(err["pack_real"], max_abs((zr, zi), (pr, pi)))
+        err["interleave"] = max(err["interleave"], float(
+            (back - rfft_vmem.interleave_plain(zr, zi)).abs().max()))
+        print(f"check pack_real / interleave {B} x {n}: max abs vs plain "
+              f"{err['pack_real']:.3g} / {err['interleave']:.3g}, round trip "
+              f"{float((back - x).abs().max()):.3g}")
+        require(err["pack_real"] == 0.0 and err["interleave"] == 0.0
+                and bool(torch.equal(back, x)), "pack_real/interleave are not copies")
+        Zc = torch.fft.fft(torch.complex(pr.double(), pi.double()))
+        Zr, Zi = Zc.real.float(), Zc.imag.float()
+        got = rfft_vmem.herm_unpack(Zr, Zi, 0.5)
+        plain = rfft_vmem.herm_unpack_plain(Zr, Zi, n, 0.5)
+        want = [0.5 * t for t in rfft_oracle(x)]
+        torch.cuda.synchronize()
+        err["herm_unpack"] = max(err["herm_unpack"], max_abs(got, plain))
+        s_plain, s_oracle = snr_db(got, plain), snr_db(got, want)
+        print(f"check herm_unpack {B} x {m} (scale 0.5): vs plain {s_plain:.1f} dB, "
+              f"vs oracle {s_oracle:.1f} dB")
+        check("herm_unpack vs plain", s_plain, GATE_PLAIN_DB)
+        check("herm_unpack vs oracle", s_oracle, GATE_ORACLE_DB["real"])
+        Xr, Xi = (2.0 * t.float() for t in want)
+        got = rfft_vmem.herm_repack(Xr, Xi)
+        plain = rfft_vmem.herm_repack_plain(Xr, Xi)
+        torch.cuda.synchronize()
+        err["herm_repack"] = max(err["herm_repack"], max_abs(got, plain))
+        s_plain, s_oracle = snr_db(got, plain), snr_db(got, (Zc.real, Zc.imag))
+        print(f"check herm_repack {B} x {m + 1}: vs plain {s_plain:.1f} dB, "
+              f"vs oracle {s_oracle:.1f} dB")
+        check("herm_repack vs plain", s_plain, GATE_PLAIN_DB)
+        check("herm_repack vs oracle", s_oracle, GATE_ORACLE_DB["real"])
+    err.update({"fourstep_pass1_packed": 0.0, "fourstep_pass2_interleaved": 0.0})
+    for d in (FORWARD, INVERSE):
+        mid = fourstep_vmem.fourstep_pass1_packed(x, d)
+        mid_plain = fourstep_vmem.fourstep_pass1_packed_plain(x, d)
+        y = fourstep_vmem.fourstep_pass2_interleaved(*mid, d, 0.5)
+        y_plain = fourstep_vmem.fourstep_pass2_interleaved_plain(*mid, d, 0.5)
+        zo = oracle(pr, pi, d, 0.5)
+        want_y = torch.stack(zo, dim=-1).reshape(B, n)
+        torch.cuda.synchronize()
+        err["fourstep_pass1_packed"] = max(err["fourstep_pass1_packed"],
+                                           max_abs(mid, mid_plain))
+        err["fourstep_pass2_interleaved"] = max(err["fourstep_pass2_interleaved"],
+                                                float((y - y_plain).abs().max()))
+        s1, s2, s_oracle = (snr_db(mid, mid_plain), real_snr(y, y_plain),
+                            real_snr(y, want_y))
+        print(f"check packed pass 1 / interleaved pass 2 {B} x {n} dir={int(d)}: "
+              f"pass1 vs plain {s1:.1f} dB, pass2 vs plain {s2:.1f} dB, "
+              f"whole vs oracle {s_oracle:.1f} dB")
+        check("fourstep_pass1_packed vs plain", s1, GATE_PLAIN_DB)
+        check("fourstep_pass2_interleaved vs plain", s2, GATE_PLAIN_DB)
+        check("packed two-pass vs oracle", s_oracle, GATE_ORACLE_DB["real"])
+    sig = reals(1, STFT_N)[0]
+    err["stft_frames"] = 0.0
+    for fft_size, hop in STFT_CASES:
+        n_frames = (STFT_N - fft_size) // hop + 1
+        w = stft_vmem.window_table("hann", fft_size, dev)
+        for onesided in (True, False):
+            got = stft_vmem.stft_frames(sig, fft_size, hop, w, n_frames, onesided)
+            plain = stft_vmem.stft_frames_plain(sig, fft_size, hop, w, n_frames, onesided)
+            want = stft_oracle(sig, fft_size, hop, n_frames, onesided)
+            torch.cuda.synchronize()
+            err["stft_frames"] = max(err["stft_frames"], max_abs(got, plain))
+            s_plain, s_oracle = snr_db(got, plain), snr_db(got, want)
+            print(f"check stft_frames {STFT_N} samples {fft_size}/{hop} "
+                  f"{'one' if onesided else 'two'}-sided: vs plain {s_plain:.1f} dB, "
+                  f"vs oracle {s_oracle:.1f} dB")
+            check("stft_frames vs plain", s_plain, GATE_PLAIN_DB)
+            check("stft_frames vs oracle", s_oracle, GATE_ORACLE_DB["real"])
+
     def reset_counts():
         for counts in (fft_vmem.LAUNCHES, fourstep_vmem.LAUNCHES,
-                       os_filter_vmem.LAUNCHES):
+                       os_filter_vmem.LAUNCHES, rfft_vmem.LAUNCHES,
+                       stft_vmem.LAUNCHES):
             for k in counts:
                 counts[k] = 0
 
     def read_counts():
         return {**fft_vmem.LAUNCHES, **fourstep_vmem.LAUNCHES,
-                **os_filter_vmem.LAUNCHES}
+                **os_filter_vmem.LAUNCHES, **rfft_vmem.LAUNCHES,
+                **stft_vmem.LAUNCHES}
 
     # phase 4a: the FFT main path, through the public entry points
     reset_counts()
@@ -423,6 +552,107 @@ def main() -> int:
     hold_plain("FilterPlan stream", (streamed, zeros[: STREAM_CUTS[-1]]),
                (host_streamed, zeros[: STREAM_CUTS[-1]]))
 
+    # phase 4c: the real-signal path, through the public entry points
+    reset_counts()
+    B, n = RFFT_SHAPE
+    x = reals(B, n)
+    r2c, c2r = plan_r2c_1d_split(n, batch=B), plan_c2r_1d_split(n, batch=B)
+    Xr, Xi = r2c.execute(x)
+    y = c2r.execute((Xr, Xi))
+    B2, n2 = RFFT_PIPE_SHAPE
+    x2 = reals(B2, n2)
+    r2c2, c2r2 = plan_r2c_1d_split(n2, batch=B2), plan_c2r_1d_split(n2, batch=B2)
+    X2r, X2i = r2c2.execute(x2)
+    y2 = c2r2.execute((X2r, X2i))
+    sig, sig2 = reals(2, STFT_N)
+    spectra = {case: stft_split(sig, *case) for case in STFT_CASES}
+    fft_size, hop = STFT_CASES[0]
+    back_sig = istft_split(*spectra[STFT_CASES[0]], fft_size, hop, length=STFT_N)
+    freqs, psd = welch_psd_split(sig)
+    _, coh = coherence_split(sig, 0.6 * sig + 0.4 * sig2)
+    torch.cuda.synchronize()
+    real_launches = read_counts()
+    print(f"real-signal path launches: {real_launches}")
+    require(r2c.algorithm == "rfft_resident" and c2r.algorithm == "irfft_resident",
+            f"2^21 real routes {r2c.algorithm}, {c2r.algorithm}")
+    require(r2c2.algorithm == "rfft_split[two_pass]"
+            and c2r2.algorithm == "irfft_split[two_pass]",
+            f"2^22 real routes {r2c2.algorithm}, {c2r2.algorithm}")
+    for name in ("fourstep_pass1_packed", "fourstep_pass2_interleaved", "fourstep_pass1",
+                 "fourstep_pass2", "pack_real", "interleave", "herm_unpack",
+                 "herm_repack", "stft_frames"):
+        require(real_launches[name] > 0,
+                f"kernel {name} was not launched on the real-signal path")
+    outputs = [(Xr, (B, n // 2 + 1)), (Xi, (B, n // 2 + 1)), (y, (B, n)),
+               (X2r, (B2, n2 // 2 + 1)), (X2i, (B2, n2 // 2 + 1)), (y2, (B2, n2)),
+               (back_sig, (STFT_N,)),
+               (psd, (WELCH,)), (coh, (WELCH,))]
+    for (fft_size, hop), (sr, si) in spectra.items():
+        frames = -(-(STFT_N - fft_size) // hop) + 1
+        outputs += [(sr, (frames, fft_size // 2 + 1)), (si, (frames, fft_size // 2 + 1))]
+    for t, shape in outputs:
+        require(tuple(t.shape) == shape and t.dtype == torch.float32,
+                f"output {tuple(t.shape)} {t.dtype}, want {shape} float32")
+        require(bool(torch.isfinite(t).all()), "non-finite output")
+    s_r2c = snr_db((Xr, Xi), rfft_oracle(x))
+    s_rt = real_snr(y, x)
+    s_r2c2 = snr_db((X2r, X2i), rfft_oracle(x2))
+    s_rt2 = real_snr(y2, x2)
+    s_stft = {}
+    for (fft_size, hop), S in spectra.items():
+        frames = int(S[0].shape[0])
+        s_stft[fft_size, hop] = snr_db(S, stft_oracle(sig, fft_size, hop, frames))
+    edge = STFT_CASES[0][0]  # the window energy is about 0 in the first and last frame
+    s_istft = real_snr(back_sig[edge:-edge], sig[edge:-edge])
+    # float64 Welch and coherence from the oracle's segments
+    seg = stft_oracle(sig, 256, 128, (STFT_N - 256) // 128 + 1)
+    seg2 = stft_oracle(0.6 * sig + 0.4 * sig2, 256, 128, (STFT_N - 256) // 128 + 1)
+    wsq = float((stft_vmem.window_table("hann", 256, dev).double() ** 2).mean())
+    dbl = torch.full((WELCH,), 2.0, dtype=torch.float64, device=dev)
+    dbl[0] = dbl[-1] = 1.0
+    psd_want = (seg[0] ** 2 + seg[1] ** 2).mean(0) / (256 * wsq) * dbl
+    sxy_r = (seg[0] * seg2[0] + seg[1] * seg2[1]).mean(0)
+    sxy_i = (seg[0] * seg2[1] - seg[1] * seg2[0]).mean(0)
+    coh_want = (sxy_r ** 2 + sxy_i ** 2) / (
+        (seg[0] ** 2 + seg[1] ** 2).mean(0) * (seg2[0] ** 2 + seg2[1] ** 2).mean(0))
+    s_welch, s_coh = real_snr(psd, psd_want), real_snr(coh, coh_want)
+    print(f"real-signal path: r2c 8 x 2^21 vs oracle {s_r2c:.1f} dB, c2r round trip "
+          f"{s_rt:.1f} dB; r2c 4 x 2^22 {s_r2c2:.1f} dB, round trip {s_rt2:.1f} dB; "
+          f"stft {', '.join(f'{a}/{b} {v:.1f}' for (a, b), v in s_stft.items())} dB; "
+          f"istft {s_istft:.1f} dB; Welch {s_welch:.1f} dB; coherence {s_coh:.1f} dB")
+    for what, v in (("r2c 2^21", s_r2c), ("c2r round trip 2^21", s_rt),
+                    ("r2c 2^22", s_r2c2), ("c2r round trip 2^22", s_rt2),
+                    *((f"stft {a}/{b}", v) for (a, b), v in s_stft.items()),
+                    ("istft", s_istft), ("Welch", s_welch), ("coherence", s_coh)):
+        check(f"real-signal path {what}", v, GATE_ORACLE_DB["real"])
+
+    # the same outputs against the plain versions on the same inputs: the
+    # plain kernels on the card, and for istft, Welch and coherence the
+    # same entry points on host copies
+    hold_plain("r2c 8 x 2^21", (Xr, Xi), rfft_resident.rfft_resident_plain(x))
+    hold_plain("c2r 8 x 2^21", (y, torch.zeros_like(y)),
+               (rfft_resident.irfft_resident_plain(Xr, Xi), torch.zeros_like(y)))
+    zr2, zi2 = rfft_vmem.pack_real_plain(x2)
+    hold_plain("r2c 4 x 2^22", (X2r, X2i),
+               rfft_vmem.herm_unpack_plain(*two_pass_plain(zr2, zi2, FORWARD, 1.0), n2))
+    Z2 = rfft_vmem.herm_repack_plain(X2r, X2i)
+    y2_plain = rfft_vmem.interleave_plain(*two_pass_plain(*Z2, INVERSE, 2.0 / n2))
+    hold_plain("c2r 4 x 2^22", (y2, torch.zeros_like(y2)), (y2_plain, torch.zeros_like(y2)))
+    for (fft_size, hop), S in spectra.items():
+        frames = int(S[0].shape[0])
+        w = stft_vmem.window_table("hann", fft_size, dev)
+        hold_plain(f"stft {fft_size}/{hop}", S,
+                   stft_vmem.stft_frames_plain(sig, fft_size, hop, w, frames))
+    sig_h, sig2_h = sig.cpu(), (0.6 * sig + 0.4 * sig2).cpu()
+    S0 = spectra[STFT_CASES[0]]
+    back_h = istft_split(S0[0].cpu(), S0[1].cpu(), *STFT_CASES[0], length=STFT_N)
+    hold_plain("istft 2048/512", (back_sig[edge:-edge], torch.zeros_like(back_sig[edge:-edge])),
+               (back_h[edge:-edge], torch.zeros(STFT_N - 2 * edge)))
+    hold_plain("Welch", (psd, torch.zeros_like(psd)),
+               (welch_psd_split(sig_h)[1], torch.zeros(WELCH)))
+    hold_plain("coherence", (coh, torch.zeros_like(coh)),
+               (coherence_split(sig_h, sig2_h)[1], torch.zeros(WELCH)))
+
     # phase 5: timing with CUDA events
     def time_ms(fn, iters: int = 25, inner: int = 10, warmup: int = 10) -> float:
         """Median over `iters` runs of `inner` back-to-back calls, per
@@ -529,6 +759,82 @@ def main() -> int:
         ms[names[2]] = time_ms(cufft_os)
         shapes.update(dict.fromkeys(names, (1, SERVING_N)))
         print(f"serving shape: fft_size {fsz}, hop {hop}, {n_blocks} frames")
+    # the real-signal kernels at the main path's shapes
+    B, n = RFFT_SHAPE
+    x = reals(B, n)
+    zr, zi = rfft_vmem.pack_real(x)
+    Zr, Zi = fourstep_vmem.fft_split_large(zr, zi)
+    Xr, Xi = rfft_vmem.herm_unpack(Zr, Zi)
+    mid = fourstep_vmem.fourstep_pass1(Zr, Zi, INVERSE)
+    xc = torch.complex(Xr, Xi)
+    ms["pack_real"] = time_ms(lambda: rfft_vmem.pack_real(x))
+    ms["pack_real_plain"] = time_ms(
+        lambda: [t.contiguous() for t in rfft_vmem.pack_real_plain(x)])
+    ms["interleave"] = time_ms(lambda: rfft_vmem.interleave(zr, zi))
+    ms["interleave_plain"] = time_ms(lambda: rfft_vmem.interleave_plain(zr, zi))
+    ms["herm_unpack"] = time_ms(lambda: rfft_vmem.herm_unpack(Zr, Zi))
+    ms["herm_unpack_plain"] = time_ms(lambda: rfft_vmem.herm_unpack_plain(Zr, Zi, n))
+    ms["herm_repack"] = time_ms(lambda: rfft_vmem.herm_repack(Xr, Xi))
+    ms["herm_repack_plain"] = time_ms(lambda: rfft_vmem.herm_repack_plain(Xr, Xi))
+    ms["fourstep_pass1_packed"] = time_ms(lambda: fourstep_vmem.fourstep_pass1_packed(x))
+    ms["fourstep_pass1_packed_plain"] = time_ms(
+        lambda: fourstep_vmem.fourstep_pass1_packed_plain(x))
+    ms["fourstep_pass2_interleaved"] = time_ms(
+        lambda: fourstep_vmem.fourstep_pass2_interleaved(*mid, INVERSE, 2.0 / n))
+    ms["fourstep_pass2_interleaved_plain"] = time_ms(
+        lambda: fourstep_vmem.fourstep_pass2_interleaved_plain(*mid, INVERSE, 2.0 / n))
+    ms["rfft_fused_plain"] = time_ms(lambda: rfft_resident.rfft_resident_plain(x))
+    ms["irfft_fused"] = time_ms(lambda: rfft_resident.irfft_resident(Xr, Xi))
+    ms["irfft_fused_plain"] = time_ms(lambda: rfft_resident.irfft_resident_plain(Xr, Xi))
+    ms["cufft_rfft"] = time_ms(lambda: torch.fft.rfft(x))
+    ms["cufft_irfft"] = time_ms(lambda: torch.fft.irfft(xc, n))
+
+    # the A/B of ROADMAP K6: the fused r2c (3 launches) against the
+    # pipeline (4 launches), in turns on the same card
+    def fused():
+        return rfft_vmem.herm_unpack(*fourstep_vmem.fourstep_pass2(
+            *fourstep_vmem.fourstep_pass1_packed(x)))
+
+    def pipeline():
+        return rfft_vmem.herm_unpack(*fourstep_vmem.fourstep_pass2(
+            *fourstep_vmem.fourstep_pass1(*rfft_vmem.pack_real(x))))
+
+    s_ab = snr_db(fused(), pipeline())
+    require(s_ab >= GATE_PLAIN_DB, f"fused vs pipeline r2c {s_ab:.1f} dB")
+    ab = {"rfft_fused": [], "rfft_pipeline": []}
+    for name in ("rfft_fused", "rfft_pipeline", "rfft_pipeline", "rfft_fused"):
+        ab[name].append(time_ms(fused if name == "rfft_fused" else pipeline))
+    for name, runs in ab.items():
+        ms[name] = statistics.mean(runs)
+    faster = min(ab, key=lambda k: ms[k])
+    print(f"A/B r2c {B} x {n}: fused {ab['rfft_fused']} ms, pipeline "
+          f"{ab['rfft_pipeline']} ms (fused vs pipeline {s_ab:.1f} dB): "
+          f"{faster} is faster [{card}]")
+    shapes.update(dict.fromkeys(
+        ("pack_real", "pack_real_plain", "interleave", "interleave_plain", "herm_unpack",
+         "herm_unpack_plain", "herm_repack", "herm_repack_plain", "fourstep_pass1_packed",
+         "fourstep_pass1_packed_plain", "fourstep_pass2_interleaved",
+         "fourstep_pass2_interleaved_plain", "rfft_fused", "rfft_fused_plain",
+         "rfft_pipeline", "irfft_fused", "irfft_fused_plain", "cufft_rfft",
+         "cufft_irfft"), RFFT_SHAPE))
+    sig = reals(1, STFT_N)[0]
+    for fft_size, hop in STFT_CASES:
+        n_frames = (STFT_N - fft_size) // hop + 1
+        w = stft_vmem.window_table("hann", fft_size, dev)
+        tag = f"_{fft_size}_{hop}"
+        ms["stft_frames" + tag] = time_ms(
+            lambda: stft_vmem.stft_frames(sig, fft_size, hop, w, n_frames))
+        ms["stft_frames_plain" + tag] = time_ms(
+            lambda: stft_vmem.stft_frames_plain(sig, fft_size, hop, w, n_frames))
+        ms["cufft_stft" + tag] = time_ms(
+            lambda: torch.stft(sig, fft_size, hop, window=w, center=False,
+                               return_complex=True))
+        ref = torch.stft(sig, fft_size, hop, window=w, center=False, return_complex=True)
+        s_ref = snr_db(stft_vmem.stft_frames(sig, fft_size, hop, w, n_frames),
+                       (ref.real.T, ref.imag.T))
+        require(s_ref >= GATE_PLAIN_DB, f"stft_frames vs torch.stft {s_ref:.1f} dB")
+        shapes.update(dict.fromkeys(("stft_frames" + tag, "stft_frames_plain" + tag,
+                                     "cufft_stft" + tag), (1, STFT_N)))
     for name, t in ms.items():
         shape = shapes.get(name, MAIN_SHAPE)
         gsps = shape[0] * shape[1] / (t * 1e6)
@@ -571,6 +877,29 @@ def main() -> int:
          "launches": filter_launches["os_filter"], "max_abs_err": err["os_filter"],
          "ms": ms["os_filter"], "plain_ms": ms["os_filter_plain"]},
     ]
+    stft_main = "_{}_{}".format(*STFT_CASES[0])
+    real_kernels = (
+        ("pack_real", "real.cu", "fftlab/kernels/rfft_vmem.py:99", None, "pack_real"),
+        ("interleave", "real.cu", "fftlab/kernels/rfft_vmem.py:126", None, "interleave"),
+        ("herm_unpack", "real.cu", "fftlab/kernels/rfft_vmem.py:250",
+         "fftlab/kernels/rfft_resident.py:284", "herm_unpack"),
+        ("herm_repack", "real.cu", "fftlab/kernels/rfft_resident.py:485", None,
+         "herm_repack"),
+        ("fourstep_pass1_packed", "fourstep.cu", "fftlab/kernels/rfft_resident.py:284",
+         "fftlab/kernels/rfft_vmem.py:99", "fourstep_pass1_packed"),
+        ("fourstep_pass2_interleaved", "fourstep.cu", "fftlab/kernels/rfft_resident.py:485",
+         "fftlab/kernels/rfft_vmem.py:126", "fourstep_pass2_interleaved"),
+        ("stft_frames", "real.cu", "fftlab/kernels/stft_vmem.py:77",
+         "fftlab/kernels/stft_vmem.py:174", "stft_frames" + stft_main),
+    )
+    for name, source, replaces, also, timed in real_kernels:
+        entry = {"name": name, "route": "cuda", "source": src + source,
+                 "replaces": replaces}
+        if also:
+            entry["also_replaces"] = also
+        entry.update({"launches": real_launches[name], "max_abs_err": err[name],
+                      "ms": ms[timed], "plain_ms": ms[timed.replace(name, name + "_plain")]})
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,5 @@
-"""fftlab_torch: the PyTorch/CUDA port of fftlab's split-plane FFT and
-spectral-filter path.
+"""fftlab_torch: the PyTorch/CUDA port of fftlab's split-plane FFT,
+spectral-filter and real-signal paths.
 
 Imports torch and never jax; the JAX package `fftlab` is the reference
 the port is tested against. Split re/im float32 planes [..., n],
@@ -10,10 +10,14 @@ they run each kernel's plain tensor-op version.
 """
 
 from fftlab_torch.algos.bluestein import bluestein_fft_split
-from fftlab_torch.algos.split_stockham import fft_split, ifft_split
+from fftlab_torch.algos.split_stockham import (fft_split, ifft_split, irfft_split,
+                                               rfft_split)
 from fftlab_torch.core.types import FORWARD, INVERSE, Direction
 from fftlab_torch.dsp.filtering import FilterParams, FilterType, fft_filter_split
-from fftlab_torch.plan.api import plan_dft_1d_split, plan_from_jax
+from fftlab_torch.dsp.spectrum import coherence_split, welch_psd_split
+from fftlab_torch.dsp.stft import istft_split, stft_split
+from fftlab_torch.plan.api import (plan_c2r_1d_split, plan_dft_1d_split,
+                                   plan_from_jax, plan_r2c_1d_split)
 from fftlab_torch.plan.dispatch import (
     fft_split_auto,
     select_filter_impl,
@@ -30,13 +34,21 @@ __all__ = [
     "FilterType",
     "INVERSE",
     "bluestein_fft_split",
+    "coherence_split",
     "fft_filter_split",
     "fft_split",
     "fft_split_auto",
     "ifft_split",
+    "irfft_split",
+    "istft_split",
+    "plan_c2r_1d_split",
     "plan_dft_1d_split",
     "plan_from_jax",
+    "plan_r2c_1d_split",
+    "rfft_split",
     "select_filter_impl",
     "select_split_impl",
     "spectral_filter_auto",
+    "stft_split",
+    "welch_psd_split",
 ]

@@ -1,6 +1,6 @@
-"""Split re/im Stockham FFT in tensor ops: the `einsum` route, and the
-FFT -> H -> IFFT sandwich in tensor ops (counterpart of
-fftlab/algos/split_stockham.py:54-151 and :355-509).
+"""Split re/im Stockham FFT in tensor ops: the `einsum` route, the real
+transforms built on a half-size complex FFT, and the FFT -> H -> IFFT
+sandwich in tensor ops (counterpart of fftlab/algos/split_stockham.py).
 
 Same algorithm as the JAX package: n is factored into radices of at
 most `leaf`, each stage contracts one digit axis with that radix's DFT
@@ -17,6 +17,7 @@ TF32 costs about 60 dB of SNR.
 from __future__ import annotations
 
 import functools
+import os
 import string
 
 import numpy as np
@@ -121,6 +122,151 @@ def spectral_filter_split(xr: torch.Tensor, xi: torch.Tensor, hr, hi,
     n = int(xr.shape[-1])
     yr, yi = stockham_fft_split_unscaled(Yr, Yi, Direction.INVERSE, leaf)
     return yr * (1.0 / n), yi * (1.0 / n)
+
+
+def _unpack_paired(Zr, Zi, n: int):
+    """The paired Hermitian unpack in tensor ops (m = n/2 even,
+    split_stockham.py:214-242): bins k and m-k from one E, W*O
+    computation, every intermediate m/2+1 wide."""
+    m = n // 2
+    half = m // 2
+    zlr, zli = Zr[..., : half + 1], Zi[..., : half + 1]
+    # Zh[k] = Z[(m-k) % m] for k = 0..m/2: [Z[0], Z[m-1]..Z[m/2]]
+    zhr = torch.cat([Zr[..., :1], torch.flip(Zr[..., half:], [-1])], dim=-1)
+    zhi = torch.cat([Zi[..., :1], torch.flip(Zi[..., half:], [-1])], dim=-1)
+    er, ei = 0.5 * (zlr + zhr), 0.5 * (zli - zhi)
+    o_r, o_i = 0.5 * (zli + zhi), -0.5 * (zlr - zhr)
+    k = np.arange(half + 1, dtype=np.float64)
+    wr, wi = _planes(np.exp(-2j * np.pi * k / n), Zr)
+    wor, woi = _twiddle_split(o_r, o_i, wr, wi)
+    low_r, low_i = er + wor, ei + woi  # bins 0..m/2
+    high_r, high_i = er - wor, -(ei - woi)  # conj(E - W*O)
+    # bins m/2+1..m-1 ascending are k = m/2-1 .. 1; bin m is k = 0
+    return (torch.cat([low_r, torch.flip(high_r[..., 1:half], [-1]), high_r[..., :1]], -1),
+            torch.cat([low_i, torch.flip(high_i[..., 1:half], [-1]), high_i[..., :1]], -1))
+
+
+def _unpack_unpaired(Zr, Zi, n: int):
+    """The unpaired Hermitian unpack (m = n/2 odd, split_stockham.py:
+    243-256): Z extended by Z[0], X = E + W*O over all n/2+1 bins."""
+    Zr = torch.cat([Zr, Zr[..., :1]], dim=-1)
+    Zi = torch.cat([Zi, Zi[..., :1]], dim=-1)
+    zrr, zri = torch.flip(Zr, [-1]), -torch.flip(Zi, [-1])  # conj(Z[m-k])
+    er, ei = 0.5 * (Zr + zrr), 0.5 * (Zi + zri)
+    k = np.arange(int(Zr.shape[-1]), dtype=np.float64)
+    wr, wi = _planes(np.exp(-2j * np.pi * k / n), Zr)
+    wor, woi = _twiddle_split(0.5 * (Zi - zri), -0.5 * (Zr - zrr), wr, wi)
+    return er + wor, ei + woi
+
+
+def _repack_unpaired(Xr, Xi, n: int):
+    """The unpaired Hermitian repack (m = n/2 odd, split_stockham.py:
+    326-337): Z = E + i*W^-k*D over all bins, cut to m."""
+    h = int(Xr.shape[-1])
+    xrr, xri = torch.flip(Xr, [-1]), -torch.flip(Xi, [-1])
+    er, ei = 0.5 * (Xr + xrr), 0.5 * (Xi + xri)
+    k = np.arange(h, dtype=np.float64)
+    wr, wi = _planes(np.exp(2j * np.pi * k / n), Xr)
+    o_r, o_i = _twiddle_split(0.5 * (Xr - xrr), 0.5 * (Xi - xri), wr, wi)
+    return (er - o_i)[..., : n // 2], (ei + o_r)[..., : n // 2]
+
+
+def _fused_enabled() -> bool:
+    """FFTLAB_RFFT_FUSED=0 opts out of the fused r2c/c2r kernels, as in
+    the JAX package (split_stockham.py:191); bench.py's fused/pipeline
+    A/B sets it."""
+    return os.environ.get("FFTLAB_RFFT_FUSED", "1") != "0"
+
+
+def rfft_split(x: torch.Tensor, leaf: int = DEFAULT_LEAF_SPLIT, cfft=None):
+    """Real-input FFT on the split path: real float32 [..., n] -> (re, im)
+    of the n//2+1 one-sided bins, by the pack-two-reals trick.
+
+    Routes, by n (and by whether `cfft` is given), never by device:
+      odd n or n < 4     the complex `fft_split` of (x, 0), Bluestein
+                         included, cut to n//2+1 bins;
+      the fused kernels  n/2 pow2 in 2^15..2^20 with the default cfft
+                         (kernels/rfft_resident.py; FFTLAB_RFFT_FUSED=0
+                         opts out);
+      pack -> cfft -> unpack kernels where kernels.rfft_vmem.pack_supported(n);
+      tensor ops         the paired unpack (n/2 even) or the unpaired one,
+                         on any device (the JAX package leaves them to XLA).
+    `cfft(re, im) -> (re, im)` overrides the half-size complex transform;
+    the default is `fft_split`, the einsum route. Another dtype than
+    float32 is refused, not cast."""
+    from fftlab_torch.kernels._common import check_real
+    from fftlab_torch.kernels.rfft_vmem import (pack_supported,
+                                                pallas_hermitian_unpack,
+                                                pallas_pack_real)
+
+    check_real(x, "rfft_split")
+    cfft_default = cfft is None
+    if cfft is None:
+        cfft = lambda a, b: fft_split(a, b, FORWARD, leaf)
+    n = int(x.shape[-1])
+    h = n // 2 + 1
+    if n % 2 or n < 4:
+        zr, zi = fft_split(x, torch.zeros_like(x), FORWARD, leaf)
+        return zr[..., :h], zi[..., :h]
+    if cfft_default and _fused_enabled():
+        from fftlab_torch.kernels.rfft_resident import (rfft_resident,
+                                                        supported_rfft_resident)
+
+        if supported_rfft_resident(n):
+            return rfft_resident(x)
+    if pack_supported(n):
+        Zr, Zi = cfft(*pallas_pack_real(x))
+        return pallas_hermitian_unpack(Zr, Zi, n)
+    Zr, Zi = cfft(x[..., 0::2], x[..., 1::2])
+    if (n // 2) % 2 == 0:
+        return _unpack_paired(Zr, Zi, n)
+    return _unpack_unpaired(Zr, Zi, n)
+
+
+def irfft_split(Xr: torch.Tensor, Xi: torch.Tensor, n: int | None = None,
+                leaf: int = DEFAULT_LEAF_SPLIT, cfft=None):
+    """One-sided (re, im) float32 spectrum -> real [..., n], 1/n scaled
+    (the inverse of rfft_split), with the routes of rfft_split: the fused
+    kernels where n = 2(h-1) fits them and `cfft` is the default; else
+    the paired repack (n/2 even; the `herm_repack` kernel on a CUDA
+    tensor, where the JAX package runs it in XLA) or the unpaired one in
+    tensor ops, `cfft`, and the `interleave` kernel where pack_supported(n)
+    (a stack otherwise). `cfft(re, im) -> (re, im)` overrides the
+    half-size inverse complex transform and must apply its 1/(n/2)."""
+    from fftlab_torch.kernels._common import check_planes
+    from fftlab_torch.kernels.rfft_vmem import (hermitian_repack,
+                                                pack_supported,
+                                                pallas_interleave)
+
+    check_planes(Xr, Xi, "irfft_split")
+    h = int(Xr.shape[-1])
+    if n is None:
+        n = 2 * (h - 1)
+    if cfft is None and n == 2 * (h - 1) and _fused_enabled():
+        from fftlab_torch.kernels.rfft_resident import (irfft_resident,
+                                                        supported_rfft_resident)
+
+        if supported_rfft_resident(n):
+            return irfft_resident(Xr, Xi)
+    if n % 2 or n < 4:
+        tr = torch.flip(Xr[..., 1 : n - h + 1], [-1])
+        ti = -torch.flip(Xi[..., 1 : n - h + 1], [-1])
+        fr = torch.cat([Xr[..., :h], tr], dim=-1)
+        fi = torch.cat([Xi[..., :h], ti], dim=-1)
+        yr, _ = fft_split(fr, fi, Direction.INVERSE, leaf)
+        return yr
+    m = n // 2
+    if m % 2 == 0:
+        Zr, Zi = hermitian_repack(Xr[..., : m + 1].contiguous(),
+                                  Xi[..., : m + 1].contiguous(), n)
+    else:
+        Zr, Zi = _repack_unpaired(Xr, Xi, n)
+    if cfft is None:
+        cfft = lambda a, b: fft_split(a, b, Direction.INVERSE, leaf)
+    zr, zi = cfft(Zr, Zi)
+    if pack_supported(n):
+        return pallas_interleave(zr, zi)
+    return torch.stack([zr, zi], dim=-1).reshape(*zr.shape[:-1], n)
 
 
 # The transpose-free sandwich. The forward stages leave the spectrum in

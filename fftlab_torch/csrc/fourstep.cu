@@ -1,6 +1,8 @@
-// fourstep_pass1 / fourstep_pass2 / fourstep_pass2_filter: the two-pass
+// fourstep_pass1 / fourstep_pass2 / fourstep_pass2_filter /
+// fourstep_pass1_packed / fourstep_pass2_interleaved: the two-pass
 // four-step FFT for power-of-two n = L1*L2 in 2^15..2^21 (L1 <= L2,
-// L1 <= 1024), and the FFT -> H -> IFFT sandwich on it.
+// L1 <= 1024), the FFT -> H -> IFFT sandwich on it, and its real-signal
+// load and store modes.
 //
 // Replaces two TPU kernels that compute one transform:
 //   fftlab/kernels/resident_vmem.py `_fft_resident_v6_impl` (one VMEM
@@ -31,6 +33,17 @@
 //   each output by H[k2*L1 + k1] (natural order) before the store, so
 //   the response costs one read of H and no pass of its own.
 //
+// The real-signal modes fuse the pack-two-reals deinterleave and its
+// inverse into the passes (K7's `_pack_impl` / `_interleave_impl` at the
+// edges of K6's `_rfft_resident_impl` / `_irfft_resident_impl`, whose
+// 8 MB signal cannot stay in one block either): pass 1 with kPackedReal
+// reads the real row x[b, 0..2m) as float2 pairs, complex element j =
+// (x[2j], x[2j+1]), so W = 16 columns are 128 contiguous bytes per j1;
+// pass 2 with kInterleaved stores element k as the float2
+// (x[2k], x[2k+1]) of a real row. The fused r2c is pass 1 (packed),
+// pass 2, herm_unpack (real.cu): three launches; the c2r is herm_repack,
+// pass 1, pass 2 (interleaved) with 1/m in its scale.
+//
 // Bound on this card: device memory. Each pass reads and writes the
 // signal once (32 bytes per point in all, 64 MB per pass at 16 x 2^20),
 // against about 5 n log2 n flops. Design: every FFT stage stays in
@@ -46,6 +59,9 @@
 
 using namespace fftlab;
 
+// kPackedReal: xr is a real row of 2*L1*L2 floats, read as float2 pairs
+// (xi unused).
+template <bool kPackedReal>
 __global__ void __launch_bounds__(kMaxThreads)
 fourstep_pass1_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
                       float* __restrict__ mr, float* __restrict__ mi,
@@ -61,7 +77,11 @@ fourstep_pass1_kernel(const float* __restrict__ xr, const float* __restrict__ xi
   const size_t col0 = (b << (log_l1 + log_l2)) + (static_cast<size_t>(c) << log_w);
   for (int e = threadIdx.x; e < tile; e += blockDim.x) {
     const size_t g = col0 + (static_cast<size_t>(e >> log_w) << log_l2) + (e & w_mask);
-    s[e] = make_float2(xr[g], xi[g]);
+    if constexpr (kPackedReal) {
+      s[e] = reinterpret_cast<const float2*>(xr)[g];
+    } else {
+      s[e] = make_float2(xr[g], xi[g]);
+    }
   }
   __syncthreads();
   fft_smem(s, tw1, log_l1, log_w, sign, 1.0f);
@@ -76,8 +96,14 @@ fourstep_pass1_kernel(const float* __restrict__ xr, const float* __restrict__ xi
   }
 }
 
-// kFilter: multiply each output bin k by hr[k] + i*hi[k] before the store.
-template <bool kFilter>
+// What pass 2 does at its store: kPlainStore writes the two planes;
+// kFilter multiplies each output bin k by hr[k] + i*hi[k] first;
+// kInterleaved writes bin k as the float2 (yr[2k], yr[2k+1]) of a real
+// row (yi unused). Template parameters, not a runtime branch: a runtime
+// null check of H cost the plain pass 2 six registers.
+enum Pass2Mode { kPlainStore, kFilter, kInterleaved };
+
+template <int kMode>
 __global__ void __launch_bounds__(kMaxThreads)
 fourstep_pass2_kernel(const float* __restrict__ mr, const float* __restrict__ mi,
                       float* __restrict__ yr, float* __restrict__ yi,
@@ -103,9 +129,13 @@ fourstep_pass2_kernel(const float* __restrict__ mr, const float* __restrict__ mi
     // e = k2*R + r  ->  natural index k = k2*L1 + k1_0 + r
     const size_t k = (static_cast<size_t>(e >> log_r) << log_l1) + k1_0 + (e & r_mask);
     float2 v = s[e];
-    if constexpr (kFilter) v = cmul(v, make_float2(__ldg(hr + k), __ldg(hi + k)));
-    yr[base + k] = v.x;
-    yi[base + k] = v.y;
+    if constexpr (kMode == kFilter) v = cmul(v, make_float2(__ldg(hr + k), __ldg(hi + k)));
+    if constexpr (kMode == kInterleaved) {
+      reinterpret_cast<float2*>(yr)[base + k] = v;
+    } else {
+      yr[base + k] = v.x;
+      yi[base + k] = v.y;
+    }
   }
 }
 
@@ -114,6 +144,27 @@ namespace {
 bool valid_tile(int log_l, int log_t) {
   const int tile = 1 << (log_l + log_t);
   return log_l >= 1 && tile <= kMaxTile && tile / kPerThread >= 32;
+}
+
+template <bool kPackedReal>
+int launch_pass1(const float* xr, const float* xi, float* mr, float* mi, const void* tw1,
+                 const void* a_tab, const void* p_tab, long long batch, int log_l1, int log_l2,
+                 int log_w, int direction, void* stream) {
+  const long long blocks = batch << (log_l2 - log_w);
+  if (!valid_tile(log_l1, log_w) || log_w > log_l2 || batch < 1 || blocks > INT_MAX ||
+      (direction != 1 && direction != -1)) {
+    return cudaErrorInvalidValue;
+  }
+  const int threads = (1 << (log_l1 + log_w)) / kPerThread;
+  const int smem = static_cast<int>(sizeof(float2)) << (log_l1 + log_w);
+  cudaError_t err = cudaFuncSetAttribute(fourstep_pass1_kernel<kPackedReal>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  fourstep_pass1_kernel<kPackedReal><<<static_cast<unsigned>(blocks), threads, smem,
+                                       static_cast<cudaStream_t>(stream)>>>(
+      xr, xi, mr, mi, static_cast<const float2*>(tw1), static_cast<const float2*>(a_tab),
+      static_cast<const float2*>(p_tab), log_l1, log_l2, log_w, static_cast<float>(direction));
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -125,27 +176,25 @@ extern "C" int fftlab_fourstep_pass1(const float* xr, const float* xi, float* mr
                                      const void* tw1, const void* a_tab, const void* p_tab,
                                      long long batch, int log_l1, int log_l2, int log_w,
                                      int direction, void* stream) {
-  const long long blocks = batch << (log_l2 - log_w);
-  if (!valid_tile(log_l1, log_w) || log_w > log_l2 || batch < 1 || blocks > INT_MAX ||
-      (direction != 1 && direction != -1)) {
-    return cudaErrorInvalidValue;
-  }
-  const int threads = (1 << (log_l1 + log_w)) / kPerThread;
-  const int smem = static_cast<int>(sizeof(float2)) << (log_l1 + log_w);
-  cudaError_t err = cudaFuncSetAttribute(
-      fourstep_pass1_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  fourstep_pass1_kernel<<<static_cast<unsigned>(blocks), threads, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
-      xr, xi, mr, mi, static_cast<const float2*>(tw1), static_cast<const float2*>(a_tab),
-      static_cast<const float2*>(p_tab), log_l1, log_l2, log_w, static_cast<float>(direction));
-  return cudaGetLastError();
+  return launch_pass1<false>(xr, xi, mr, mi, tw1, a_tab, p_tab, batch, log_l1, log_l2, log_w,
+                             direction, stream);
+}
+
+// Pass 1 of a packed real signal. x: [batch, 2*L1*L2] float32 (8-byte
+// aligned), complex element j = (x[2j], x[2j+1]); the rest as
+// fftlab_fourstep_pass1. Returns a cudaError_t.
+extern "C" int fftlab_fourstep_pass1_packed(const float* x, float* mr, float* mi,
+                                            const void* tw1, const void* a_tab,
+                                            const void* p_tab, long long batch, int log_l1,
+                                            int log_l2, int log_w, int direction, void* stream) {
+  return launch_pass1<true>(x, nullptr, mr, mi, tw1, a_tab, p_tab, batch, log_l1, log_l2, log_w,
+                            direction, stream);
 }
 
 namespace {
 
-// Pass 2, with the response H multiplied before the store when kFilter.
-template <bool kFilter>
+// Pass 2, with the store of `kMode`.
+template <int kMode>
 int launch_pass2(const float* mr, const float* mi, float* yr, float* yi, const void* tw2,
                  const float* hr, const float* hi, long long batch, int log_l1, int log_l2,
                  int log_r, int direction, float scale, void* stream) {
@@ -157,10 +206,10 @@ int launch_pass2(const float* mr, const float* mi, float* yr, float* yi, const v
   const int threads = (1 << (log_l2 + log_r)) / kPerThread;
   const int smem = static_cast<int>(sizeof(float2)) << (log_l2 + log_r);
   cudaError_t err = cudaFuncSetAttribute(
-      fourstep_pass2_kernel<kFilter>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      fourstep_pass2_kernel<kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  fourstep_pass2_kernel<kFilter><<<static_cast<unsigned>(blocks), threads, smem,
-                                   static_cast<cudaStream_t>(stream)>>>(
+  fourstep_pass2_kernel<kMode><<<static_cast<unsigned>(blocks), threads, smem,
+                                 static_cast<cudaStream_t>(stream)>>>(
       mr, mi, yr, yi, static_cast<const float2*>(tw2), hr, hi, log_l1, log_l2, log_r,
       static_cast<float>(direction), scale);
   return cudaGetLastError();
@@ -174,8 +223,8 @@ int launch_pass2(const float* mr, const float* mi, float* yr, float* yi, const v
 extern "C" int fftlab_fourstep_pass2(const float* mr, const float* mi, float* yr, float* yi,
                                      const void* tw2, long long batch, int log_l1, int log_l2,
                                      int log_r, int direction, float scale, void* stream) {
-  return launch_pass2<false>(mr, mi, yr, yi, tw2, nullptr, nullptr, batch, log_l1, log_l2,
-                             log_r, direction, scale, stream);
+  return launch_pass2<kPlainStore>(mr, mi, yr, yi, tw2, nullptr, nullptr, batch, log_l1,
+                                   log_l2, log_r, direction, scale, stream);
 }
 
 // Pass 2 with the spectral response in its epilogue: as
@@ -187,8 +236,19 @@ extern "C" int fftlab_fourstep_pass2_filter(const float* mr, const float* mi, fl
                                             int log_l2, int log_r, int direction, float scale,
                                             void* stream) {
   if (hr == nullptr || hi == nullptr) return cudaErrorInvalidValue;
-  return launch_pass2<true>(mr, mi, yr, yi, tw2, hr, hi, batch, log_l1, log_l2, log_r,
-                            direction, scale, stream);
+  return launch_pass2<kFilter>(mr, mi, yr, yi, tw2, hr, hi, batch, log_l1, log_l2, log_r,
+                               direction, scale, stream);
+}
+
+// Pass 2 into a real signal: as fftlab_fourstep_pass2, with output bin k
+// stored as the float2 (y[2k], y[2k+1]) of y: [batch, 2*L1*L2] float32
+// (8-byte aligned). Returns a cudaError_t.
+extern "C" int fftlab_fourstep_pass2_interleaved(const float* mr, const float* mi, float* y,
+                                                 const void* tw2, long long batch, int log_l1,
+                                                 int log_l2, int log_r, int direction,
+                                                 float scale, void* stream) {
+  return launch_pass2<kInterleaved>(mr, mi, y, nullptr, tw2, nullptr, nullptr, batch, log_l1,
+                                    log_l2, log_r, direction, scale, stream);
 }
 
 // Message for a cudaError_t returned by the functions above.

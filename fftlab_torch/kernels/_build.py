@@ -55,6 +55,23 @@ SIGNATURES = {
     # scale, stream
     "fftlab_os_filter": (_P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _I, _F,
                          _P),
+    # x, mr, mi, tw1, a_tab, p_tab, batch, log_l1, log_l2, log_w, direction,
+    # stream
+    "fftlab_fourstep_pass1_packed": (_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I,
+                                     _P),
+    # mr, mi, y, tw2, batch, log_l1, log_l2, log_r, direction, scale, stream
+    "fftlab_fourstep_pass2_interleaved": (_P, _P, _P, _P, _LL, _I, _I, _I, _I, _F,
+                                          _P),
+    # x, zr, zi, total, stream
+    "fftlab_pack_real": (_P, _P, _P, _LL, _P),
+    # zr, zi, x, total, stream
+    "fftlab_interleave": (_P, _P, _P, _LL, _P),
+    # zr, zi, xr, xi, tw, rows, m, scale, stream
+    "fftlab_herm_unpack": (_P, _P, _P, _P, _P, _LL, _I, _F, _P),
+    # xr, xi, zr, zi, tw, rows, m, stream
+    "fftlab_herm_repack": (_P, _P, _P, _P, _P, _LL, _I, _P),
+    # x, n, win, tw, utw, yr, yi, n_frames, hop, log_m, log_t, bins, stream
+    "fftlab_stft_frames": (_P, _LL, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _P),
 }
 
 

@@ -10,15 +10,38 @@ import torch
 from fftlab_torch.core.types import Direction
 
 
+class DtypeError(TypeError, ValueError):
+    """A tensor of a dtype the port does not take. Nothing is cast: the
+    split planes have always raised a TypeError here, and the real-signal
+    entry points a ValueError (where the JAX package casts to float32
+    without a word), so this is both."""
+
+
 def check_planes(xr: torch.Tensor, xi: torch.Tensor, name: str) -> None:
     """Split planes: float32 tensors of one shape on one device. Nothing is
     cast: a float64 or half input is refused, not converted."""
     if xr.dtype != torch.float32 or xi.dtype != torch.float32:
-        raise TypeError(f"{name} takes float32 planes; got {xr.dtype}, {xi.dtype}")
+        raise DtypeError(f"{name} takes float32 planes; got {xr.dtype}, {xi.dtype}")
     if xr.shape != xi.shape:
         raise ValueError(f"{name}: re/im shape mismatch {tuple(xr.shape)} vs {tuple(xi.shape)}")
     if xr.device != xi.device:
         raise ValueError(f"{name}: re/im on different devices {xr.device}, {xi.device}")
+
+
+def check_real(x, name: str) -> None:
+    """A real signal: a float32 tensor. Nothing is cast."""
+    if not isinstance(x, torch.Tensor) or x.dtype != torch.float32:
+        got = x.dtype if isinstance(x, torch.Tensor) else type(x).__name__
+        raise DtypeError(f"{name} takes a float32 tensor; got {got}")
+
+
+def check_aligned(*tensors: torch.Tensor, name: str) -> None:
+    """A kernel that reads or writes (x[2j], x[2j+1]) as one float2 needs
+    8-byte aligned rows; a view at an odd offset is refused, not copied."""
+    for t in tensors:
+        if t.data_ptr() % 8:
+            raise ValueError(f"{name} reads float2 pairs and needs 8-byte aligned "
+                             f"data; got a view at an odd element offset")
 
 
 def check_cuda(*tensors: torch.Tensor, name: str) -> None:

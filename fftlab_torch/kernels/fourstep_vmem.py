@@ -17,6 +17,14 @@ the pass-1 twiddle in the rank-1 form A[c, k1]*P[k1, l] of
 `_rank1_twiddle_np`. Forward unscaled, inverse 1/n; `scale` multiplies
 the output on top and is folded into pass 2 only.
 
+The real-signal modes fuse K7's pack and interleave into the passes:
+`fourstep_pass1_packed` reads a real [B, 2n] row as float2 pairs,
+complex element j = (x[2j], x[2j+1]), and `fourstep_pass2_interleaved`
+stores bin k as the float2 (y[2k], y[2k+1]) of a real [B, 2n] row; they
+make the fused r2c/c2r of kernels/rfft_resident.py. `rfft_split_large`
+and `irfft_split_large` run the half-size transform of a real signal on
+these passes (fftlab/kernels/fourstep_vmem.py:797-847).
+
 `spectral_filter_large` is the FFT -> H -> IFFT sandwich on the same
 passes (fftlab/kernels/fourstep_vmem.py:667-749): pass 1, pass 2 with H
 multiplied in its epilogue (`fourstep_pass2_filter`), then the inverse
@@ -37,8 +45,10 @@ from fftlab_torch.core.types import (FORWARD, INVERSE, Direction, is_power_of_tw
                                      log2_int)
 from fftlab_torch.kernels import _build
 from fftlab_torch.kernels._common import (
+    check_aligned,
     check_cuda,
     check_planes,
+    check_real,
     check_response,
     complex_table,
     effective_scale,
@@ -59,7 +69,12 @@ MAX_TILE = 16384
 
 # Launches of the CUDA kernels since the counts were last reset.
 LAUNCHES = {"fourstep_pass1": 0, "fourstep_pass2": 0,
-            "fourstep_pass2_filter": 0}
+            "fourstep_pass2_filter": 0, "fourstep_pass1_packed": 0,
+            "fourstep_pass2_interleaved": 0}
+
+# The three-pass kernel's window (ROADMAP K4), which the half-size
+# transform of `rfft_split_large` reaches above MAX_N.
+MAX_HUGE_N = 1 << 26
 
 
 def supported_large(n: int) -> bool:
@@ -207,10 +222,32 @@ def _pass2_twiddle(L2: int, direction: Direction, device: torch.device):
     return complex_table(twiddle_np(L2, direction), device)
 
 
-def _check_launch(xr, xi, name: str) -> int:
-    check_planes(xr, xi, name)
-    check_cuda(xr, xi, name=name)
-    n = int(xr.shape[-1])
+def fourstep_pass1_packed_plain(x: torch.Tensor, direction=FORWARD):
+    """Plain version of `fourstep_pass1_packed`: pass 1 of the even and
+    odd samples of a real [B, 2n] signal, as strided views."""
+    return fourstep_pass1_plain(x[:, 0::2], x[:, 1::2], direction)
+
+
+def fourstep_pass2_interleaved_plain(mr: torch.Tensor, mi: torch.Tensor,
+                                     direction=FORWARD, scale: float = 1.0):
+    """Plain version of `fourstep_pass2_interleaved`: pass 2, then the
+    planes interleaved into a real [B, 2n] signal."""
+    yr, yi = fourstep_pass2_plain(mr, mi, direction, scale)
+    B, n = yr.shape
+    return torch.stack([yr, yi], dim=-1).reshape(B, 2 * n)
+
+
+def _check_launch(xr, xi, name: str, n: int | None = None) -> int:
+    """Checks of a pass launch on [B, n] planes; for a real row, xi is
+    None and `n` the complex length, half the row's."""
+    if xi is None:
+        check_real(xr, name)
+        check_cuda(xr, name=name)
+        check_aligned(xr, name=name)
+    else:
+        check_planes(xr, xi, name)
+        check_cuda(xr, xi, name=name)
+    n = int(xr.shape[-1]) if n is None else n
     if xr.dim() != 2 or not supported_large(n):
         raise ValueError(f"{name} takes [B, n] planes, pow2 n in "
                          f"[{MIN_N}, {MAX_N}]; got {tuple(xr.shape)}")
@@ -220,21 +257,39 @@ def _check_launch(xr, xi, name: str) -> int:
 def fourstep_pass1(xr: torch.Tensor, xi: torch.Tensor, direction=FORWARD):
     """Launch pass 1 on contiguous [B, n] CUDA planes; returns the
     intermediate planes [B, n] (row-major (B, L1, L2))."""
+    return _launch_pass1("fourstep_pass1", xr, xi, direction)
+
+
+def fourstep_pass1_packed(x: torch.Tensor, direction=FORWARD):
+    """Launch pass 1 on a contiguous real [B, 2n] CUDA signal (8-byte
+    aligned) read as the complex [B, n] sequence (x[2j], x[2j+1]);
+    returns the intermediate planes [B, n]."""
+    if x.shape[-1] % 2:
+        raise ValueError(f"fourstep_pass1_packed takes an even length; got "
+                         f"{tuple(x.shape)}")
+    return _launch_pass1("fourstep_pass1_packed", x, None, direction)
+
+
+def _launch_pass1(name: str, xr, xi, direction):
     direction = Direction(int(direction))
-    n = _check_launch(xr, xi, "fourstep_pass1")
+    packed = xi is None
+    n = _check_launch(xr, xi, name, int(xr.shape[-1]) // 2 if packed else None)
     L1, L2 = _split_sides(n)
     lib = _build.load_library()
-    mr = torch.empty_like(xr)
-    mi = torch.empty_like(xi)
+    B = xr.shape[0]
+    mr = torch.empty(B, n, device=xr.device)
+    mi = torch.empty_like(mr)
     tw1, a_tab, p_tab = _pass1_tables(n, direction, xr.device)
+    args = (mr.data_ptr(), mi.data_ptr(), tw1.data_ptr(), a_tab.data_ptr(),
+            p_tab.data_ptr(), B, log2_int(L1), log2_int(L2), log2_int(PASS1_WIDTH),
+            int(direction), stream_of(xr))
     with torch.cuda.device(xr.device):
-        rc = lib.fftlab_fourstep_pass1(
-            xr.data_ptr(), xi.data_ptr(), mr.data_ptr(), mi.data_ptr(),
-            tw1.data_ptr(), a_tab.data_ptr(), p_tab.data_ptr(), xr.shape[0],
-            log2_int(L1), log2_int(L2), log2_int(PASS1_WIDTH), int(direction),
-            stream_of(xr))
-    _build.check(lib, "fourstep_pass1", rc)
-    LAUNCHES["fourstep_pass1"] += 1
+        if packed:
+            rc = lib.fftlab_fourstep_pass1_packed(xr.data_ptr(), *args)
+        else:
+            rc = lib.fftlab_fourstep_pass1(xr.data_ptr(), xi.data_ptr(), *args)
+    _build.check(lib, name, rc)
+    LAUNCHES[name] += 1
     return mr, mi
 
 
@@ -253,6 +308,15 @@ def fourstep_pass2_filter(mr: torch.Tensor, mi: torch.Tensor, hr: torch.Tensor,
                          scale)
 
 
+def fourstep_pass2_interleaved(mr: torch.Tensor, mi: torch.Tensor,
+                               direction=FORWARD, scale: float = 1.0):
+    """Launch pass 2 on the contiguous [B, n] intermediate planes with
+    the natural-order spectrum stored interleaved: returns the real
+    [B, 2n] signal whose (2k, 2k+1) samples are bin k's (re, im)."""
+    return _launch_pass2("fourstep_pass2_interleaved", mr, mi, None, direction,
+                         scale)
+
+
 def _launch_pass2(name: str, mr, mi, h, direction, scale: float):
     direction = Direction(int(direction))
     n = _check_launch(mr, mi, name)
@@ -261,23 +325,29 @@ def _launch_pass2(name: str, mr, mi, h, direction, scale: float):
         check_response(*h, n, mr, name)
     L1, L2 = _split_sides(n)
     lib = _build.load_library()
-    yr = torch.empty_like(mr)
-    yi = torch.empty_like(mi)
     tw2 = _pass2_twiddle(L2, direction, mr.device)
     args = (mr.shape[0], log2_int(L1), log2_int(L2), log2_int(_pass2_rows(L2)),
             int(direction), float(scale), stream_of(mr))
+    interleaved = name == "fourstep_pass2_interleaved"
+    if interleaved:
+        out = torch.empty(mr.shape[0], 2 * n, device=mr.device)
+    else:
+        out = (torch.empty_like(mr), torch.empty_like(mi))
     with torch.cuda.device(mr.device):
-        if h is None:
+        if interleaved:
+            rc = lib.fftlab_fourstep_pass2_interleaved(
+                mr.data_ptr(), mi.data_ptr(), out.data_ptr(), tw2.data_ptr(), *args)
+        elif h is None:
             rc = lib.fftlab_fourstep_pass2(
-                mr.data_ptr(), mi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
+                mr.data_ptr(), mi.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
                 tw2.data_ptr(), *args)
         else:
             rc = lib.fftlab_fourstep_pass2_filter(
-                mr.data_ptr(), mi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
+                mr.data_ptr(), mi.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
                 tw2.data_ptr(), h[0].data_ptr(), h[1].data_ptr(), *args)
     _build.check(lib, name, rc)
     LAUNCHES[name] += 1
-    return yr, yi
+    return out
 
 
 def fft_split_large(xr: torch.Tensor, xi: torch.Tensor, direction=FORWARD,
@@ -301,6 +371,48 @@ def fft_split_large(xr: torch.Tensor, xi: torch.Tensor, direction=FORWARD,
         mr, mi = fourstep_pass1(x2r, x2i, direction)
         yr, yi = fourstep_pass2(mr, mi, direction, eff)
     return yr.reshape(xr.shape), yi.reshape(xi.shape)
+
+
+def _half_cfft(name: str, n: int, direction):
+    """The half-size complex transform of a real length-n signal: the
+    two-pass kernels where n/2 fits them (2^15..2^21), the einsum route
+    in the three-pass window 2^22..2^26 until that kernel (ROADMAP K4) is
+    ported, else a ValueError naming both constraints."""
+    if n % 2:
+        raise ValueError(f"{name} needs even n; got {n}")
+    half = n // 2
+    if supported_large(half):
+        return lambda a, b: fft_split_large(a, b, direction)
+    if not (is_power_of_two(half) and MAX_N < half <= MAX_HUGE_N):
+        raise ValueError(f"{name} needs n/2 to be a power of two in "
+                         f"[{MIN_N}, 2^26]; got n={n} (n/2={half})")
+    from fftlab_torch.algos.split_stockham import fft_split
+
+    return lambda a, b: fft_split(a, b, direction)
+
+
+def rfft_split_large(x: torch.Tensor):
+    """Real-input FFT of long signals: real [..., n] -> one-sided (re, im)
+    of n//2+1 bins, the half-size transform on the two-pass kernels (n/2
+    pow2 in 2^15..2^21) or, for n/2 in 2^22..2^26, on the einsum route
+    until the three-pass kernel is ported. Pack-two-reals, as
+    `algos.split_stockham.rfft_split` with that `cfft`."""
+    from fftlab_torch.algos.split_stockham import rfft_split
+
+    check_real(x, "rfft_split_large")
+    cfft = _half_cfft("rfft_split_large", int(x.shape[-1]), FORWARD)
+    return rfft_split(x, cfft=cfft)
+
+
+def irfft_split_large(Xr: torch.Tensor, Xi: torch.Tensor, n: int | None = None):
+    """Inverse of `rfft_split_large`: one-sided (re, im) of n//2+1 bins ->
+    real [..., n], 1/n scaled, the half-size inverse on the same routes."""
+    from fftlab_torch.algos.split_stockham import irfft_split
+
+    if n is None:
+        n = 2 * (int(Xr.shape[-1]) - 1)
+    cfft = _half_cfft("irfft_split_large", n, INVERSE)
+    return irfft_split(Xr, Xi, n=n, cfft=cfft)
 
 
 def fourstep_pass2_filter_plain(mr: torch.Tensor, mi: torch.Tensor,

@@ -1,6 +1,7 @@
 """fftlab_torch's CUDA kernels on the card: each kernel against its plain
 version and a float64 oracle, the launch counts of the main paths (the
-FFT and the spectral filter), and the wrappers' refusals. Every test
+FFT, the spectral filter and the real-signal path), and the wrappers'
+refusals. Every test
 here needs a CUDA card and skips without one.
 
 This file imports neither jax nor fftlab, so it runs where JAX is not
@@ -14,7 +15,9 @@ oracle >= 120 dB (two-pass, and the two-pass sandwich) or >= 110 dB
 (tests/test_resident_vmem.py:37, tests/test_kernels.py:39); the
 overlap-save filter >= 100 dB against np.convolve (bench.py's serving
 gate, :515-526); Bluestein >= 95 dB (tests/test_split.py:272); a stream
-within 2e-4 of the whole-signal call (tests/test_filter_plan.py:75-89).
+within 2e-4 of the whole-signal call (tests/test_filter_plan.py:75-89);
+the real-signal kernels >= 110 dB against np.fft.rfft / irfft and a
+float64 framed STFT, the pack and interleave bit-exact (a copy).
 The plain versions run with TF32 off: TF32 matmuls would cost about
 60 dB."""
 
@@ -25,7 +28,8 @@ import torch
 import fftlab_torch
 from _torch_parity import (CASE_IDS, CASES, cplx, hide_nvcc, oracle, planes,
                            requires_cuda, snr_db, tt, whole_scale)
-from fftlab_torch.kernels import _build, fft_vmem, fourstep_vmem, os_filter_vmem
+from fftlab_torch.kernels import (_build, fft_vmem, fourstep_vmem, os_filter_vmem,
+                                  rfft_resident, rfft_vmem, stft_vmem)
 from fftlab_torch.plan import hardware
 
 pytestmark = requires_cuda
@@ -97,7 +101,8 @@ def test_slice_launches_kernels(n, route, kernels):
 
 
 def _launches():
-    return {**fft_vmem.LAUNCHES, **fourstep_vmem.LAUNCHES, **os_filter_vmem.LAUNCHES}
+    return {**fft_vmem.LAUNCHES, **fourstep_vmem.LAUNCHES, **os_filter_vmem.LAUNCHES,
+            **rfft_vmem.LAUNCHES, **stft_vmem.LAUNCHES}
 
 
 def _sandwich_oracle(xr, xi, hr, hi):
@@ -233,6 +238,161 @@ def test_wrappers_refuse_without_casting():
         fourstep_vmem.fourstep_pass1(xt, xt)
     with pytest.raises(ValueError, match="contiguous"):
         fft_vmem.fft_rows(xt[:, :8192], xt[:, :8192])
+
+
+def _real(seed, shape):
+    x = np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+    return x, tt(x, "cuda")
+
+
+def test_pack_and_interleave_are_copies():
+    x, xc = _real(1, (4, 1 << 16))
+    before = _launches()
+    zr, zi = rfft_vmem.pack_real(xc)
+    back = rfft_vmem.interleave(zr, zi)
+    after = _launches()
+    assert after["pack_real"] == before["pack_real"] + 1
+    assert after["interleave"] == before["interleave"] + 1
+    assert np.array_equal(zr.cpu().numpy(), x[:, 0::2])
+    assert np.array_equal(zi.cpu().numpy(), x[:, 1::2])
+    assert np.array_equal(back.cpu().numpy(), x)
+
+
+@pytest.mark.parametrize("m", [2, 6, 1 << 12, 1 << 20])
+def test_herm_unpack_and_repack_match_plain(m):
+    x, xc = _real(m, (3, 2 * m))
+    z = x[:, 0::2].astype(np.float64) + 1j * x[:, 1::2]
+    Z = np.fft.fft(z, axis=-1)
+    zr, zi = tt(Z.real.astype(np.float32), "cuda"), tt(Z.imag.astype(np.float32), "cuda")
+    got = cplx(*rfft_vmem.herm_unpack(zr, zi, 0.5))
+    assert snr_db(got, cplx(*rfft_vmem.herm_unpack_plain(zr, zi, 2 * m, 0.5))) >= 110.0
+    want = np.fft.rfft(x.astype(np.float64), axis=-1)
+    assert snr_db(got, 0.5 * want) >= 110.0
+    Xr, Xi = (tt(a.astype(np.float32), "cuda") for a in (want.real, want.imag))
+    back = cplx(*rfft_vmem.herm_repack(Xr, Xi))
+    assert snr_db(back, cplx(*rfft_vmem.herm_repack_plain(Xr, Xi))) >= 110.0
+    assert snr_db(back, Z) >= 110.0
+
+
+@pytest.mark.parametrize("n", [1 << 15, 1 << 20, 1 << 21])
+@pytest.mark.parametrize("direction", [-1, 1])
+def test_packed_and_interleaved_passes_match_plain(no_tf32, n, direction):
+    x, xc = _real(n % 91, (2, 2 * n))
+    mid = fourstep_vmem.fourstep_pass1_packed(xc, direction)
+    mid_plain = fourstep_vmem.fourstep_pass1_packed_plain(xc, direction)
+    assert snr_db(cplx(*mid), cplx(*mid_plain)) >= 110.0
+    y = fourstep_vmem.fourstep_pass2_interleaved(*mid, direction, 0.5)
+    y_plain = fourstep_vmem.fourstep_pass2_interleaved_plain(*mid, direction, 0.5)
+    assert y.shape == (2, 2 * n)
+    assert snr_db(y.cpu().numpy(), y_plain.cpu().numpy()) >= 110.0
+    z = oracle(x[:, 0::2], x[:, 1::2], direction, 0.5)
+    want = np.stack([z.real, z.imag], axis=-1).reshape(2, 2 * n)
+    assert snr_db(y.cpu().numpy(), want) >= 110.0
+
+
+@pytest.mark.parametrize("n", [1 << 16, 1 << 21])
+def test_fused_real_transforms_match_plain(no_tf32, n):
+    x, xc = _real(n % 89, (4, n))
+    before = _launches()
+    Xr, Xi = rfft_resident.rfft_resident(xc, scale=0.5)
+    mid = _launches()
+    y = rfft_resident.irfft_resident(Xr, Xi, scale=2.0)
+    after = _launches()
+    assert [mid[k] - before[k] for k in
+            ("fourstep_pass1_packed", "fourstep_pass2", "herm_unpack")] == [1, 1, 1]
+    assert [after[k] - mid[k] for k in
+            ("herm_repack", "fourstep_pass1", "fourstep_pass2_interleaved")] == [1, 1, 1]
+    got = cplx(Xr, Xi)
+    assert snr_db(got, cplx(*rfft_resident.rfft_resident_plain(xc, 0.5))) >= 110.0
+    assert snr_db(got, 0.5 * np.fft.rfft(x.astype(np.float64), axis=-1)) >= 110.0
+    assert snr_db(y.cpu().numpy(),
+                  rfft_resident.irfft_resident_plain(Xr, Xi, 2.0).cpu().numpy()) >= 110.0
+    assert snr_db(y.cpu().numpy(), x.astype(np.float64)) >= 110.0
+
+
+@pytest.mark.parametrize("n,algorithm,kernels", [
+    (1 << 21, "rfft_resident", ("fourstep_pass1_packed", "herm_unpack")),
+    (1 << 22, "rfft_split[two_pass]", ("pack_real", "fourstep_pass1", "herm_unpack")),
+    (16384, "rfft_split[smem_rows]", ("pack_real", "fft_rows", "herm_unpack"))])
+def test_real_plans_launch_kernels(no_tf32, n, algorithm, kernels):
+    x, xc = _real(n % 83, (2, n))
+    r2c = fftlab_torch.plan_r2c_1d_split(n, batch=2)
+    c2r = fftlab_torch.plan_c2r_1d_split(n, batch=2)
+    assert r2c.algorithm == algorithm and c2r.algorithm == "i" + algorithm
+    before = _launches()
+    X = r2c.execute(xc)
+    after = _launches()
+    for k in kernels:
+        assert after[k] > before[k], k
+    assert snr_db(cplx(*X), np.fft.rfft(x.astype(np.float64), axis=-1)) >= 110.0
+    y = c2r.execute(X)
+    assert _launches()["herm_repack"] > after["herm_repack"]
+    assert snr_db(y.cpu().numpy(), x.astype(np.float64)) >= 110.0
+
+
+@pytest.mark.parametrize("n", [1000, 8192])
+def test_c2r_repack_runs_the_kernel(no_tf32, n):
+    """Every c2r with an even half size repacks with `herm_repack` on the
+    card, inside the pack window (8192) and outside it (1000)."""
+    x, xc = _real(n, (3, n))
+    X = fftlab_torch.rfft_split(xc)
+    before = rfft_vmem.LAUNCHES["herm_repack"]
+    y = fftlab_torch.irfft_split(*X, n=n)
+    assert rfft_vmem.LAUNCHES["herm_repack"] == before + 1
+    assert snr_db(cplx(*X), np.fft.rfft(x.astype(np.float64), axis=-1)) >= 110.0
+    assert snr_db(y.cpu().numpy(), x.astype(np.float64)) >= 110.0
+
+
+def _stft_oracle(x, fft_size, hop, n_frames, onesided):
+    need = (n_frames - 1) * hop + fft_size
+    xp = np.zeros(max(need, len(x)))
+    xp[:len(x)] = x
+    w = 0.5 * (1 - np.cos(2 * np.pi * np.arange(fft_size) / fft_size))
+    frames = np.stack([xp[k * hop:k * hop + fft_size] * w for k in range(n_frames)])
+    return np.fft.rfft(frames) if onesided else np.fft.fft(frames)
+
+
+@pytest.mark.parametrize("fft_size,hop,n", [(2048, 512, 1 << 20), (256, 128, 1 << 20),
+                                            (128, 128, 100003), (512, 256, 70001),
+                                            (16384, 4096, 300001), (1024, 128, 99999)])
+@pytest.mark.parametrize("onesided", [True, False], ids=["onesided", "twosided"])
+def test_stft_frames_matches_plain(no_tf32, fft_size, hop, n, onesided):
+    x, xc = _real(fft_size + n, n)
+    before = stft_vmem.LAUNCHES["stft_frames"]
+    got = fftlab_torch.stft_split(xc, fft_size, hop, onesided=onesided)
+    assert stft_vmem.LAUNCHES["stft_frames"] == before + 1
+    n_frames = max(-(-max(n - fft_size, 0) // hop) + 1, 1)
+    w = stft_vmem.window_table("hann", fft_size, xc.device)
+    plain = stft_vmem.stft_frames_plain(xc, fft_size, hop, w, n_frames, onesided)
+    assert got[0].shape == plain[0].shape
+    assert snr_db(cplx(*got), cplx(*plain)) >= 110.0
+    assert snr_db(cplx(*got), _stft_oracle(x, fft_size, hop, n_frames, onesided)) >= 110.0
+
+
+def test_real_kernels_refuse_odd_offsets():
+    """The float2 loads and stores need 8-byte aligned data: a view at an
+    odd element offset raises a ValueError, it is not copied."""
+    x = torch.zeros(2 * (1 << 16) + 1, device="cuda")
+    odd = x[1:].reshape(2, 1 << 16)
+    with pytest.raises(ValueError, match="aligned"):
+        rfft_vmem.pack_real(odd)
+    with pytest.raises(ValueError, match="aligned"):
+        fourstep_vmem.fourstep_pass1_packed(odd)
+    w = torch.ones(2048, device="cuda")
+    with pytest.raises(ValueError, match="aligned"):
+        stft_vmem.stft_frames(x[1:], 2048, 512, w, 4)
+    with pytest.raises(ValueError, match="aligned"):
+        fftlab_torch.stft_split(x[1:], 2048, 512)
+    with pytest.raises(ValueError, match="even hop"):
+        stft_vmem.stft_frames(x[:-1], 2048, 511, w, 4)
+
+
+def test_real_path_refuses_other_dtypes_on_the_card():
+    x64 = torch.zeros(2, 1 << 16, dtype=torch.float64, device="cuda")
+    for fn in (fftlab_torch.rfft_split, rfft_resident.rfft_resident, rfft_vmem.pack_real,
+               lambda x: fftlab_torch.stft_split(x[0], 2048, 512)):
+        with pytest.raises(ValueError, match="float32"):
+            fn(x64)
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):

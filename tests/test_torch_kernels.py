@@ -231,7 +231,10 @@ def test_ctypes_signatures_match_sources():
     assert _c_entries() == {k: len(v) for k, v in _build.SIGNATURES.items()}
     assert set(_build.SIGNATURES) == {
         "fftlab_fft_rows", "fftlab_fourstep_pass1", "fftlab_fourstep_pass2",
-        "fftlab_fourstep_pass2_filter", "fftlab_filter_rows", "fftlab_os_filter"}
+        "fftlab_fourstep_pass2_filter", "fftlab_filter_rows", "fftlab_os_filter",
+        "fftlab_fourstep_pass1_packed", "fftlab_fourstep_pass2_interleaved",
+        "fftlab_pack_real", "fftlab_interleave", "fftlab_herm_unpack",
+        "fftlab_herm_repack", "fftlab_stft_frames"}
     for args in _build.SIGNATURES.values():
         assert args[-1] is ctypes.c_void_p  # the stream
 
