@@ -23,7 +23,11 @@ Phases, in order; any failure raises and the exit code is non-zero:
    `herm_unpack`, `herm_repack`, the packed pass 1 and the interleaved
    pass 2 (8 x 2^21) and
    `stft_frames` (2048/512, 256/128) >= 110 dB against their plain
-   versions and np.fft-style float64 oracles;
+   versions and np.fft-style float64 oracles; the three-pass kernels
+   (`threestep_pass_a/b/c`) at 4 x 2^22, 1 x 2^24 and 1 x 2^26 (each
+   pass vs plain, the whole vs float64 >= 120 dB) and `fused_stage` at
+   the JAX suite's (r, M) and the pipelines' stage shapes, with and
+   without the twiddle (>= 115 dB vs a float64 einsum);
 4. main paths, each with every launch count set to 0 just before it and
    read just after: (a) the FFT, plan_dft_1d_split(2^20, batch=16)
    forward and inverse and fft_split_auto at 256 x 16384; (b) the filter
@@ -34,22 +38,32 @@ Phases, in order; any failure raises and the exit code is non-zero:
    kernels) and plan_c2r_1d_split on its output, the r2c/c2r plans at
    4 x 2^22 (pack -> two_pass at 2^21 -> unpack, and back), stft_split of
    2^22 samples at 2048/512 and 256/128, istft_split of the first, and
-   welch_psd_split and coherence_split on 2^22 samples.
+   welch_psd_split and coherence_split on 2^22 samples; (d) the huge-n
+   path, each call with its own reset and read: plan_dft_1d_split(2^24)
+   forward and inverse (bench.py's fft_16m_single), fft_split_auto at
+   4 x 2^22 and 1 x 2^26, the r2c/c2r plans at 4 x 2^23 (half size on
+   three passes), plan_from_jax("pallas_pipeline", 2^20) at 16 x 2^20
+   and run_route("stage_pipeline") at 2 x 2^15.
    Every output of a main path is held against the plain versions on
    the same inputs (>= 110 dB, over every sample) and against an oracle;
 5. timing: CUDA events around 10 back-to-back calls, median of 25 such
-   runs after warm-up, of each kernel, its plain version and torch.fft on
-   complex64 (cuFFT, comparator: torch.fft.rfft / irfft and
-   torch.stft(center=False) for the real-signal path), and the A/B of the
-   fused r2c (3 launches) against the pipeline (4 launches) at 8 x 2^21,
-   in turns;
-6. result: one JSON line of kernels, then the device line last.
+   runs after warm-up, of each kernel, its plain version and the library
+   call that computes the same function, where one does (torch.fft on
+   complex64, i.e. cuFFT; torch.fft.rfft / irfft, torch.stft(center=False),
+   conv1d for the FIR, torch.stack for the interleave), the einsum route
+   at 1 x 2^24, and the A/B of the fused r2c (3 launches) against the
+   pipeline (4 launches) at 8 x 2^21, in turns;
+6. result: one JSON line of kernels, each with its bound (the larger of
+   its bytes in and out over 3.35 TB/s and its float32 operations over
+   67 TFLOP/s, the H100 SXM's published peaks), then the device line
+   last.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -83,9 +97,27 @@ RFFT_PIPE_SHAPE = (4, 1 << 22)
 STFT_N = 1 << 22
 STFT_CASES = ((2048, 512), (256, 128))
 WELCH = 256 // 2 + 1  # bins of welch_psd_split's default 256-point segments
+# the huge-n path: bench.py fft_16m_single (one 2^24 transform), the
+# three-pass window's ends, the r2c at a half size of 2^22, and the JAX
+# package's pallas_pipeline route at the headline shape
+THREE_PASS_SHAPES = ((4, 1 << 22), (1, 1 << 24), (1, 1 << 26))
+HUGE_MAIN_SHAPE = (1, 1 << 24)
+HUGE_AUTO_SHAPES = ((4, 1 << 22), (1, 1 << 26))
+HUGE_RFFT_SHAPE = (4, 1 << 23)
+PIPELINE_SHAPE = (16, 1 << 20)
+PIPELINE_SMALL_SHAPE = (2, 1 << 15)
+# (batch, r, M): the JAX suite's stages (tests/test_stage_fused.py) and the
+# stages of the two pipelines above
+STAGE_SHAPES = ((4, 64, 2048), (4, 128, 1024), (4, 32, 128), (4, 2, 128),
+                (16, 128, 8192), (2048, 64, 128), (2, 128, 256), (256, 2, 128))
 GATE_PLAIN_DB = 110.0
 GATE_ORACLE_DB = {"rows": 110.0, "two_pass": 120.0, "os_filter": 100.0,
-                  "bluestein": 95.0, "real": 110.0}
+                  "bluestein": 95.0, "real": 110.0, "three_pass": 120.0,
+                  "stage": 115.0}
+# the published peaks of one H100 SXM (700 W): HBM3 and float32 outside
+# the tensor cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FLOP_PER_S = 67e12
 
 
 class SmokeFailure(RuntimeError):
@@ -115,13 +147,16 @@ def main() -> int:
     from fftlab_torch import (INVERSE, FilterParams, FilterPlan, FilterType,
                               coherence_split, fft_filter_split, fft_split_auto,
                               istft_split, plan_c2r_1d_split, plan_dft_1d_split,
-                              plan_r2c_1d_split, spectral_filter_auto, stft_split,
-                              welch_psd_split)
+                              plan_from_jax, plan_r2c_1d_split, spectral_filter_auto,
+                              stft_split, welch_psd_split)
+    from fftlab_torch.algos.split_stockham import fft_split
     from fftlab_torch.core.types import FORWARD
     from fftlab_torch.dsp.filtering import design_response
     from fftlab_torch.kernels import (_build, fft_vmem, fourstep_vmem, os_filter_vmem,
-                                      rfft_resident, rfft_vmem, stft_vmem)
-    from fftlab_torch.plan.dispatch import select_filter_impl, select_split_impl
+                                      rfft_resident, rfft_vmem, stage_fused, stft_vmem,
+                                      threestep_vmem)
+    from fftlab_torch.plan.dispatch import (run_route, select_filter_impl,
+                                            select_split_impl)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -298,11 +333,12 @@ def main() -> int:
     def check(name, s, gate):
         require(s >= gate, f"{name} {s:.1f} dB (gate {gate})")
 
-    # the pipeline's shape (pack_real, interleave, herm_unpack, herm_repack
-    # at a half size of 2^21) and the fused path's (herm_unpack and
-    # herm_repack at 2^20); x, pr, pi stay the fused path's signal
+    # the huge-n r2c/c2r shape (pack_real, interleave, herm_unpack,
+    # herm_repack at a half size of 2^22), the pipeline's (2^21) and the
+    # fused path's (herm_unpack and herm_repack at 2^20); x, pr, pi stay
+    # the fused path's signal
     err.update(dict.fromkeys(("pack_real", "interleave", "herm_unpack", "herm_repack"), 0.0))
-    for B, n in (RFFT_PIPE_SHAPE, RFFT_SHAPE):
+    for B, n in (HUGE_RFFT_SHAPE, RFFT_PIPE_SHAPE, RFFT_SHAPE):
         m = n // 2
         x = reals(B, n)
         zr, zi = rfft_vmem.pack_real(x)
@@ -378,17 +414,80 @@ def main() -> int:
             check("stft_frames vs plain", s_plain, GATE_PLAIN_DB)
             check("stft_frames vs oracle", s_oracle, GATE_ORACLE_DB["real"])
 
+    # the huge-n kernels: each of the three passes at both ends of the
+    # three-pass window and at the main shape, against its plain version
+    three = ("threestep_pass_a", "threestep_pass_b", "threestep_pass_c")
+    err.update(dict.fromkeys(three + ("fused_stage",), 0.0))
+    for B, n in THREE_PASS_SHAPES:
+        xr, xi = planes(B, n)
+        for d, user in cases:
+            eff = (1.0 / n if d == INVERSE else 1.0) * (user or 1.0)
+            a = threestep_vmem.threestep_pass_a(xr, xi, d)
+            b = threestep_vmem.threestep_pass_b(*a, d)
+            c = threestep_vmem.threestep_pass_c(*b, d, eff)
+            plains = (threestep_vmem.threestep_pass_a_plain(xr, xi, d),
+                      threestep_vmem.threestep_pass_b_plain(*a, d),
+                      threestep_vmem.threestep_pass_c_plain(*b, d, eff))
+            whole = threestep_vmem.fft_split_huge_plain(xr, xi, d, eff)
+            torch.cuda.synchronize()
+            s_pass = [snr_db(got, plain) for got, plain in zip((a, b, c), plains)]
+            for name, got, plain in zip(three, (a, b, c), plains):
+                err[name] = max(err[name], max_abs(got, plain))
+            s_plain = snr_db(c, whole)
+            s_oracle = snr_db(c, oracle(xr, xi, d, eff))
+            print(f"check three_pass B={B} n=2^{n.bit_length() - 1} dir={int(d)} "
+                  f"scale={eff:.6g}: passes vs plain {s_pass[0]:.1f} / {s_pass[1]:.1f} / "
+                  f"{s_pass[2]:.1f} dB, whole vs plain {s_plain:.1f} dB, vs oracle "
+                  f"{s_oracle:.1f} dB")
+            for name, v in zip(three + ("three_pass",), s_pass + [s_plain]):
+                check(f"{name} vs plain at B={B} n={n}", v, GATE_PLAIN_DB)
+            check(f"three_pass vs oracle at B={B} n={n}", s_oracle,
+                  GATE_ORACLE_DB["three_pass"])
+        del xr, xi, a, b, c, plains, whole
+
+    def stage_oracle(xr, xi, r, d, twiddle):
+        """One radix-r stage (and its twiddle) in complex128 on the card."""
+        B, n = xr.shape
+        M = n // r
+        j = torch.arange(r, device=dev, dtype=torch.int64)
+        F = torch.exp(2j * torch.pi * int(d) * ((j[:, None] * j) % r).double() / r)
+        y = torch.einsum("kj,bjm->bkm", F, torch.complex(xr.double(), xi.double())
+                         .reshape(B, r, M))
+        if twiddle:
+            m = torch.arange(M, device=dev, dtype=torch.int64)
+            y = y * torch.exp(2j * torch.pi * int(d) * ((j[:, None] * m) % n).double() / n)
+        return y.real.reshape(B, n), y.imag.reshape(B, n)
+
+    for B, r, M in STAGE_SHAPES:
+        xr, xi = planes(B, r * M)
+        for d in (FORWARD, INVERSE):
+            for twiddle in (True, False):
+                got = stage_fused.fused_stage(xr, xi, r, d, twiddle)
+                plain = stage_fused.fused_stage_plain(xr, xi, r, d, twiddle)
+                torch.cuda.synchronize()
+                err["fused_stage"] = max(err["fused_stage"], max_abs(got, plain))
+                s_plain = snr_db(got, plain)
+                s_oracle = snr_db(got, stage_oracle(xr, xi, r, d, twiddle))
+                print(f"check fused_stage B={B} r={r} M={M} dir={int(d)} "
+                      f"twiddle={twiddle}: vs plain {s_plain:.1f} dB, vs oracle "
+                      f"{s_oracle:.1f} dB")
+                check(f"fused_stage vs plain at r={r} M={M}", s_plain, GATE_PLAIN_DB)
+                check(f"fused_stage vs oracle at r={r} M={M}", s_oracle,
+                      GATE_ORACLE_DB["stage"])
+
     def reset_counts():
         for counts in (fft_vmem.LAUNCHES, fourstep_vmem.LAUNCHES,
                        os_filter_vmem.LAUNCHES, rfft_vmem.LAUNCHES,
-                       stft_vmem.LAUNCHES):
+                       stft_vmem.LAUNCHES, threestep_vmem.LAUNCHES,
+                       stage_fused.LAUNCHES):
             for k in counts:
                 counts[k] = 0
 
     def read_counts():
         return {**fft_vmem.LAUNCHES, **fourstep_vmem.LAUNCHES,
                 **os_filter_vmem.LAUNCHES, **rfft_vmem.LAUNCHES,
-                **stft_vmem.LAUNCHES}
+                **stft_vmem.LAUNCHES, **threestep_vmem.LAUNCHES,
+                **stage_fused.LAUNCHES}
 
     # phase 4a: the FFT main path, through the public entry points
     reset_counts()
@@ -653,6 +752,101 @@ def main() -> int:
     hold_plain("coherence", (coh, torch.zeros_like(coh)),
                (coherence_split(sig_h, sig2_h)[1], torch.zeros(WELCH)))
 
+    # phase 4d: the huge-n path, through the public entry points; each
+    # call runs with every launch count at 0 and is read just after
+    huge_launches = dict.fromkeys(three + ("fused_stage",), 0)
+
+    def drive(what, fn, kernels):
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        print(f"{what} launches: { {k: counts[k] for k in kernels} }")
+        for k in kernels:
+            require(counts[k] > 0, f"kernel {k} was not launched by {what}")
+            if k in huge_launches:
+                huge_launches[k] += counts[k]
+        return out
+
+    def outputs_ok(*pairs):
+        for t, shape in pairs:
+            require(tuple(t.shape) == shape and t.dtype == torch.float32,
+                    f"output {tuple(t.shape)} {t.dtype}, want {shape} float32")
+            require(bool(torch.isfinite(t).all()), "non-finite output")
+
+    def hold(what, got, plain, want, gate):
+        """A huge-n output against its plain version and its oracle."""
+        s_plain, s_oracle = snr_db(got, plain), snr_db(got, want)
+        print(f"huge-n path {what}: vs plain {s_plain:.1f} dB, vs oracle {s_oracle:.1f} dB")
+        check(f"huge-n path {what} vs plain", s_plain, GATE_PLAIN_DB)
+        check(f"huge-n path {what} vs oracle", s_oracle, gate)
+
+    B, n = HUGE_MAIN_SHAPE
+    xr, xi = planes(B, n)
+    fwd, inv = plan_dft_1d_split(n, batch=B), plan_dft_1d_split(n, INVERSE, batch=B)
+    require(fwd.algorithm == "three_pass" and inv.algorithm == "three_pass",
+            f"2^24 routes {fwd.algorithm}, {inv.algorithm}")
+    yr, yi = drive("plan_dft_1d_split(2^24) forward", lambda: fwd.execute((xr, xi)), three)
+    br, bi = drive("plan_dft_1d_split(2^24) inverse", lambda: inv.execute((yr, yi)), three)
+    outputs_ok((yr, (B, n)), (yi, (B, n)), (br, (B, n)), (bi, (B, n)))
+    gate = GATE_ORACLE_DB["three_pass"]
+    hold("1 x 2^24 forward", (yr, yi), threestep_vmem.fft_split_huge_plain(xr, xi),
+         oracle(xr, xi, FORWARD, 1.0), gate)
+    hold("1 x 2^24 inverse", (br, bi),
+         threestep_vmem.fft_split_huge_plain(yr, yi, INVERSE, 1.0 / n), (xr, xi), gate)
+    del xr, xi, yr, yi, br, bi
+    for B, n in HUGE_AUTO_SHAPES:
+        ur, ui = planes(B, n)
+        require(select_split_impl(n, B) == "three_pass",
+                f"2^{n.bit_length() - 1} route {select_split_impl(n, B)}")
+        vr, vi = drive(f"fft_split_auto {B} x 2^{n.bit_length() - 1}",
+                       lambda: fft_split_auto(ur, ui), three)
+        outputs_ok((vr, (B, n)), (vi, (B, n)))
+        hold(f"fft_split_auto {B} x 2^{n.bit_length() - 1}", (vr, vi),
+             threestep_vmem.fft_split_huge_plain(ur, ui), oracle(ur, ui, FORWARD, 1.0), gate)
+        del ur, ui, vr, vi
+    B, n = HUGE_RFFT_SHAPE
+    x = reals(B, n)
+    r2c, c2r = plan_r2c_1d_split(n, batch=B), plan_c2r_1d_split(n, batch=B)
+    require(r2c.algorithm == "rfft_split[three_pass]"
+            and c2r.algorithm == "irfft_split[three_pass]",
+            f"2^23 real routes {r2c.algorithm}, {c2r.algorithm}")
+    Xr, Xi = drive("plan_r2c_1d_split(2^23, batch=4)", lambda: r2c.execute(x),
+                   three + ("pack_real", "herm_unpack"))
+    y = drive("plan_c2r_1d_split(2^23, batch=4)", lambda: c2r.execute((Xr, Xi)),
+              three + ("herm_repack", "interleave"))
+    outputs_ok((Xr, (B, n // 2 + 1)), (Xi, (B, n // 2 + 1)), (y, (B, n)))
+    zr, zi = rfft_vmem.pack_real_plain(x)
+    hold("r2c 4 x 2^23", (Xr, Xi), rfft_vmem.herm_unpack_plain(
+        *threestep_vmem.fft_split_huge_plain(zr, zi), n), rfft_oracle(x),
+        GATE_ORACLE_DB["real"])
+    Z = rfft_vmem.herm_repack_plain(Xr, Xi)
+    y_plain = rfft_vmem.interleave_plain(
+        *threestep_vmem.fft_split_huge_plain(*Z, INVERSE, 2.0 / n))
+    zeros = torch.zeros_like(y)
+    hold("c2r 4 x 2^23 round trip", (y, zeros), (y_plain, zeros), (x, zeros),
+         GATE_ORACLE_DB["real"])
+    del x, Xr, Xi, y, zr, zi, Z, y_plain, zeros
+    B, n = PIPELINE_SHAPE
+    pipe = plan_from_jax("pallas_pipeline", n)
+    require(pipe.algorithm == "stage_pipeline", f"pallas_pipeline maps to {pipe.algorithm}")
+    pr, pi = planes(B, n)
+    qr, qi = drive("plan_from_jax(pallas_pipeline, 2^20) 16 x 2^20",
+                   lambda: pipe.execute((pr, pi)), ("fused_stage",))
+    B2, n2 = PIPELINE_SMALL_SHAPE
+    sr, si = planes(B2, n2)
+    tr, ti = drive("run_route(stage_pipeline) 2 x 2^15",
+                   lambda: run_route("stage_pipeline", sr, si, FORWARD), ("fused_stage",))
+    outputs_ok((qr, (B, n)), (qi, (B, n)), (tr, (B2, n2)), (ti, (B2, n2)))
+    hold("stage_pipeline 16 x 2^20", (qr, qi), stage_fused.fft_split_pipeline_plain(
+        pr, pi, FORWARD, stage_fused.pipeline_factors(n)), oracle(pr, pi, FORWARD, 1.0),
+        GATE_ORACLE_DB["stage"])
+    hold("stage_pipeline 2 x 2^15", (tr, ti), stage_fused.fft_split_pipeline_plain(
+        sr, si, FORWARD, stage_fused.pipeline_factors(n2)), oracle(sr, si, FORWARD, 1.0),
+        GATE_ORACLE_DB["stage"])
+    print(f"huge-n path launches: {huge_launches}")
+    del pr, pi, qr, qi, sr, si, tr, ti
+
     # phase 5: timing with CUDA events
     def time_ms(fn, iters: int = 25, inner: int = 10, warmup: int = 10) -> float:
         """Median over `iters` runs of `inner` back-to-back calls, per
@@ -759,6 +953,20 @@ def main() -> int:
         ms[names[2]] = time_ms(cufft_os)
         shapes.update(dict.fromkeys(names, (1, SERVING_N)))
         print(f"serving shape: fft_size {fsz}, hop {hop}, {n_blocks} frames")
+    # the library's causal FIR on the same planes: one conv1d call (cuDNN,
+    # TF32 off) of the flipped taps over both planes as a batch of two
+    sig2 = torch.stack([sr[0], si[0]]).unsqueeze(1)
+    w = torch.from_numpy(np.ascontiguousarray(h_taps[::-1])).float().to(dev).view(1, 1, nh)
+    conv = lambda: torch.nn.functional.conv1d(sig2, w, padding=nh - 1)
+    fir = conv()[:, 0, :SERVING_N]
+    kr, ki = os_filter_vmem._cached_response(
+        np.asarray(h_taps, np.float64).tobytes(), plan.kernel_fft_size(), dev)
+    s_conv = snr_db((fir[0:1], fir[1:2]), os_filter_vmem.os_filter(sr, si, kr, ki, nh))
+    require(s_conv >= GATE_ORACLE_DB["os_filter"],
+            f"os_filter vs conv1d {s_conv:.1f} dB")
+    ms["conv1d_fir"] = time_ms(conv)
+    shapes["conv1d_fir"] = (1, SERVING_N)
+    print(f"os_filter vs conv1d: {s_conv:.1f} dB")
     # the real-signal kernels at the main path's shapes
     B, n = RFFT_SHAPE
     x = reals(B, n)
@@ -788,6 +996,7 @@ def main() -> int:
     ms["irfft_fused_plain"] = time_ms(lambda: rfft_resident.irfft_resident_plain(Xr, Xi))
     ms["cufft_rfft"] = time_ms(lambda: torch.fft.rfft(x))
     ms["cufft_irfft"] = time_ms(lambda: torch.fft.irfft(xc, n))
+    ms["stack_interleave"] = time_ms(lambda: torch.stack([zr, zi], dim=-1))
 
     # the A/B of ROADMAP K6: the fused r2c (3 launches) against the
     # pipeline (4 launches), in turns on the same card
@@ -816,7 +1025,7 @@ def main() -> int:
          "fourstep_pass1_packed_plain", "fourstep_pass2_interleaved",
          "fourstep_pass2_interleaved_plain", "rfft_fused", "rfft_fused_plain",
          "rfft_pipeline", "irfft_fused", "irfft_fused_plain", "cufft_rfft",
-         "cufft_irfft"), RFFT_SHAPE))
+         "cufft_irfft", "stack_interleave"), RFFT_SHAPE))
     sig = reals(1, STFT_N)[0]
     for fft_size, hop in STFT_CASES:
         n_frames = (STFT_N - fft_size) // hop + 1
@@ -835,71 +1044,155 @@ def main() -> int:
         require(s_ref >= GATE_PLAIN_DB, f"stft_frames vs torch.stft {s_ref:.1f} dB")
         shapes.update(dict.fromkeys(("stft_frames" + tag, "stft_frames_plain" + tag,
                                      "cufft_stft" + tag), (1, STFT_N)))
+    # the huge-n kernels at the main shapes: one 2^24 transform (bench.py
+    # fft_16m_single), 4 x 2^22, and the pipeline at 16 x 2^20
+    B, n = HUGE_MAIN_SHAPE
+    xr, xi = planes(B, n)
+    a = threestep_vmem.threestep_pass_a(xr, xi)
+    b = threestep_vmem.threestep_pass_b(*a)
+    xc = torch.complex(xr, xi)
+    ms["three_pass"] = time_ms(lambda: threestep_vmem.fft_split_huge(xr, xi))
+    ms["three_pass_plain"] = time_ms(lambda: threestep_vmem.fft_split_huge_plain(xr, xi))
+    ms["threestep_pass_a"] = time_ms(lambda: threestep_vmem.threestep_pass_a(xr, xi))
+    ms["threestep_pass_a_plain"] = time_ms(
+        lambda: threestep_vmem.threestep_pass_a_plain(xr, xi))
+    ms["threestep_pass_b"] = time_ms(lambda: threestep_vmem.threestep_pass_b(*a))
+    ms["threestep_pass_b_plain"] = time_ms(lambda: threestep_vmem.threestep_pass_b_plain(*a))
+    ms["threestep_pass_c"] = time_ms(lambda: threestep_vmem.threestep_pass_c(*b))
+    ms["threestep_pass_c_plain"] = time_ms(lambda: threestep_vmem.threestep_pass_c_plain(*b))
+    ms["cufft_16m"] = time_ms(lambda: torch.fft.fft(xc))
+    ms["einsum_16m"] = time_ms(lambda: fft_split(xr, xi))
+    shapes.update(dict.fromkeys(
+        ("three_pass", "three_pass_plain", "threestep_pass_a", "threestep_pass_a_plain",
+         "threestep_pass_b", "threestep_pass_b_plain", "threestep_pass_c",
+         "threestep_pass_c_plain", "cufft_16m", "einsum_16m"), HUGE_MAIN_SHAPE))
+    print(f"1 x 2^24: three_pass {ms['three_pass']:.4f} ms, einsum route "
+          f"{ms['einsum_16m']:.4f} ms, cuFFT {ms['cufft_16m']:.4f} ms [{card}]")
+    del xr, xi, a, b, xc
+    B, n = HUGE_AUTO_SHAPES[0]
+    ur, ui = planes(B, n)
+    uc = torch.complex(ur, ui)
+    ms["three_pass_4x2^22"] = time_ms(lambda: threestep_vmem.fft_split_huge(ur, ui))
+    ms["three_pass_4x2^22_plain"] = time_ms(
+        lambda: threestep_vmem.fft_split_huge_plain(ur, ui))
+    ms["cufft_4x2^22"] = time_ms(lambda: torch.fft.fft(uc))
+    shapes.update(dict.fromkeys(("three_pass_4x2^22", "three_pass_4x2^22_plain",
+                                 "cufft_4x2^22"), (B, n)))
+    del ur, ui, uc
+    B, n = PIPELINE_SHAPE
+    factors = stage_fused.pipeline_factors(n)
+    pr, pi = planes(B, n)
+    r1, r2 = factors[0], factors[1]
+    s1r, s1i = (t.reshape(B * r1, n // r1) for t in stage_fused.fused_stage(pr, pi, r1))
+    ms["stage_pipeline"] = time_ms(
+        lambda: stage_fused.fft_split_pipeline(pr, pi, FORWARD, factors))
+    ms["stage_pipeline_plain"] = time_ms(
+        lambda: stage_fused.fft_split_pipeline_plain(pr, pi, FORWARD, factors))
+    ms["fused_stage"] = time_ms(lambda: stage_fused.fused_stage(pr, pi, r1))
+    ms["fused_stage_plain"] = time_ms(lambda: stage_fused.fused_stage_plain(pr, pi, r1))
+    ms["fused_stage_2"] = time_ms(lambda: stage_fused.fused_stage(s1r, s1i, r2))
+    ms["fused_stage_2_plain"] = time_ms(
+        lambda: stage_fused.fused_stage_plain(s1r, s1i, r2))
+    shapes.update(dict.fromkeys(("stage_pipeline", "stage_pipeline_plain", "fused_stage",
+                                 "fused_stage_plain", "fused_stage_2", "fused_stage_2_plain"),
+                                PIPELINE_SHAPE))
+    print(f"16 x 2^20 pipeline {factors}: {ms['stage_pipeline']:.4f} ms, stages "
+          f"{ms['fused_stage']:.4f} + {ms['fused_stage_2']:.4f} ms [{card}]")
+    del pr, pi, s1r, s1i
     for name, t in ms.items():
         shape = shapes.get(name, MAIN_SHAPE)
         gsps = shape[0] * shape[1] / (t * 1e6)
         print(f"time {name} {shape[0]}x{shape[1]}: {t:.4f} ms "
               f"({gsps:.2f} GS/s) [{card}]")
 
-    # phase 6: the result
-    src = "fftlab_torch/csrc/"
-    kernels = [
-        {"name": "fft_rows", "route": "cuda", "source": src + "fft_rows.cu",
-         "replaces": "fftlab/kernels/fft_vmem.py:176",
-         "launches": fft_launches["fft_rows"], "max_abs_err": err["fft_rows"],
-         "ms": ms["fft_rows"], "plain_ms": ms["fft_rows_plain"]},
-        {"name": "fourstep_pass1", "route": "cuda", "source": src + "fourstep.cu",
-         "replaces": "fftlab/kernels/fourstep_vmem.py:584",
-         "also_replaces": "fftlab/kernels/resident_vmem.py:433",
-         "launches": fft_launches["fourstep_pass1"], "max_abs_err": err["fourstep_pass1"],
-         "ms": ms["fourstep_pass1"], "plain_ms": ms["fourstep_pass1_plain"]},
-        {"name": "fourstep_pass2", "route": "cuda", "source": src + "fourstep.cu",
-         "replaces": "fftlab/kernels/fourstep_vmem.py:628",
-         "also_replaces": "fftlab/kernels/resident_vmem.py:433",
-         "launches": fft_launches["fourstep_pass2"], "max_abs_err": err["fourstep_pass2"],
-         "ms": ms["fourstep_pass2"], "plain_ms": ms["fourstep_pass2_plain"]},
-        {"name": "fourstep_pass2_filter", "route": "cuda",
-         "source": src + "fourstep.cu",
-         "replaces": "fftlab/kernels/fourstep_vmem.py:628",
-         "also_replaces": "fftlab/kernels/resident_vmem.py:883",
-         "launches": filter_launches["fourstep_pass2_filter"],
-         "max_abs_err": err["fourstep_pass2_filter"],
-         "ms": ms["fourstep_pass2_filter"],
-         "plain_ms": ms["fourstep_pass2_filter_plain"]},
-        {"name": "filter_rows", "route": "cuda", "source": src + "filter.cu",
-         "replaces": "fftlab/kernels/fft_vmem.py:247",
-         "launches": filter_launches["filter_rows"],
-         "max_abs_err": err["filter_rows"],
-         "ms": ms["filter_rows"], "plain_ms": ms["filter_rows_plain"]},
-        {"name": "os_filter", "route": "cuda", "source": src + "filter.cu",
-         "replaces": "fftlab/kernels/os_filter_vmem.py:96",
-         "also_replaces": "fftlab/kernels/os_filter_vmem.py:213",
-         "launches": filter_launches["os_filter"], "max_abs_err": err["os_filter"],
-         "ms": ms["os_filter"], "plain_ms": ms["os_filter_plain"]},
-    ]
-    stft_main = "_{}_{}".format(*STFT_CASES[0])
-    real_kernels = (
-        ("pack_real", "real.cu", "fftlab/kernels/rfft_vmem.py:99", None, "pack_real"),
-        ("interleave", "real.cu", "fftlab/kernels/rfft_vmem.py:126", None, "interleave"),
+    # phase 6: the result. Each kernel's bound at its timed shape: the
+    # larger of its bytes in and out (each input read once, each output
+    # written once; tables excluded) over 3.35 TB/s and its float32
+    # operations (5 N log2 L for the length-L FFTs it runs on N points,
+    # 6 N for a fused complex multiply) over 67 TFLOP/s
+    def bound(nbytes, flops):
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOP_PER_S * 1e3
+        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+    lg = lambda v: v.bit_length() - 1
+    N = math.prod(MAIN_SHAPE)
+    L1, L2 = fourstep_vmem._split_sides(MAIN_SHAPE[1])
+    Nr, n_row = math.prod(ROWS_MAIN_SHAPE), ROWS_MAIN_SHAPE[1]
+    Nf, n_f = math.prod(FILTER_ROWS_MAIN_SHAPE), FILTER_ROWS_MAIN_SHAPE[1]
+    fsz = plan.kernel_fft_size()
+    os_frames = -(-SERVING_N // (fsz - (SERVING_TAPS - 1)))
+    Nreal, m_half = math.prod(RFFT_SHAPE), RFFT_SHAPE[1] // 2
+    h1, h2 = fourstep_vmem._split_sides(m_half)
+    bins_half = RFFT_SHAPE[0] * m_half
+    fft_size, hop = STFT_CASES[0]
+    st_frames, st_bins = (STFT_N - fft_size) // hop + 1, fft_size // 2 + 1
+    Nh = math.prod(HUGE_MAIN_SHAPE)
+    F1, F2, F3 = threestep_vmem._split_three(HUGE_MAIN_SHAPE[1])
+    Np, r1 = math.prod(PIPELINE_SHAPE), stage_fused.pipeline_factors(PIPELINE_SHAPE[1])[0]
+    ts = "fftlab/kernels/threestep_vmem.py:"
+    # name, source, replaces, also_replaces, launches, timed, library, bytes, flops
+    table = [
+        ("fft_rows", "fft_rows.cu", "fftlab/kernels/fft_vmem.py:176", None, fft_launches,
+         "fft_rows", "cufft_16k", 16 * Nr, 5 * Nr * lg(n_row)),
+        ("fourstep_pass1", "fourstep.cu", "fftlab/kernels/fourstep_vmem.py:584",
+         "fftlab/kernels/resident_vmem.py:433", fft_launches, "fourstep_pass1", None,
+         16 * N, 5 * N * lg(L1) + 6 * N),
+        ("fourstep_pass2", "fourstep.cu", "fftlab/kernels/fourstep_vmem.py:628",
+         "fftlab/kernels/resident_vmem.py:433", fft_launches, "fourstep_pass2", None,
+         16 * N, 5 * N * lg(L2)),
+        ("fourstep_pass2_filter", "fourstep.cu", "fftlab/kernels/fourstep_vmem.py:628",
+         "fftlab/kernels/resident_vmem.py:883", filter_launches, "fourstep_pass2_filter",
+         None, 16 * N + 8 * MAIN_SHAPE[1], 5 * N * lg(L2) + 6 * N),
+        ("filter_rows", "filter.cu", "fftlab/kernels/fft_vmem.py:247", None,
+         filter_launches, "filter_rows", None, 16 * Nf + 8 * n_f,
+         10 * Nf * lg(n_f) + 6 * Nf),
+        ("os_filter", "filter.cu", "fftlab/kernels/os_filter_vmem.py:96",
+         "fftlab/kernels/os_filter_vmem.py:213", filter_launches, "os_filter", "conv1d_fir",
+         16 * SERVING_N + 8 * fsz, os_frames * (10 * fsz * lg(fsz) + 6 * fsz)),
+        ("pack_real", "real.cu", "fftlab/kernels/rfft_vmem.py:99", None, real_launches,
+         "pack_real", None, 8 * Nreal, 0),
+        ("interleave", "real.cu", "fftlab/kernels/rfft_vmem.py:126", None, real_launches,
+         "interleave", "stack_interleave", 8 * Nreal, 0),
         ("herm_unpack", "real.cu", "fftlab/kernels/rfft_vmem.py:250",
-         "fftlab/kernels/rfft_resident.py:284", "herm_unpack"),
+         "fftlab/kernels/rfft_resident.py:284", real_launches, "herm_unpack", None,
+         16 * bins_half + 8 * RFFT_SHAPE[0], 10 * bins_half),
         ("herm_repack", "real.cu", "fftlab/kernels/rfft_resident.py:485", None,
-         "herm_repack"),
+         real_launches, "herm_repack", None, 16 * bins_half + 8 * RFFT_SHAPE[0],
+         10 * bins_half),
         ("fourstep_pass1_packed", "fourstep.cu", "fftlab/kernels/rfft_resident.py:284",
-         "fftlab/kernels/rfft_vmem.py:99", "fourstep_pass1_packed"),
+         "fftlab/kernels/rfft_vmem.py:99", real_launches, "fourstep_pass1_packed", None,
+         8 * Nreal, 5 * bins_half * lg(h1) + 6 * bins_half),
         ("fourstep_pass2_interleaved", "fourstep.cu", "fftlab/kernels/rfft_resident.py:485",
-         "fftlab/kernels/rfft_vmem.py:126", "fourstep_pass2_interleaved"),
+         "fftlab/kernels/rfft_vmem.py:126", real_launches, "fourstep_pass2_interleaved",
+         None, 8 * Nreal, 5 * bins_half * lg(h2)),
         ("stft_frames", "real.cu", "fftlab/kernels/stft_vmem.py:77",
-         "fftlab/kernels/stft_vmem.py:174", "stft_frames" + stft_main),
-    )
-    for name, source, replaces, also, timed in real_kernels:
-        entry = {"name": name, "route": "cuda", "source": src + source,
-                 "replaces": replaces}
+         "fftlab/kernels/stft_vmem.py:174", real_launches, f"stft_frames_{fft_size}_{hop}",
+         f"cufft_stft_{fft_size}_{hop}", 4 * STFT_N + 8 * st_frames * st_bins,
+         st_frames * (5 * (fft_size // 2) * lg(fft_size // 2) + 10 * st_bins + fft_size)),
+        ("threestep_pass_a", "fourstep.cu", ts + "204", ts + "387", huge_launches,
+         "threestep_pass_a", None, 16 * Nh, 5 * Nh * lg(F1) + 6 * Nh),
+        ("threestep_pass_b", "fourstep.cu", ts + "233", ts + "414", huge_launches,
+         "threestep_pass_b", None, 16 * Nh, 5 * Nh * lg(F2) + 6 * Nh),
+        ("threestep_pass_c", "fourstep.cu", ts + "256", ts + "440", huge_launches,
+         "threestep_pass_c", None, 16 * Nh, 5 * Nh * lg(F3)),
+        ("fused_stage", "stage_fused.cu", "fftlab/kernels/stage_fused.py:96", None,
+         huge_launches, "fused_stage", None, 16 * Np, 5 * Np * lg(r1) + 6 * Np),
+    ]
+    src = "fftlab_torch/csrc/"
+    kernels = []
+    for name, source, replaces, also, launches, timed, library, nbytes, flops in table:
+        entry = {"name": name, "route": "cuda", "source": src + source, "replaces": replaces}
         if also:
             entry["also_replaces"] = also
-        entry.update({"launches": real_launches[name], "max_abs_err": err[name],
-                      "ms": ms[timed], "plain_ms": ms[timed.replace(name, name + "_plain")]})
+        bound_ms, bound_by = bound(nbytes, flops)
+        entry.update({"launches": launches[name], "max_abs_err": err[name],
+                      "ms": ms[timed], "plain_ms": ms[timed.replace(name, name + "_plain")],
+                      "bound_ms": bound_ms, "bound_by": bound_by,
+                      "library_ms": ms[library] if library else None})
         kernels.append(entry)
+        print(f"kernel {name}: {ms[timed]:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+              f"{bound_ms / ms[timed]:.1%} of it [{card}]")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,5 @@
-"""fftlab_torch: the PyTorch/CUDA port of fftlab's split-plane FFT,
-spectral-filter and real-signal paths.
+"""fftlab_torch: the PyTorch/CUDA port of fftlab's split-plane FFT (up to
+2^26 points), spectral-filter and real-signal paths.
 
 Imports torch and never jax; the JAX package `fftlab` is the reference
 the port is tested against. Split re/im float32 planes [..., n],
@@ -16,6 +16,7 @@ from fftlab_torch.core.types import FORWARD, INVERSE, Direction
 from fftlab_torch.dsp.filtering import FilterParams, FilterType, fft_filter_split
 from fftlab_torch.dsp.spectrum import coherence_split, welch_psd_split
 from fftlab_torch.dsp.stft import istft_split, stft_split
+from fftlab_torch.kernels.threestep_vmem import fft_split_huge
 from fftlab_torch.plan.api import (plan_c2r_1d_split, plan_dft_1d_split,
                                    plan_from_jax, plan_r2c_1d_split)
 from fftlab_torch.plan.dispatch import (
@@ -38,6 +39,7 @@ __all__ = [
     "fft_filter_split",
     "fft_split",
     "fft_split_auto",
+    "fft_split_huge",
     "ifft_split",
     "irfft_split",
     "istft_split",

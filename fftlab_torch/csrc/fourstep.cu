@@ -1,8 +1,9 @@
 // fourstep_pass1 / fourstep_pass2 / fourstep_pass2_filter /
-// fourstep_pass1_packed / fourstep_pass2_interleaved: the two-pass
-// four-step FFT for power-of-two n = L1*L2 in 2^15..2^21 (L1 <= L2,
-// L1 <= 1024), the FFT -> H -> IFFT sandwich on it, and its real-signal
-// load and store modes.
+// fourstep_pass1_packed / fourstep_pass2_interleaved / fourstep_pass1_swap:
+// the two-pass four-step FFT for power-of-two n = L1*L2 in 2^15..2^21
+// (L1 <= L2, L1 <= 1024), the FFT -> H -> IFFT sandwich on it, its
+// real-signal load and store modes, and the three passes of the huge-n
+// FFT (2^21..2^26).
 //
 // Replaces two TPU kernels that compute one transform:
 //   fftlab/kernels/resident_vmem.py `_fft_resident_v6_impl` (one VMEM
@@ -44,9 +45,31 @@
 // pass 2, herm_unpack (real.cu): three launches; the c2r is herm_repack,
 // pass 1, pass 2 (interleaved) with 1/m in its scale.
 //
+// The three-pass FFT, n = F1*F2*F3 (threestep_vmem._split_three), replaces
+// fftlab/kernels/threestep_vmem.py `_fft_huge_impl` (pallas_call at :204,
+// :233, :256) and its blocked form `_fft_huge_blocked` (:387, :414, :440),
+// whose blocked intermediates are a TPU DMA layout with the same math. As
+// the JAX package does (`_pass_col_kernel = _pass1_kernel`), it reuses the
+// two passes above; nothing trigonometric or n-sized is streamed:
+//   pass A  pass 1 at L1 = F1, L2 = F2*F3: the column FFT over j1 and
+//           W_n^{k1*j23} in rank-1 form -> [b, k1, j2, j3];
+//   pass B  pass 1 at L1 = F2, L2 = F3 over batch*F1 rows, the column FFT
+//           over j2 and W_{F2F3}^{k2*j3}, with the kSwapStore store: the
+//           (k1, k2) swap happens in the store (runs of W floats, as the
+//           plain store), not in pass C's load -> [b, k2, k1, j3];
+//   pass C  pass 2 at "L1" = F1*F2, L2 = F3: rows k2*F1 + k1 of length F3,
+//           stored at k3*F1F2 + k2*F1 + k1 = k1 + F1*k2 + F1F2*k3, the
+//           natural order; the output scale rides its last stage.
+// Every tile is at most 512*16 = 8192 values (F1, F2 <= 512 at W = 16;
+// F3 <= 512 at R = 16); all offsets are size_t, so B * 2^26 points index
+// safely, and the grid is checked against INT_MAX at launch. Pass A's
+// rank-1 factor A is (F2F3/W, F1) float2, 32 MB at 2^26; each block reads
+// its own F1 entries, so the table costs 0.5 byte per point (3% of the
+// pass's 16).
+//
 // Bound on this card: device memory. Each pass reads and writes the
-// signal once (32 bytes per point in all, 64 MB per pass at 16 x 2^20),
-// against about 5 n log2 n flops. Design: every FFT stage stays in
+// signal once (16 bytes per point per pass, 268 MB at 16 x 2^20 or at
+// 1 x 2^24), against about 5 n log2 n flops. Design: every FFT stage stays in
 // shared memory and registers, the twiddles are fused into pass 1's
 // store, the scale into pass 2's last stage, and the transpose into
 // pass 2's store, so no other pass over device memory exists. At 2^20
@@ -59,15 +82,21 @@
 
 using namespace fftlab;
 
-// kPackedReal: xr is a real row of 2*L1*L2 floats, read as float2 pairs
-// (xi unused).
-template <bool kPackedReal>
+// What pass 1 does at its load and store: kPlainLoad reads the two
+// planes; kPackedReal reads xr, a real row of 2*L1*L2 floats, as float2
+// pairs (xi unused); kSwapStore reads the two planes of batch row
+// bb = o*F1 + k1a and stores output row k1 of it at row (o, k1, k1a) of a
+// (batch/F1, L1, F1) row grid: the three-pass kernel's pass B, whose
+// (k1, k2) swap rides the store (runs of W floats, as the plain store).
+enum Pass1Mode { kPlainLoad, kPackedReal, kSwapStore };
+
+template <int kMode>
 __global__ void __launch_bounds__(kMaxThreads)
 fourstep_pass1_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
                       float* __restrict__ mr, float* __restrict__ mi,
                       const float2* __restrict__ tw1, const float2* __restrict__ a_tab,
                       const float2* __restrict__ p_tab, int log_l1, int log_l2, int log_w,
-                      float sign) {
+                      int log_f1, float sign) {
   float2* s = smem_tile();
   const int log_c = log_l2 - log_w;
   const int c = blockIdx.x & ((1 << log_c) - 1);
@@ -77,7 +106,7 @@ fourstep_pass1_kernel(const float* __restrict__ xr, const float* __restrict__ xi
   const size_t col0 = (b << (log_l1 + log_l2)) + (static_cast<size_t>(c) << log_w);
   for (int e = threadIdx.x; e < tile; e += blockDim.x) {
     const size_t g = col0 + (static_cast<size_t>(e >> log_w) << log_l2) + (e & w_mask);
-    if constexpr (kPackedReal) {
+    if constexpr (kMode == kPackedReal) {
       s[e] = reinterpret_cast<const float2*>(xr)[g];
     } else {
       s[e] = make_float2(xr[g], xi[g]);
@@ -86,11 +115,19 @@ fourstep_pass1_kernel(const float* __restrict__ xr, const float* __restrict__ xi
   __syncthreads();
   fft_smem(s, tw1, log_l1, log_w, sign, 1.0f);
   const float2* a_c = a_tab + (static_cast<size_t>(c) << log_l1);
+  // kSwapStore: row (o, k1, k1a) = ((o*L1 + k1) << log_f1) + k1a
+  const size_t swap_base = ((b >> log_f1) << (log_f1 + log_l1)) + (b & ((1u << log_f1) - 1));
   for (int e = threadIdx.x; e < tile; e += blockDim.x) {
     const int k1 = e >> log_w;
     const float2 w = cmul(__ldg(a_c + k1), __ldg(p_tab + e));  // p_tab is (L1, W)
     const float2 y = cmul(s[e], w);
-    const size_t g = col0 + (static_cast<size_t>(k1) << log_l2) + (e & w_mask);
+    size_t g;
+    if constexpr (kMode == kSwapStore) {
+      const size_t row = swap_base + (static_cast<size_t>(k1) << log_f1);
+      g = (row << log_l2) + (static_cast<size_t>(c) << log_w) + (e & w_mask);
+    } else {
+      g = col0 + (static_cast<size_t>(k1) << log_l2) + (e & w_mask);
+    }
     mr[g] = y.x;
     mi[g] = y.y;
   }
@@ -146,24 +183,28 @@ bool valid_tile(int log_l, int log_t) {
   return log_l >= 1 && tile <= kMaxTile && tile / kPerThread >= 32;
 }
 
-template <bool kPackedReal>
+// batch: rows of L1*L2 the kernel transforms (for kSwapStore, F1 times
+// the caller's batch).
+template <int kMode>
 int launch_pass1(const float* xr, const float* xi, float* mr, float* mi, const void* tw1,
                  const void* a_tab, const void* p_tab, long long batch, int log_l1, int log_l2,
-                 int log_w, int direction, void* stream) {
+                 int log_w, int log_f1, int direction, void* stream) {
   const long long blocks = batch << (log_l2 - log_w);
   if (!valid_tile(log_l1, log_w) || log_w > log_l2 || batch < 1 || blocks > INT_MAX ||
+      log_f1 < 0 || (batch & ((1LL << log_f1) - 1)) != 0 ||
       (direction != 1 && direction != -1)) {
     return cudaErrorInvalidValue;
   }
   const int threads = (1 << (log_l1 + log_w)) / kPerThread;
   const int smem = static_cast<int>(sizeof(float2)) << (log_l1 + log_w);
-  cudaError_t err = cudaFuncSetAttribute(fourstep_pass1_kernel<kPackedReal>,
+  cudaError_t err = cudaFuncSetAttribute(fourstep_pass1_kernel<kMode>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  fourstep_pass1_kernel<kPackedReal><<<static_cast<unsigned>(blocks), threads, smem,
-                                       static_cast<cudaStream_t>(stream)>>>(
+  fourstep_pass1_kernel<kMode><<<static_cast<unsigned>(blocks), threads, smem,
+                                 static_cast<cudaStream_t>(stream)>>>(
       xr, xi, mr, mi, static_cast<const float2*>(tw1), static_cast<const float2*>(a_tab),
-      static_cast<const float2*>(p_tab), log_l1, log_l2, log_w, static_cast<float>(direction));
+      static_cast<const float2*>(p_tab), log_l1, log_l2, log_w, log_f1,
+      static_cast<float>(direction));
   return cudaGetLastError();
 }
 
@@ -176,8 +217,8 @@ extern "C" int fftlab_fourstep_pass1(const float* xr, const float* xi, float* mr
                                      const void* tw1, const void* a_tab, const void* p_tab,
                                      long long batch, int log_l1, int log_l2, int log_w,
                                      int direction, void* stream) {
-  return launch_pass1<false>(xr, xi, mr, mi, tw1, a_tab, p_tab, batch, log_l1, log_l2, log_w,
-                             direction, stream);
+  return launch_pass1<kPlainLoad>(xr, xi, mr, mi, tw1, a_tab, p_tab, batch, log_l1, log_l2,
+                                  log_w, 0, direction, stream);
 }
 
 // Pass 1 of a packed real signal. x: [batch, 2*L1*L2] float32 (8-byte
@@ -187,8 +228,21 @@ extern "C" int fftlab_fourstep_pass1_packed(const float* x, float* mr, float* mi
                                             const void* tw1, const void* a_tab,
                                             const void* p_tab, long long batch, int log_l1,
                                             int log_l2, int log_w, int direction, void* stream) {
-  return launch_pass1<true>(x, nullptr, mr, mi, tw1, a_tab, p_tab, batch, log_l1, log_l2, log_w,
-                            direction, stream);
+  return launch_pass1<kPackedReal>(x, nullptr, mr, mi, tw1, a_tab, p_tab, batch, log_l1, log_l2,
+                                   log_w, 0, direction, stream);
+}
+
+// Pass B of the three-pass FFT: pass 1 of batch*F1 rows of L1*L2 (row
+// bb = o*F1 + k1a), its output row k1 stored at row (o, k1, k1a) of the
+// (batch, L1, F1) row grid, F1 = 2^log_f1: the (k1a, k1) axes swap on the
+// store. Planes and tables as fftlab_fourstep_pass1. Returns a cudaError_t.
+extern "C" int fftlab_fourstep_pass1_swap(const float* xr, const float* xi, float* mr, float* mi,
+                                          const void* tw1, const void* a_tab, const void* p_tab,
+                                          long long batch, int log_f1, int log_l1, int log_l2,
+                                          int log_w, int direction, void* stream) {
+  if (batch < 1 || log_f1 < 0 || log_f1 > 20) return cudaErrorInvalidValue;
+  return launch_pass1<kSwapStore>(xr, xi, mr, mi, tw1, a_tab, p_tab, batch << log_f1, log_l1,
+                                  log_l2, log_w, log_f1, direction, stream);
 }
 
 namespace {

@@ -72,6 +72,13 @@ SIGNATURES = {
     "fftlab_herm_repack": (_P, _P, _P, _P, _P, _LL, _I, _P),
     # x, n, win, tw, utw, yr, yi, n_frames, hop, log_m, log_t, bins, stream
     "fftlab_stft_frames": (_P, _LL, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _P),
+    # xr, xi, mr, mi, tw1, a_tab, p_tab, batch, log_f1, log_l1, log_l2, log_w,
+    # direction, stream
+    "fftlab_fourstep_pass1_swap": (_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I,
+                                   _P),
+    # xr, xi, yr, yi, tw, a_tab, p_tab, rows, log_r, log_m, log_t, log_g,
+    # direction, twiddle, stream
+    "fftlab_fused_stage": (_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _P),
 }
 
 

@@ -15,6 +15,8 @@ the JAX kernel's math (`_fwd_body`) in tensor ops with the same tables,
 
 Forward unscaled, inverse 1/n; `scale` multiplies the output on top and
 is folded into the last stage (the kernel) or the last table (plain).
+`pallas_fft_split_ad` is `fft_split_rows` with its adjoint for autograd
+(kernels/_ad.py; fftlab/kernels/fft_vmem.py:297).
 
 The sandwich `pallas_spectral_filter` launches `filter_rows`
 (csrc/filter.cu) on a CUDA tensor: forward FFT, times H in natural bin
@@ -32,6 +34,7 @@ import torch
 from fftlab_torch.core.twiddle import dft_matrix_np, stage_twiddle_np
 from fftlab_torch.core.types import FORWARD, Direction, is_power_of_two, log2_int
 from fftlab_torch.kernels import _build
+from fftlab_torch.kernels._ad import make_differentiable
 from fftlab_torch.kernels._common import (
     check_cuda,
     check_planes,
@@ -145,6 +148,9 @@ def fft_split_rows(xr: torch.Tensor, xi: torch.Tensor, direction=FORWARD,
     run = fft_rows_plain if on_cpu(xr, "fft_split_rows") else fft_rows
     yr, yi = run(xr.reshape(B, n), xi.reshape(B, n), direction, eff)
     return yr.reshape(xr.shape), yi.reshape(xi.shape)
+
+
+pallas_fft_split_ad = make_differentiable(fft_split_rows)
 
 
 def spectral_filter_rows_plain(xr: torch.Tensor, xi: torch.Tensor,

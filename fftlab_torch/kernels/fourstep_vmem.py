@@ -15,7 +15,9 @@ version runs: the JAX kernel's math in tensor ops with the same tables,
 the length-L FFT as the fa*fb contraction pair of `_col_fft_vmem` and
 the pass-1 twiddle in the rank-1 form A[c, k1]*P[k1, l] of
 `_rank1_twiddle_np`. Forward unscaled, inverse 1/n; `scale` multiplies
-the output on top and is folded into pass 2 only.
+the output on top and is folded into pass 2 only. `fft_split_large_ad`
+is `fft_split_large` with its adjoint for autograd (kernels/_ad.py;
+fftlab/kernels/fourstep_vmem.py:858).
 
 The real-signal modes fuse K7's pack and interleave into the passes:
 `fourstep_pass1_packed` reads a real [B, 2n] row as float2 pairs,
@@ -23,7 +25,12 @@ complex element j = (x[2j], x[2j+1]), and `fourstep_pass2_interleaved`
 stores bin k as the float2 (y[2k], y[2k+1]) of a real [B, 2n] row; they
 make the fused r2c/c2r of kernels/rfft_resident.py. `rfft_split_large`
 and `irfft_split_large` run the half-size transform of a real signal on
-these passes (fftlab/kernels/fourstep_vmem.py:797-847).
+these passes, or on the three-pass kernel above 2^21
+(fftlab/kernels/fourstep_vmem.py:797-847).
+
+The launch helpers take the sides (L1, L2) explicitly for the three-pass
+kernel (kernels/threestep_vmem.py), which runs these passes at its own
+sides and adds the swap-store mode of pass 1 (`fftlab_fourstep_pass1_swap`).
 
 `spectral_filter_large` is the FFT -> H -> IFFT sandwich on the same
 passes (fftlab/kernels/fourstep_vmem.py:667-749): pass 1, pass 2 with H
@@ -44,6 +51,7 @@ from fftlab_torch.core.twiddle import dft_matrix_np
 from fftlab_torch.core.types import (FORWARD, INVERSE, Direction, is_power_of_two,
                                      log2_int)
 from fftlab_torch.kernels import _build
+from fftlab_torch.kernels._ad import make_differentiable
 from fftlab_torch.kernels._common import (
     check_aligned,
     check_cuda,
@@ -71,11 +79,6 @@ MAX_TILE = 16384
 LAUNCHES = {"fourstep_pass1": 0, "fourstep_pass2": 0,
             "fourstep_pass2_filter": 0, "fourstep_pass1_packed": 0,
             "fourstep_pass2_interleaved": 0}
-
-# The three-pass kernel's window (ROADMAP K4), which the half-size
-# transform of `rfft_split_large` reaches above MAX_N.
-MAX_HUGE_N = 1 << 26
-
 
 def supported_large(n: int) -> bool:
     return is_power_of_two(n) and MIN_N <= n <= MAX_N
@@ -165,10 +168,10 @@ def _plain_col_tables(L: int, direction: Direction, scale: float,
 
 
 @functools.lru_cache(maxsize=32)
-def _plain_pass1_twiddle(n: int, direction: Direction, device: torch.device):
-    """W_n^{k1*j2} as (L1, L2) planes from the rank-1 factors, multiplied
-    in float32 as the kernel multiplies them."""
-    L1, L2 = _split_sides(n)
+def _plain_pass1_twiddle(L1: int, L2: int, direction: Direction,
+                         device: torch.device):
+    """W_{L1*L2}^{k1*j2} as (L1, L2) planes from the rank-1 factors,
+    multiplied in float32 as the kernel multiplies them."""
     A, P = _rank1_twiddle_np(L1, L2, PASS1_WIDTH, direction)
     Ar, Ai, Pr, Pi = (torch.from_numpy(a.astype(np.float32)).to(device)
                       for a in (A.real, A.imag, P.real, P.imag))
@@ -178,39 +181,49 @@ def _plain_pass1_twiddle(n: int, direction: Direction, device: torch.device):
             wi.permute(1, 0, 2).reshape(L1, L2))
 
 
-def fourstep_pass1_plain(xr: torch.Tensor, xi: torch.Tensor, direction=FORWARD):
-    """Plain version of pass 1 on [B, n] planes -> the (B, L1, L2)
-    intermediate planes, flattened to [B, n]."""
+def pass1_plain(xr: torch.Tensor, xi: torch.Tensor, direction, L1: int, L2: int):
+    """Pass 1's math on [B, L1*L2] planes -> the (B, L1, L2) intermediate
+    planes, flattened: column FFTs of length L1, times W_{L1L2}^{k1*j2}."""
     direction = Direction(int(direction))
-    B, n = xr.shape
-    L1, L2 = _split_sides(n)
+    B = xr.shape[0]
     fa, fb = _split_factors(L1)
     tabs = _plain_col_tables(L1, direction, 1.0, xr.device)
     yr, yi = _col_fft(xr.reshape(B, L1, L2), xi.reshape(B, L1, L2), tabs, fa, fb)
-    wr, wi = _plain_pass1_twiddle(n, direction, xr.device)
-    return ((yr * wr - yi * wi).reshape(B, n),
-            (yr * wi + yi * wr).reshape(B, n))
+    wr, wi = _plain_pass1_twiddle(L1, L2, direction, xr.device)
+    return ((yr * wr - yi * wi).reshape(B, L1 * L2),
+            (yr * wi + yi * wr).reshape(B, L1 * L2))
+
+
+def pass2_plain(mr: torch.Tensor, mi: torch.Tensor, direction, scale: float,
+                L1: int, L2: int):
+    """Pass 2's math on the (B, L1, L2) intermediate planes, flattened:
+    row FFTs of length L2 times `scale`, element (k2, k1) at k2*L1 + k1."""
+    direction = Direction(int(direction))
+    B = mr.shape[0]
+    fa, fb = _split_factors(L2)
+    tabs = _plain_col_tables(L2, direction, float(scale), mr.device)
+    # rows of the (L1, L2) matrix as columns: (B, L2 = j2, L1 = k1)
+    yr, yi = _col_fft(mr.reshape(B, L1, L2).transpose(1, 2),
+                      mi.reshape(B, L1, L2).transpose(1, 2), tabs, fa, fb)
+    # (B, L2 = k2, L1 = k1) flattens to k = k2*L1 + k1
+    return yr.reshape(B, L1 * L2), yi.reshape(B, L1 * L2)
+
+
+def fourstep_pass1_plain(xr: torch.Tensor, xi: torch.Tensor, direction=FORWARD):
+    """Plain version of pass 1 on [B, n] planes -> the (B, L1, L2)
+    intermediate planes, flattened to [B, n]."""
+    return pass1_plain(xr, xi, direction, *_split_sides(int(xr.shape[-1])))
 
 
 def fourstep_pass2_plain(mr: torch.Tensor, mi: torch.Tensor, direction=FORWARD,
                          scale: float = 1.0):
     """Plain version of pass 2: intermediate [B, n] planes -> natural-order
     spectrum; `scale` is the whole output scale."""
-    direction = Direction(int(direction))
-    B, n = mr.shape
-    L1, L2 = _split_sides(n)
-    fa, fb = _split_factors(L2)
-    tabs = _plain_col_tables(L2, direction, float(scale), mr.device)
-    # rows of the (L1, L2) matrix as columns: (B, L2 = j2, L1 = k1)
-    yr, yi = _col_fft(mr.reshape(B, L1, L2).transpose(1, 2),
-                      mi.reshape(B, L1, L2).transpose(1, 2), tabs, fa, fb)
-    # (B, L2 = k2, L1 = k1) flattens to k = k2*L1 + k1: natural order
-    return yr.reshape(B, n), yi.reshape(B, n)
+    return pass2_plain(mr, mi, direction, scale, *_split_sides(int(mr.shape[-1])))
 
 
 @functools.lru_cache(maxsize=32)
-def _pass1_tables(n: int, direction: Direction, device: torch.device):
-    L1, L2 = _split_sides(n)
+def _pass1_tables(L1: int, L2: int, direction: Direction, device: torch.device):
     A, P = _rank1_twiddle_np(L1, L2, PASS1_WIDTH, direction)
     return (complex_table(twiddle_np(L1, direction), device),
             complex_table(A.reshape(-1, L1), device),
@@ -237,9 +250,19 @@ def fourstep_pass2_interleaved_plain(mr: torch.Tensor, mi: torch.Tensor,
     return torch.stack([yr, yi], dim=-1).reshape(B, 2 * n)
 
 
-def _check_launch(xr, xi, name: str, n: int | None = None) -> int:
-    """Checks of a pass launch on [B, n] planes; for a real row, xi is
-    None and `n` the complex length, half the row's."""
+def _two_pass_sides(x, name: str, n: int | None = None) -> tuple[int, int]:
+    """Sides (L1, L2) of a two-pass launch on [B, n] planes, after the
+    window check; `n` is the complex length (half a real row's)."""
+    n = int(x.shape[-1]) if n is None else n
+    if x.dim() != 2 or not supported_large(n):
+        raise ValueError(f"{name} takes [B, n] planes, pow2 n in "
+                         f"[{MIN_N}, {MAX_N}]; got {tuple(x.shape)}")
+    return _split_sides(n)
+
+
+def _check_launch(xr, xi, name: str, sides: tuple[int, int]) -> None:
+    """Checks of a pass launch on [B, L1*L2] planes; for a real row, xi is
+    None and the row holds 2*L1*L2 floats."""
     if xi is None:
         check_real(xr, name)
         check_cuda(xr, name=name)
@@ -247,17 +270,17 @@ def _check_launch(xr, xi, name: str, n: int | None = None) -> int:
     else:
         check_planes(xr, xi, name)
         check_cuda(xr, xi, name=name)
-    n = int(xr.shape[-1]) if n is None else n
-    if xr.dim() != 2 or not supported_large(n):
-        raise ValueError(f"{name} takes [B, n] planes, pow2 n in "
-                         f"[{MIN_N}, {MAX_N}]; got {tuple(xr.shape)}")
-    return n
+    L1, L2 = sides
+    n = int(xr.shape[-1]) // (2 if xi is None else 1)
+    if xr.dim() != 2 or n != L1 * L2:
+        raise ValueError(f"{name} takes [B, {L1 * L2}] planes; got {tuple(xr.shape)}")
 
 
 def fourstep_pass1(xr: torch.Tensor, xi: torch.Tensor, direction=FORWARD):
     """Launch pass 1 on contiguous [B, n] CUDA planes; returns the
     intermediate planes [B, n] (row-major (B, L1, L2))."""
-    return _launch_pass1("fourstep_pass1", xr, xi, direction)
+    return _launch_pass1("fourstep_pass1", xr, xi, direction,
+                         _two_pass_sides(xr, "fourstep_pass1"), LAUNCHES)
 
 
 def fourstep_pass1_packed(x: torch.Tensor, direction=FORWARD):
@@ -267,29 +290,44 @@ def fourstep_pass1_packed(x: torch.Tensor, direction=FORWARD):
     if x.shape[-1] % 2:
         raise ValueError(f"fourstep_pass1_packed takes an even length; got "
                          f"{tuple(x.shape)}")
-    return _launch_pass1("fourstep_pass1_packed", x, None, direction)
+    sides = _two_pass_sides(x, "fourstep_pass1_packed", int(x.shape[-1]) // 2)
+    return _launch_pass1("fourstep_pass1_packed", x, None, direction, sides, LAUNCHES)
 
 
-def _launch_pass1(name: str, xr, xi, direction):
+def _launch_pass1(name: str, xr, xi, direction, sides: tuple[int, int],
+                  counts: dict, swap: int = 1):
+    """Launch pass 1 at `sides` = (L1, L2) on contiguous [B, L1*L2] planes
+    (xi None: a packed real row); `swap` = F1 > 1 launches the swap-store
+    mode (`fftlab_fourstep_pass1_swap`): row k1 of input row o*F1 + k1a is
+    stored at row (o, k1, k1a). The launch adds one to `counts[name]`, the
+    LAUNCHES of the module whose wrapper it serves."""
     direction = Direction(int(direction))
     packed = xi is None
-    n = _check_launch(xr, xi, name, int(xr.shape[-1]) // 2 if packed else None)
-    L1, L2 = _split_sides(n)
-    lib = _build.load_library()
+    _check_launch(xr, xi, name, sides)
+    L1, L2 = sides
     B = xr.shape[0]
-    mr = torch.empty(B, n, device=xr.device)
+    if B % swap:
+        raise ValueError(f"{name} takes a multiple of {swap} rows; got {B}")
+    lib = _build.load_library()
+    mr = torch.empty(B, L1 * L2, device=xr.device)
     mi = torch.empty_like(mr)
-    tw1, a_tab, p_tab = _pass1_tables(n, direction, xr.device)
-    args = (mr.data_ptr(), mi.data_ptr(), tw1.data_ptr(), a_tab.data_ptr(),
-            p_tab.data_ptr(), B, log2_int(L1), log2_int(L2), log2_int(PASS1_WIDTH),
-            int(direction), stream_of(xr))
+    tw1, a_tab, p_tab = _pass1_tables(L1, L2, direction, xr.device)
+    tabs = (tw1.data_ptr(), a_tab.data_ptr(), p_tab.data_ptr())
+    logs = (log2_int(L1), log2_int(L2), log2_int(PASS1_WIDTH))
+    tail = (int(direction), stream_of(xr))
     with torch.cuda.device(xr.device):
         if packed:
-            rc = lib.fftlab_fourstep_pass1_packed(xr.data_ptr(), *args)
+            rc = lib.fftlab_fourstep_pass1_packed(xr.data_ptr(), mr.data_ptr(),
+                                                  mi.data_ptr(), *tabs, B, *logs, *tail)
+        elif swap > 1:
+            rc = lib.fftlab_fourstep_pass1_swap(
+                xr.data_ptr(), xi.data_ptr(), mr.data_ptr(), mi.data_ptr(), *tabs,
+                B // swap, log2_int(swap), *logs, *tail)
         else:
-            rc = lib.fftlab_fourstep_pass1(xr.data_ptr(), xi.data_ptr(), *args)
+            rc = lib.fftlab_fourstep_pass1(xr.data_ptr(), xi.data_ptr(), mr.data_ptr(),
+                                           mi.data_ptr(), *tabs, B, *logs, *tail)
     _build.check(lib, name, rc)
-    LAUNCHES[name] += 1
+    counts[name] += 1
     return mr, mi
 
 
@@ -297,7 +335,8 @@ def fourstep_pass2(mr: torch.Tensor, mi: torch.Tensor, direction=FORWARD,
                    scale: float = 1.0):
     """Launch pass 2 on the contiguous [B, n] intermediate planes; returns
     the natural-order spectrum. `scale` is the whole output scale."""
-    return _launch_pass2("fourstep_pass2", mr, mi, None, direction, scale)
+    return _launch_pass2("fourstep_pass2", mr, mi, None, direction, scale,
+                         _two_pass_sides(mr, "fourstep_pass2"), LAUNCHES)
 
 
 def fourstep_pass2_filter(mr: torch.Tensor, mi: torch.Tensor, hr: torch.Tensor,
@@ -305,7 +344,7 @@ def fourstep_pass2_filter(mr: torch.Tensor, mi: torch.Tensor, hr: torch.Tensor,
     """Launch pass 2 with the response in its epilogue: the natural-order
     spectrum times H (contiguous float32 CUDA planes of n bins)."""
     return _launch_pass2("fourstep_pass2_filter", mr, mi, (hr, hi), direction,
-                         scale)
+                         scale, _two_pass_sides(mr, "fourstep_pass2_filter"), LAUNCHES)
 
 
 def fourstep_pass2_interleaved(mr: torch.Tensor, mi: torch.Tensor,
@@ -314,16 +353,21 @@ def fourstep_pass2_interleaved(mr: torch.Tensor, mi: torch.Tensor,
     the natural-order spectrum stored interleaved: returns the real
     [B, 2n] signal whose (2k, 2k+1) samples are bin k's (re, im)."""
     return _launch_pass2("fourstep_pass2_interleaved", mr, mi, None, direction,
-                         scale)
+                         scale, _two_pass_sides(mr, "fourstep_pass2_interleaved"),
+                         LAUNCHES)
 
 
-def _launch_pass2(name: str, mr, mi, h, direction, scale: float):
+def _launch_pass2(name: str, mr, mi, h, direction, scale: float,
+                  sides: tuple[int, int], counts: dict):
+    """Launch pass 2 (the store of `name`) on contiguous [B, L1*L2]
+    intermediate planes; `sides` and `counts` as in `_launch_pass1`."""
     direction = Direction(int(direction))
-    n = _check_launch(mr, mi, name)
+    _check_launch(mr, mi, name, sides)
+    L1, L2 = sides
+    n = L1 * L2
     if h is not None:
         check_cuda(*h, name=name)
         check_response(*h, n, mr, name)
-    L1, L2 = _split_sides(n)
     lib = _build.load_library()
     tw2 = _pass2_twiddle(L2, direction, mr.device)
     args = (mr.shape[0], log2_int(L1), log2_int(L2), log2_int(_pass2_rows(L2)),
@@ -346,7 +390,7 @@ def _launch_pass2(name: str, mr, mi, h, direction, scale: float):
                 mr.data_ptr(), mi.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
                 tw2.data_ptr(), h[0].data_ptr(), h[1].data_ptr(), *args)
     _build.check(lib, name, rc)
-    LAUNCHES[name] += 1
+    counts[name] += 1
     return out
 
 
@@ -373,30 +417,33 @@ def fft_split_large(xr: torch.Tensor, xi: torch.Tensor, direction=FORWARD,
     return yr.reshape(xr.shape), yi.reshape(xi.shape)
 
 
+fft_split_large_ad = make_differentiable(fft_split_large)
+
+
 def _half_cfft(name: str, n: int, direction):
     """The half-size complex transform of a real length-n signal: the
-    two-pass kernels where n/2 fits them (2^15..2^21), the einsum route
-    in the three-pass window 2^22..2^26 until that kernel (ROADMAP K4) is
-    ported, else a ValueError naming both constraints."""
+    two-pass kernels where n/2 fits them (2^15..2^21), else the three-pass
+    kernel (2^22..2^26, kernels/threestep_vmem.py), else a ValueError
+    naming both constraints (fftlab/kernels/fourstep_vmem.py:797-817)."""
+    from fftlab_torch.kernels.threestep_vmem import fft_split_huge, supported_huge
+
     if n % 2:
         raise ValueError(f"{name} needs even n; got {n}")
     half = n // 2
     if supported_large(half):
         return lambda a, b: fft_split_large(a, b, direction)
-    if not (is_power_of_two(half) and MAX_N < half <= MAX_HUGE_N):
+    if not supported_huge(half):
         raise ValueError(f"{name} needs n/2 to be a power of two in "
                          f"[{MIN_N}, 2^26]; got n={n} (n/2={half})")
-    from fftlab_torch.algos.split_stockham import fft_split
-
-    return lambda a, b: fft_split(a, b, direction)
+    return lambda a, b: fft_split_huge(a, b, direction)
 
 
 def rfft_split_large(x: torch.Tensor):
     """Real-input FFT of long signals: real [..., n] -> one-sided (re, im)
     of n//2+1 bins, the half-size transform on the two-pass kernels (n/2
-    pow2 in 2^15..2^21) or, for n/2 in 2^22..2^26, on the einsum route
-    until the three-pass kernel is ported. Pack-two-reals, as
-    `algos.split_stockham.rfft_split` with that `cfft`."""
+    pow2 in 2^15..2^21) or the three-pass kernel (n/2 in 2^22..2^26).
+    Pack-two-reals, as `algos.split_stockham.rfft_split` with that
+    `cfft`."""
     from fftlab_torch.algos.split_stockham import rfft_split
 
     check_real(x, "rfft_split_large")

@@ -151,8 +151,7 @@ def plan_c2r_1d_split(n: int, flags: Flags = Flags.ESTIMATE,
     return _real_plan("c2r_split", n, _real_route(n, flags, batch), flags)
 
 
-# JAX route name -> this package's route; None: the JAX kernel is not
-# ported yet, so the route is what select_split_impl picks for n.
+# JAX route name -> this package's route.
 _FROM_JAX = {
     "pallas_vmem": "smem_rows",
     "resident_vmem": "two_pass",
@@ -162,8 +161,8 @@ _FROM_JAX = {
     "resident_v6_3x": "two_pass",
     "resident_cio": "two_pass",
     "fourstep_vmem": "two_pass",
-    "threestep_vmem": None,
-    "pallas_pipeline": None,
+    "threestep_vmem": "three_pass",
+    "pallas_pipeline": "stage_pipeline",
     "einsum": "einsum",
 }
 
@@ -180,8 +179,7 @@ def plan_from_jax(route: str, n: int, direction: int = FORWARD,
     if kind == "c2c_split":
         if route not in _FROM_JAX:
             raise ValueError(f"unknown JAX split route {route!r}")
-        ours = _FROM_JAX[route] or select_split_impl(n)
-        return _split_plan(n, direction, ours, Flags.ESTIMATE)
+        return _split_plan(n, direction, _FROM_JAX[route], Flags.ESTIMATE)
     names = {"r2c_split": "rfft", "c2r_split": "irfft"}
     if kind not in names:
         raise ValueError(f"unknown JAX plan kind {kind!r}; want one of "
@@ -197,6 +195,5 @@ def plan_from_jax(route: str, n: int, direction: int = FORWARD,
     inner = route[len(prefix):-1] if route.startswith(prefix) and route.endswith("]") else None
     if inner not in _FROM_JAX:
         raise ValueError(f"unknown JAX {kind} algorithm {route!r}")
-    ours = _FROM_JAX[inner] or select_split_impl(n // 2)
-    return _real_plan(kind, n, ours, Flags.ESTIMATE)
+    return _real_plan(kind, n, _FROM_JAX[inner], Flags.ESTIMATE)
 

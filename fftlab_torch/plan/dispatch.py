@@ -3,13 +3,19 @@ sandwich (counterpart of fftlab/plan/dispatch.py:49-102 and :146-313).
 
 Routes (split re/im float32 planes, [..., n] batch-first):
 
-  smem_rows  n = m*128, 8K <= n <= 16K: one block per row
-             (kernels/fft_vmem.py; the JAX `pallas_vmem` window)
-  two_pass   pow2 n in 2^15..2^21: the two-pass four-step kernels
-             (kernels/fourstep_vmem.py; the JAX `resident_v6` and
-             `fourstep_vmem` windows)
-  einsum     every other size, 2^22 and above included until the
-             three-pass kernel (ROADMAP K4) is ported: tensor-op Stockham
+  smem_rows       n = m*128, 8K <= n <= 16K: one block per row
+                  (kernels/fft_vmem.py; the JAX `pallas_vmem` window)
+  two_pass        pow2 n in 2^15..2^21: the two-pass four-step kernels
+                  (kernels/fourstep_vmem.py; the JAX `resident_v6` and
+                  `fourstep_vmem` windows)
+  three_pass      pow2 n in 2^22..2^26: the three-pass kernel
+                  (kernels/threestep_vmem.py; the JAX `threestep_vmem`
+                  window, where 2^21 also stays on two passes)
+  stage_pipeline  pow2 n >= 256, only when asked for (FFTLAB_FORCE_IMPL,
+                  or `plan_from_jax` of a JAX `pallas_pipeline` plan):
+                  fused radix stages (kernels/stage_fused.py) with
+                  `pipeline_factors(n)`
+  einsum          every other size: tensor-op Stockham
 
 Sandwich routes (`spectral_filter_auto`, ifft(fft(x) * H), 1/n scaled):
 
@@ -38,7 +44,7 @@ import torch
 
 from fftlab_torch.core.types import FORWARD
 
-ROUTES = ("smem_rows", "two_pass", "einsum")
+ROUTES = ("smem_rows", "two_pass", "three_pass", "stage_pipeline", "einsum")
 
 # The JAX package's crossover (fftlab/plan/dispatch.py:57): below 8K the
 # row kernel does not take the route.
@@ -54,11 +60,14 @@ def select_split_impl(n: int, batch: int = 1) -> str:
         return forced
     from fftlab_torch.kernels.fft_vmem import supported_size
     from fftlab_torch.kernels.fourstep_vmem import supported_large
+    from fftlab_torch.kernels.threestep_vmem import supported_huge
 
     if supported_size(n) and n >= _ROWS_MIN_N:
         return "smem_rows"
     if supported_large(n):
         return "two_pass"
+    if supported_huge(n):
+        return "three_pass"
     return "einsum"
 
 
@@ -77,6 +86,18 @@ def run_route(route: str, xr: torch.Tensor, xi: torch.Tensor, direction,
         from fftlab_torch.kernels.fourstep_vmem import fft_split_large
 
         return fft_split_large(xr, xi, direction, scale=scale)
+    if route == "three_pass":
+        from fftlab_torch.kernels.threestep_vmem import fft_split_huge
+
+        return fft_split_huge(xr, xi, direction, scale=scale)
+    if route == "stage_pipeline":
+        from fftlab_torch.kernels.stage_fused import fft_split_pipeline, pipeline_factors
+
+        n = int(xr.shape[-1])
+        B = math.prod(xr.shape[:-1])
+        yr, yi = fft_split_pipeline(xr.reshape(B, n), xi.reshape(B, n), direction,
+                                    pipeline_factors(n), scale=scale)
+        return yr.reshape(xr.shape), yi.reshape(xi.shape)
     from fftlab_torch.algos.split_stockham import fft_split
 
     yr, yi = fft_split(xr, xi, direction)

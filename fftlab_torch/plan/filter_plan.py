@@ -16,6 +16,9 @@ frame (`os_filter_vmem.taps_fit`, the JAX package's rule), the
 overlap-save route runs: the `os_filter` kernel on a CUDA plan, its plain
 version on a CPU plan. Longer taps take the tensor-op block path
 (`_filter_blocks`). A sharded plan (`mesh=`) is not ported yet.
+
+A plan runs on the card unless it is built with `device="cpu"`; without
+a CUDA device the default raises rather than falling back to the CPU.
 """
 
 from __future__ import annotations
@@ -47,11 +50,12 @@ class FilterPlan:
     `dsp.filtering.design_fir`. fft_size: the block of the tensor-op path
     (default max(next_pow2(4*nh), 256)); the overlap-save kernel runs at
     the nearest frame size it takes (`kernel_fft_size`). Results are
-    float32 tensors on `device`.
+    float32 tensors on `device`: the card by default, the CPU only when
+    asked for with `device="cpu"`.
     """
 
     def __init__(self, h, fft_size: int | None = None, mesh=None,
-                 num_taps: int = 129, device="cpu"):
+                 num_taps: int = 129, device="cuda"):
         if mesh is not None:
             raise NotImplementedError(
                 "FilterPlan(mesh=...): the sharded overlap-save is not ported "
@@ -68,6 +72,10 @@ class FilterPlan:
             raise ValueError(f"fft_size {fft_size} too small for {self.nh} taps")
         self.fft_size = int(fft_size)
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "FilterPlan runs on the card by default and no CUDA device is "
+                'available; pass device="cpu" to run the plan on the CPU')
         self._tail: torch.Tensor | None = None
 
         # each route reads its own response: the overlap-save route the FFT
@@ -84,7 +92,7 @@ class FilterPlan:
                 hp, torch.zeros_like(hp), FORWARD)
 
     @classmethod
-    def from_jax(cls, h, fft_size: int, tail=None, device="cpu") -> "FilterPlan":
+    def from_jax(cls, h, fft_size: int, tail=None, device="cuda") -> "FilterPlan":
         """A plan that continues a JAX FilterPlan's stream: its taps
         (`plan.h`), `plan.fft_size` and the carried tail (`plan._tail`,
         None before the first chunk), all as numpy."""

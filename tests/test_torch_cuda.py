@@ -1,7 +1,7 @@
 """fftlab_torch's CUDA kernels on the card: each kernel against its plain
 version and a float64 oracle, the launch counts of the main paths (the
-FFT, the spectral filter and the real-signal path), and the wrappers'
-refusals. Every test
+FFT, the spectral filter, the real-signal path and the huge-n path), the
+kernels' adjoints, and the wrappers' refusals. Every test
 here needs a CUDA card and skips without one.
 
 This file imports neither jax nor fftlab, so it runs where JAX is not
@@ -17,7 +17,9 @@ overlap-save filter >= 100 dB against np.convolve (bench.py's serving
 gate, :515-526); Bluestein >= 95 dB (tests/test_split.py:272); a stream
 within 2e-4 of the whole-signal call (tests/test_filter_plan.py:75-89);
 the real-signal kernels >= 110 dB against np.fft.rfft / irfft and a
-float64 framed STFT, the pack and interleave bit-exact (a copy).
+float64 framed STFT, the pack and interleave bit-exact (a copy); the
+three-pass FFT >= 120 dB and a fused stage or the stage pipeline
+>= 115 dB against float64 (tests/test_stage_fused.py:31).
 The plain versions run with TF32 off: TF32 matmuls would cost about
 60 dB."""
 
@@ -29,7 +31,8 @@ import fftlab_torch
 from _torch_parity import (CASE_IDS, CASES, cplx, hide_nvcc, oracle, planes,
                            requires_cuda, snr_db, tt, whole_scale)
 from fftlab_torch.kernels import (_build, fft_vmem, fourstep_vmem, os_filter_vmem,
-                                  rfft_resident, rfft_vmem, stft_vmem)
+                                  rfft_resident, rfft_vmem, stage_fused, stft_vmem,
+                                  threestep_vmem)
 from fftlab_torch.plan import hardware
 
 pytestmark = requires_cuda
@@ -102,7 +105,8 @@ def test_slice_launches_kernels(n, route, kernels):
 
 def _launches():
     return {**fft_vmem.LAUNCHES, **fourstep_vmem.LAUNCHES, **os_filter_vmem.LAUNCHES,
-            **rfft_vmem.LAUNCHES, **stft_vmem.LAUNCHES}
+            **rfft_vmem.LAUNCHES, **stft_vmem.LAUNCHES, **threestep_vmem.LAUNCHES,
+            **stage_fused.LAUNCHES}
 
 
 def _sandwich_oracle(xr, xi, hr, hi):
@@ -400,3 +404,126 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     hide_nvcc(monkeypatch, tmp_path)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.compile_library(tmp_path / _build.LIB_NAME)
+
+
+# ------------------------------------------- the huge-n path (three_pass)
+
+
+def test_filter_plan_defaults_to_the_card():
+    plan = fftlab_torch.FilterPlan(np.ones(9) / 9.0)
+    assert plan.device.type == "cuda"
+    assert plan(np.ones(4096, np.float32)).device.type == "cuda"
+
+
+@pytest.mark.parametrize("n,B", [(1 << 22, 2), (1 << 25, 1)])
+@pytest.mark.parametrize("direction,scale", CASES, ids=CASE_IDS)
+def test_three_pass_matches_plain(no_tf32, n, B, direction, scale):
+    xr, xi = _cuda_pair(n % 101, (B, n))
+    eff = whole_scale(n, direction, scale)
+    before = dict(threestep_vmem.LAUNCHES)
+    a = threestep_vmem.threestep_pass_a(xr, xi, direction)
+    b = threestep_vmem.threestep_pass_b(*a, direction)
+    c = threestep_vmem.threestep_pass_c(*b, direction, eff)
+    assert all(threestep_vmem.LAUNCHES[k] == before[k] + 1 for k in before)
+    assert snr_db(cplx(*a), cplx(*threestep_vmem.threestep_pass_a_plain(xr, xi, direction))) >= 110.0
+    assert snr_db(cplx(*b), cplx(*threestep_vmem.threestep_pass_b_plain(*a, direction))) >= 110.0
+    assert snr_db(cplx(*c), cplx(*threestep_vmem.threestep_pass_c_plain(*b, direction, eff))) >= 110.0
+    assert snr_db(cplx(*c), oracle(xr.cpu(), xi.cpu(), direction, eff)) >= 120.0
+
+
+@pytest.mark.parametrize("n,B", [(1 << 22, 4), (1 << 24, 1)])
+def test_huge_route_launches_kernels(no_tf32, n, B):
+    xr, xi = planes(n % 97, (B, n))
+    plan = fftlab_torch.plan_dft_1d_split(n, batch=B)
+    before = dict(threestep_vmem.LAUNCHES)
+    yr, yi = plan.execute((tt(xr, "cuda"), tt(xi, "cuda")))
+    assert plan.algorithm == "three_pass"
+    assert all(threestep_vmem.LAUNCHES[k] == before[k] + 1 for k in before)
+    assert snr_db(cplx(yr, yi), oracle(xr, xi, -1)) >= 120.0
+    br, bi = fftlab_torch.fft_split_auto(yr, yi, fftlab_torch.INVERSE)
+    assert snr_db(cplx(br, bi), xr + 1j * xi.astype(np.float64)) >= 120.0
+
+
+def test_huge_real_plans_launch_kernels(no_tf32):
+    n = 1 << 23
+    x, xc = _real(23, (2, n))
+    r2c = fftlab_torch.plan_r2c_1d_split(n, batch=2)
+    c2r = fftlab_torch.plan_c2r_1d_split(n, batch=2)
+    assert r2c.algorithm == "rfft_split[three_pass]"
+    before = dict(threestep_vmem.LAUNCHES)
+    X = r2c.execute(xc)
+    y = c2r.execute(X)
+    assert all(threestep_vmem.LAUNCHES[k] == before[k] + 2 for k in before)
+    assert snr_db(cplx(*X), np.fft.rfft(x.astype(np.float64), axis=-1)) >= 110.0
+    assert snr_db(y.cpu().numpy(), x.astype(np.float64)) >= 110.0
+
+
+@pytest.mark.parametrize("r,M", [(64, 2048), (128, 1024), (32, 128), (2, 128)])
+@pytest.mark.parametrize("direction", [-1, 1])
+@pytest.mark.parametrize("twiddle", [True, False], ids=["twiddle", "no_twiddle"])
+def test_fused_stage_matches_plain(no_tf32, r, M, direction, twiddle):
+    xr, xi = _cuda_pair(r + M, (3, r * M))
+    before = stage_fused.LAUNCHES["fused_stage"]
+    got = cplx(*stage_fused.fused_stage(xr, xi, r, direction, twiddle))
+    assert stage_fused.LAUNCHES["fused_stage"] == before + 1
+    plain = cplx(*stage_fused.fused_stage_plain(xr, xi, r, direction, twiddle))
+    assert snr_db(got, plain) >= 110.0
+    z = (np.asarray(xr.cpu(), np.float64) + 1j * np.asarray(xi.cpu(), np.float64))
+    F = np.exp(2j * np.pi * direction * np.outer(np.arange(r), np.arange(r)) / r)
+    want = np.einsum("ka,bam->bkm", F, z.reshape(3, r, M))
+    if twiddle:
+        want = want * np.exp(2j * np.pi * direction * np.outer(np.arange(r), np.arange(M))
+                             / (r * M))
+    assert snr_db(got, want.reshape(3, r * M)) >= 115.0
+
+
+@pytest.mark.parametrize("n,B", [(1 << 15, 2), (1 << 20, 4), (256, 3)])
+def test_stage_pipeline_launches_kernel(no_tf32, n, B):
+    xr, xi = planes(n % 89, (B, n))
+    plan = fftlab_torch.plan_from_jax("pallas_pipeline", n, -1)
+    before = stage_fused.LAUNCHES["fused_stage"]
+    yr, yi = plan.execute((tt(xr, "cuda"), tt(xi, "cuda")))
+    assert plan.algorithm == "stage_pipeline"
+    assert stage_fused.LAUNCHES["fused_stage"] == before + len(stage_fused.pipeline_factors(n)) - 1
+    assert snr_db(cplx(yr, yi), oracle(xr, xi, -1)) >= 115.0
+
+
+@pytest.mark.parametrize("name,n", [("rows", 8192), ("two_pass", 1 << 15),
+                                    ("three_pass", 1 << 21)])
+def test_adjoints_on_the_card_match_cpu(no_tf32, name, n):
+    fn = {"rows": fft_vmem.pallas_fft_split_ad, "two_pass": fourstep_vmem.fft_split_large_ad,
+          "three_pass": threestep_vmem.fft_split_huge_ad}[name]
+    xr, xi = planes(n + 3, (2, n))
+    cr, ci = planes(n + 4, (2, n))
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        before = _launches()
+        ar, ai = tt(xr, dev).requires_grad_(True), tt(xi, dev).requires_grad_(True)
+        yr, yi = fn(ar, ai, -1)
+        grads[dev] = torch.autograd.grad((yr * tt(cr, dev) + yi * tt(ci, dev)).sum(),
+                                         (ar, ai))
+        launched = sum(_launches()[k] - before[k] for k in before)
+        assert launched == (0 if dev == "cpu" else 2 * {"rows": 1, "two_pass": 2,
+                                                         "three_pass": 3}[name])
+    assert snr_db(cplx(*grads["cuda"]), cplx(*grads["cpu"])) >= 110.0
+    c = cr + 1j * ci.astype(np.float64)
+    assert snr_db(cplx(*grads["cuda"]), np.fft.ifft(c) * n) >= 110.0
+
+
+def test_huge_and_stage_wrappers_refuse():
+    n = 1 << 22
+    xt = torch.zeros(n, 2, device="cuda").T  # non-contiguous
+    x = torch.zeros(2, n, device="cuda")
+    for launch in (threestep_vmem.threestep_pass_a, threestep_vmem.threestep_pass_b,
+                   threestep_vmem.threestep_pass_c):
+        with pytest.raises(ValueError, match="contiguous"):
+            launch(xt, xt)
+        with pytest.raises(TypeError, match="float32"):
+            launch(x.double(), x.double())
+    with pytest.raises(ValueError, match="supports pow2 n"):
+        threestep_vmem.fft_split_huge(x[:, : 1 << 20], x[:, : 1 << 20])
+    with pytest.raises(ValueError, match="contiguous"):
+        stage_fused.fused_stage(xt[:, : 64 * 128], xt[:, : 64 * 128], 64)
+    y = torch.zeros(2, 3 * 128, device="cuda")
+    with pytest.raises(ValueError, match="pow2 r"):
+        stage_fused.fused_stage(y, y, 3)

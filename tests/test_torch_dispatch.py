@@ -28,7 +28,8 @@ def _no_forced_route(monkeypatch):
 
 ROUTE_TABLE = [(4096, "einsum"), (8192, "smem_rows"), (16384, "smem_rows"),
                (1 << 15, "two_pass"), (1 << 20, "two_pass"),
-               (1 << 21, "two_pass"), (1 << 22, "einsum"), (1000, "einsum")]
+               (1 << 21, "two_pass"), (1 << 22, "three_pass"), (1 << 26, "three_pass"),
+               (1 << 27, "einsum"), (1000, "einsum")]
 
 
 @pytest.mark.parametrize("n,route", ROUTE_TABLE)
@@ -63,24 +64,25 @@ JAX_TO_PORT = {
     "resident_v4": "two_pass", "resident_v6": "two_pass",
     "resident_v4_3x": "two_pass", "resident_v6_3x": "two_pass",
     "resident_cio": "two_pass", "fourstep_vmem": "two_pass",
+    "threestep_vmem": "three_pass", "pallas_pipeline": "stage_pipeline",
     "einsum": "einsum",
 }
 
 
 @pytest.mark.parametrize("route", jx_dispatch.ROUTES)
 def test_plan_from_jax_every_route(route):
-    n = 8192 if route == "pallas_vmem" else 1 << 15
+    n = {"pallas_vmem": 8192, "threestep_vmem": 1 << 22}.get(route, 1 << 15)
     plan = api.plan_from_jax(route, n, -1)
-    want = JAX_TO_PORT.get(route) or dispatch.select_split_impl(n)
-    assert plan.algorithm == want and plan.n == n
+    assert plan.algorithm == JAX_TO_PORT[route] and plan.n == n
     assert plan.direction == fftlab_torch.FORWARD
 
 
-@pytest.mark.parametrize("route,n,want", [("threestep_vmem", 1 << 22, "einsum"),
-                                          ("threestep_vmem", 1 << 21, "two_pass"),
-                                          ("pallas_pipeline", 16384, "smem_rows"),
-                                          ("pallas_pipeline", 1 << 17, "two_pass")])
+@pytest.mark.parametrize("route,n,want", [("threestep_vmem", 1 << 22, "three_pass"),
+                                          ("threestep_vmem", 1 << 21, "three_pass"),
+                                          ("pallas_pipeline", 16384, "stage_pipeline"),
+                                          ("pallas_pipeline", 1 << 17, "stage_pipeline")])
 def test_plan_from_jax_unported_kernels(route, n, want):
+    """The JAX kernel routes ported last map by name, at any n of theirs."""
     assert api.plan_from_jax(route, n, 1).algorithm == want
 
 

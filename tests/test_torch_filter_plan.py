@@ -35,7 +35,7 @@ def rng_case(seed, n, nh):
 
 def test_whole_signal_matches_jax_and_convolution():
     x, h = rng_case(0, 4096, 33)
-    plan = FilterPlan(h)
+    plan = FilterPlan(h, device="cpu")
     got = plan(x).numpy()
     np.testing.assert_allclose(got, conv(x, h), atol=1e-4)
     np.testing.assert_allclose(got, np.asarray(jx_fp.FilterPlan(h)(x)), atol=1e-4)
@@ -45,7 +45,7 @@ def test_batched_signals():
     rng = np.random.default_rng(9)
     x = rng.standard_normal((3, 2000)).astype(np.float32)
     h = rng.standard_normal(21)
-    got = FilterPlan(h)(x)
+    got = FilterPlan(h, device="cpu")(x)
     assert got.shape == (3, 2000) and got.dtype == torch.float32
     for c in range(3):
         np.testing.assert_allclose(got[c].numpy(), conv(x[c], h), atol=1e-4)
@@ -54,7 +54,7 @@ def test_batched_signals():
 def test_two_channels():
     a, h = rng_case(1, 2048, 17)
     b, _ = rng_case(2, 2048, 17)
-    ya, yb = FilterPlan(h)(a, b)
+    ya, yb = FilterPlan(h, device="cpu")(a, b)
     ja, jb = jx_fp.FilterPlan(h)(a, b)
     np.testing.assert_allclose(ya.numpy(), conv(a, h), atol=1e-4)
     np.testing.assert_allclose(yb.numpy(), conv(b, h), atol=1e-4)
@@ -65,7 +65,7 @@ def test_two_channels():
 @pytest.mark.parametrize("n", [4096, 4097, 5000])
 def test_packed_real_matches_unpacked(n):
     x, h = rng_case(7, n, 33)
-    plan = FilterPlan(h)
+    plan = FilterPlan(h, device="cpu")
     assert plan._call_packed_real(torch.from_numpy(x)) is not None
     got = plan(x).numpy()
     assert got.shape == (n,)
@@ -76,14 +76,14 @@ def test_packed_real_matches_unpacked(n):
 
 
 def test_packed_real_skips_short_signals():
-    plan = FilterPlan(np.ones(9) / 9.0)
+    plan = FilterPlan(np.ones(9) / 9.0, device="cpu")
     assert plan._call_packed_real(torch.ones(64)) is None
 
 
 @pytest.mark.parametrize("nh", [1, 65])
 def test_streaming_continuity(nh):
     x, h = rng_case(2, 6000, nh)
-    plan = FilterPlan(h)
+    plan = FilterPlan(h, device="cpu")
     chunks = [x[0:1000], x[1000:1500], x[1500:1501], x[1501:4096], x[4096:6000]]
     got = torch.cat([plan.stream(c) for c in chunks]).numpy()
     plan.reset()
@@ -95,7 +95,7 @@ def test_streaming_continuity(nh):
 
 def test_stream_empty_chunk_keeps_state():
     x, h = rng_case(4, 3000, 33)
-    plan = FilterPlan(h)
+    plan = FilterPlan(h, device="cpu")
     a = plan.stream(x[:1000])
     assert plan.stream(x[:0]).shape == (0,)
     b = plan.stream(x[1000:])
@@ -104,7 +104,7 @@ def test_stream_empty_chunk_keeps_state():
 
 def test_reset_restarts_stream():
     rng = np.random.default_rng(3)
-    plan = FilterPlan(rng.standard_normal(9))
+    plan = FilterPlan(rng.standard_normal(9), device="cpu")
     c = rng.standard_normal(512).astype(np.float32)
     y1 = plan.stream(c)
     plan.reset()
@@ -120,25 +120,25 @@ def test_stream_continued_from_jax_tail(split):
     jplan = jx_fp.FilterPlan(h)
     first = [np.asarray(jplan.stream(x[:split // 2])),
              np.asarray(jplan.stream(x[split // 2:split]))]
-    plan = FilterPlan.from_jax(jplan.h, jplan.fft_size, jplan._tail)
+    plan = FilterPlan.from_jax(jplan.h, jplan.fft_size, jplan._tail, device="cpu")
     assert plan.nh == jplan.nh and plan.fft_size == jplan.fft_size
     second = [plan.stream(x[split:3000]).numpy(), plan.stream(x[3000:]).numpy()]
     got = np.concatenate(first + second)
     np.testing.assert_allclose(got, conv(x, h), atol=2e-4)
-    np.testing.assert_allclose(got, FilterPlan(h)(x).numpy(), atol=2e-4)
+    np.testing.assert_allclose(got, FilterPlan(h, device="cpu")(x).numpy(), atol=2e-4)
 
 
 def test_from_jax_before_first_chunk():
     x, h = rng_case(12, 3000, 17)
-    plan = FilterPlan.from_jax(h, 256, None)
+    plan = FilterPlan.from_jax(h, 256, None, device="cpu")
     np.testing.assert_allclose(plan.stream(x).numpy(), conv(x, h), atol=1e-4)
     with pytest.raises(ValueError, match="tail"):
-        FilterPlan.from_jax(h, 256, np.zeros(5, np.float32))
+        FilterPlan.from_jax(h, 256, np.zeros(5, np.float32), device="cpu")
 
 
 def test_from_filter_params():
     p = FilterParams(FilterType.LOWPASS, 0.1, sample_rate=1.0, transition_width=0.02)
-    plan = FilterPlan(p, num_taps=65)
+    plan = FilterPlan(p, num_taps=65, device="cpu")
     jplan = jx_fp.FilterPlan(JxParams(JxType.LOWPASS, 0.1, sample_rate=1.0,
                                       transition_width=0.02), num_taps=65)
     assert plan.nh == 65
@@ -151,24 +151,24 @@ def test_from_filter_params():
 
 def test_validation():
     with pytest.raises(ValueError):
-        FilterPlan(np.zeros((2, 3)))
+        FilterPlan(np.zeros((2, 3)), device="cpu")
     with pytest.raises(ValueError):
-        FilterPlan(np.zeros(100), fft_size=128)
-    plan = FilterPlan(np.ones(5))
+        FilterPlan(np.zeros(100), fft_size=128, device="cpu")
+    plan = FilterPlan(np.ones(5), device="cpu")
     with pytest.raises(ValueError):
         plan.stream(np.zeros((2, 10)))
 
 
 def test_mesh_not_ported():
     with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        FilterPlan(np.ones(5), mesh=object())
+        FilterPlan(np.ones(5), mesh=object(), device="cpu")
 
 
 @pytest.mark.parametrize("nh,fft_size", [(9, None), (33, None), (129, None),
                                          (65, 1000), (1025, None), (129, 40000)])
 def test_kernel_frame_is_the_jax_rule(nh, fft_size):
     h = np.ones(nh, np.float32)
-    plan = FilterPlan(h, fft_size=fft_size)
+    plan = FilterPlan(h, fft_size=fft_size, device="cpu")
     jplan = jx_fp.FilterPlan(h, fft_size=fft_size)
     assert plan.fft_size == jplan.fft_size
     assert plan.kernel_fft_size() == jplan._pallas_fft_size()
@@ -179,7 +179,7 @@ def test_long_taps_take_the_block_path():
     """Taps whose halo fills the kernel's 16K frame take the tensor-op
     block path (the JAX package's size rule), and still filter."""
     h = np.ones(16384, np.float32) / 16384.0
-    plan = FilterPlan(h)
+    plan = FilterPlan(h, device="cpu")
     assert not plan.uses_kernel() and "blocks" in plan.describe()
     x = np.random.default_rng(5).standard_normal(1 << 15).astype(np.float32)
     np.testing.assert_allclose(plan(x).numpy(), conv(x, h), atol=1e-3)
@@ -188,7 +188,7 @@ def test_long_taps_take_the_block_path():
 def test_taps_longer_than_the_kernel_frame():
     x, h = rng_case(8, 30000, 20000)
     h = h / 20000
-    plan = FilterPlan(h)
+    plan = FilterPlan(h, device="cpu")
     assert not plan.uses_kernel()
     np.testing.assert_allclose(plan(x).numpy(), conv(x, h), atol=1e-3)
 
@@ -200,7 +200,7 @@ def test_block_path_streams_too():
         def uses_kernel(self):
             return False
 
-    plan = BlockPlan(h, fft_size=4096)
+    plan = BlockPlan(h, fft_size=4096, device="cpu")
     got = torch.cat([plan.stream(x[:15000]), plan.stream(x[15000:])]).numpy()
     np.testing.assert_allclose(got, conv(x, h), atol=1e-3)
     np.testing.assert_allclose(got, np.asarray(jx_fp.FilterPlan(h, fft_size=4096)(x)),
@@ -212,3 +212,14 @@ def test_describe_and_device():
     assert plan.describe() == ("FilterPlan(nh=129, fft_size=1024, hop=896, "
                                "os_filter[1024], cpu)")
     assert plan(np.zeros(10)).device.type == "cpu"
+
+
+@pytest.mark.parametrize("make", [lambda h: FilterPlan(h),
+                                  lambda h: FilterPlan.from_jax(h, 1024)],
+                         ids=["init", "from_jax"])
+def test_default_device_is_the_card(monkeypatch, make):
+    """A plan runs on the card unless built with device="cpu": without
+    CUDA the default raises, naming device="cpu", and never falls back."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        make(np.ones(9) / 9.0)

@@ -31,7 +31,7 @@ from fftlab.algos import split_stockham as jx
 import fftlab_torch
 from fftlab_torch.algos import split_stockham as pt
 from fftlab_torch.kernels import (fft_vmem, fourstep_vmem, os_filter_vmem,
-                                  rfft_resident, rfft_vmem, stft_vmem)
+                                  rfft_resident, rfft_vmem, stft_vmem, threestep_vmem)
 from fftlab_torch.plan import api
 from fftlab_torch.plan.flags import Flags
 
@@ -268,12 +268,12 @@ def test_split_large_matches_jax():
 
 
 def test_split_large_windows(monkeypatch):
-    """n/2 in 2^15..2^21 runs the two-pass kernels, 2^22..2^26 the einsum
-    route until the three-pass kernel lands, anything else raises."""
+    """n/2 in 2^15..2^21 runs the two-pass kernels, 2^22..2^26 the
+    three-pass kernel, anything else raises."""
     monkeypatch.setattr(fourstep_vmem, "fft_split_large", lambda a, b, d: "two_pass")
-    monkeypatch.setattr(pt, "fft_split", lambda a, b, d: "einsum")
+    monkeypatch.setattr(threestep_vmem, "fft_split_huge", lambda a, b, d: "three_pass")
     for n, route in [(1 << 16, "two_pass"), (1 << 22, "two_pass"),
-                     (1 << 23, "einsum"), (1 << 27, "einsum")]:
+                     (1 << 23, "three_pass"), (1 << 27, "three_pass")]:
         assert fourstep_vmem._half_cfft("rfft_split_large", n, -1)(None, None) == route
     for n in [1 << 15, (1 << 16) + 4, 1 << 28]:
         with pytest.raises(ValueError, match="power of two"):
@@ -307,7 +307,7 @@ def test_real_path_refuses_other_dtypes(name, dtype):
 # --------------------------------------------------------------- plans
 
 R2C_PLANS = [(1 << 16, "rfft_resident"), (1 << 21, "rfft_resident"),
-             (1 << 22, "rfft_split[two_pass]"), (1 << 23, "rfft_split[einsum]"),
+             (1 << 22, "rfft_split[two_pass]"), (1 << 23, "rfft_split[three_pass]"),
              (8192, "rfft_split[einsum]"), (16384, "rfft_split[smem_rows]"),
              (32768, "rfft_split[smem_rows]"),
              (999, "rfft_split[einsum]"), (2, "rfft_split[einsum]")]
@@ -356,7 +356,7 @@ def test_real_plans_measuring_flags_not_ported(flag):
     ("r2c_split", "rfft_split[resident_v6]", 1 << 17, "rfft_split[two_pass]"),
     ("c2r_split", "irfft_split[fourstep_vmem]", 1 << 22, "irfft_split[two_pass]"),
     ("r2c_split", "rfft_split[pallas_vmem]", 32768, "rfft_split[smem_rows]"),
-    ("r2c_split", "rfft_split[threestep_vmem]", 1 << 23, "rfft_split[einsum]"),
+    ("r2c_split", "rfft_split[threestep_vmem]", 1 << 23, "rfft_split[three_pass]"),
     ("c2r_split", "irfft_split[einsum]", 999, "irfft_split[einsum]"),
 ])
 def test_plan_from_jax_real(kind, algorithm, n, want):
