@@ -9,7 +9,8 @@ toolkit:
 Phases, in order; any failure raises and the exit code is non-zero:
 
 1. device: require a CUDA card; print nvidia-smi's name and power limit;
-2. build: compile the kernels from fftlab_torch/csrc with nvcc;
+2. build: compile the kernels from fftlab_torch/csrc with nvcc, print
+   ptxas's registers and spills of every kernel, and fail on a spill;
 3. kernels: each kernel's wrapper on card tensors at the main paths'
    shapes against its plain version (SNR >= 110 dB) and a float64 oracle
    (torch.fft on complex128 and np.convolve, used as oracles only):
@@ -51,8 +52,11 @@ Phases, in order; any failure raises and the exit code is non-zero:
    call that computes the same function, where one does (torch.fft on
    complex64, i.e. cuFFT; torch.fft.rfft / irfft, torch.stft(center=False),
    conv1d for the FIR, torch.stack for the interleave), the einsum route
-   at 1 x 2^24, and the A/B of the fused r2c (3 launches) against the
-   pipeline (4 launches) at 8 x 2^21, in turns;
+   at 1 x 2^24, the A/B of the fused r2c (3 launches) against the
+   pipeline (4 launches) at 8 x 2^21, in turns, and the geometry A/B of
+   the two-pass kernels at 16 x 2^20 and 4 x 2^21 (W columns per pass-1
+   block, R rows per pass-2 block), each candidate checked against the
+   plain version first and timed in turns;
 6. result: one JSON line of kernels, each with its bound (the larger of
    its bytes in and out over 3.35 TB/s and its float32 operations over
    67 TFLOP/s, the H100 SXM's published peaks), then the device line
@@ -72,6 +76,9 @@ import time
 
 ROWS_SHAPES = ((256, 8192), (128, 16384), (256, 16384))
 TWO_PASS_SHAPES = ((64, 1 << 15), (16, 1 << 20), (4, 1 << 21))
+# the geometry A/B of the two-pass kernels: the headline shape and the
+# window's top, whose L2 = 2048 rows take R <= 8
+AB_SHAPES = ((16, 1 << 20), (4, 1 << 21))
 MAIN_SHAPE = (16, 1 << 20)
 ROWS_MAIN_SHAPE = (256, 16384)
 FILTER_ROWS_MAIN_SHAPE = (256, 16384)
@@ -179,6 +186,18 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = _build.load_library()
     print(f"build: {time.perf_counter() - t0:.1f} s ({lib._name})")
+    ptxas = _build.ptxas_report()
+    for k in ptxas:
+        print(f"ptxas {k['kernel']}: {k['registers']} registers, {k['spill_stores']} bytes "
+              f"spill stores, {k['spill_loads']} bytes spill loads")
+    # every instantiation of the register engine: a kernel per length
+    engine = ({f"fft_rows_kernel<{e}>" for e in range(9, 15)}
+              | {f"fourstep_pass1_kernel<{m}, {e}>" for m in range(3) for e in range(7, 11)}
+              | {f"fourstep_pass2_kernel<{m}, {e}>" for m in range(3) for e in range(7, 12)})
+    missing = engine - {k["kernel"] for k in ptxas}
+    require(not missing, f"ptxas reported no {sorted(missing)}")
+    require(all(k["spill_stores"] == 0 and k["spill_loads"] == 0 for k in ptxas),
+            "a kernel spills registers")
 
     # phase 3: every kernel against its plain version and the oracle
     def snr_db(got, want) -> float:
@@ -1026,6 +1045,49 @@ def main() -> int:
          "fourstep_pass2_interleaved_plain", "rfft_fused", "rfft_fused_plain",
          "rfft_pipeline", "irfft_fused", "irfft_fused_plain", "cufft_rfft",
          "cufft_irfft", "stack_interleave"), RFFT_SHAPE))
+    # the geometry A/B of the two-pass kernels, in turns on the same card:
+    # W columns per pass-1 block, R rows per pass-2 block; its launches
+    # count apart from the main path's
+    ab_counts = dict.fromkeys(fourstep_vmem.LAUNCHES, 0)
+    for B, n in AB_SHAPES:
+        sides = fourstep_vmem._split_sides(n)
+        L1, L2 = sides
+        xr, xi = planes(B, n)
+        mid = fourstep_vmem.fourstep_pass1(xr, xi)
+        want1 = fourstep_vmem.fourstep_pass1_plain(xr, xi)
+        want2 = fourstep_vmem.fourstep_pass2_plain(*mid)
+
+        def pass1(g):
+            return fourstep_vmem._launch_pass1("fourstep_pass1", xr, xi, FORWARD, sides,
+                                               ab_counts, geometry=g)
+
+        def pass2(g):
+            return fourstep_vmem._launch_pass2("fourstep_pass2", *mid, None, FORWARD, 1.0,
+                                               sides, ab_counts, geometry=g)
+
+        rows = (16, 8) if 16 * L2 <= 16384 else (8, 4)
+        arms = (("pass1", fourstep_vmem.pass1_geometry(L1, L2).T,
+                 {f"W={v}": fourstep_vmem.pass1_geometry(L1, L2, v) for v in (16, 8)},
+                 pass1, want1),
+                ("pass2", fourstep_vmem.pass2_geometry(L1, L2).T,
+                 {f"R={v}": fourstep_vmem.pass2_geometry(L1, L2, v) for v in rows},
+                 pass2, want2))
+        for kernel, default, geos, launch, want in arms:
+            for label, geo in geos.items():
+                s_geo = snr_db(launch(geo), want)
+                require(s_geo >= GATE_PLAIN_DB, f"{kernel} {label} vs plain {s_geo:.1f} dB")
+            runs = {label: [] for label in geos}
+            for label in list(geos) + list(geos)[::-1]:  # in turns: a b b a
+                runs[label].append(time_ms(lambda: launch(geos[label])))
+            for label, rs in runs.items():
+                name = f"ab_{kernel}_{label.replace('=', '')}_2^{n.bit_length() - 1}"
+                ms[name], shapes[name] = statistics.mean(rs), (B, n)
+            faster = min(runs, key=lambda k: statistics.mean(runs[k]))
+            print(f"A/B geometry {B} x 2^{n.bit_length() - 1} {kernel}: "
+                  + ", ".join(f"{k} {v} ms" for k, v in runs.items())
+                  + f"; default {'W' if kernel == 'pass1' else 'R'}={default}, faster "
+                  f"{faster} [{card}]")
+    del xr, xi, mid, want1, want2
     sig = reals(1, STFT_N)[0]
     for fft_size, hop in STFT_CASES:
         n_frames = (STFT_N - fft_size) // hop + 1

@@ -14,15 +14,28 @@ from fftlab_torch.core.types import FORWARD, next_power_of_two
 from fftlab_torch.plan.dispatch import spectral_filter_auto
 
 
-def fft_convolution_split(xr, xi, h):
+def fft_convolution_split(xr, xi, h, device="cuda"):
     """Linear convolution of split planes [..., nx] with real taps h [nh]:
     zero-pad to the power of two m >= nx + nh - 1, FFT -> H -> IFFT
     through `spectral_filter_auto`, truncate. Returns (yr, yi) of length
     nx + nh - 1. Inputs are taken as float32, as the JAX function takes
-    them; H is the float32 FFT of the padded taps on the planes' device."""
-    xr = torch.as_tensor(xr, dtype=torch.float32)
-    xi = torch.as_tensor(xi, dtype=torch.float32, device=xr.device)
-    h = torch.as_tensor(h, dtype=torch.float32, device=xr.device)
+    them; H is the float32 FFT of the padded taps on the planes' device.
+
+    Tensor planes stay on their device. Other planes (numpy, lists) go to
+    `device`: the card by default, as the JAX function puts them on its
+    default device; without a CUDA device the default raises rather than
+    falling back to the CPU, and `device="cpu"` runs there."""
+    if isinstance(xr, torch.Tensor):
+        dev = xr.device
+    else:
+        dev = torch.device(device)
+        if dev.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "fft_convolution_split runs on the card by default and no CUDA "
+                'device is available; pass device="cpu" to run it on the CPU')
+    xr = torch.as_tensor(xr, dtype=torch.float32, device=dev)
+    xi = torch.as_tensor(xi, dtype=torch.float32, device=dev)
+    h = torch.as_tensor(h, dtype=torch.float32, device=dev)
     nx, nh = int(xr.shape[-1]), int(h.shape[-1])
     out_len = nx + nh - 1
     m = next_power_of_two(out_len)

@@ -17,6 +17,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -27,7 +28,9 @@ BUILD_ROOT = _PKG / "_build"
 LIB_NAME = "libfftlab_torch_kernels.so"
 CUDA_HOME_DEFAULT = "/usr/local/cuda"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# ptxas's report of every kernel (registers, spills), kept beside the library
+PTXAS_LOG = "ptxas.log"
 LINK_FLAGS = ("-shared",)
 
 _P = ctypes.c_void_p
@@ -35,32 +38,43 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _F = ctypes.c_float
 
+
+class Geometry(ctypes.Structure):
+    """csrc/fft_reg.cuh `Geometry`, passed by value: the launch of a
+    register-engine kernel (kernels/_common.py `TileGeometry`)."""
+    _fields_ = [("threads", _I), ("smem", _I), ("log_last", _I), ("log_pad", _I),
+                ("stride", _I)]
+
+
+_G = Geometry
+
 # C signature of every exported kernel entry (all return int).
 SIGNATURES = {
-    # xr, xi, yr, yi, tw, batch, log_n, direction, scale, stream
-    "fftlab_fft_rows": (_P, _P, _P, _P, _P, _LL, _I, _I, _F, _P),
+    # xr, xi, yr, yi, tw, batch, log_n, geometry, direction, scale, stream
+    "fftlab_fft_rows": (_P, _P, _P, _P, _P, _LL, _I, _G, _I, _F, _P),
     # xr, xi, mr, mi, tw1, a_tab, p_tab, batch, log_l1, log_l2, log_w,
-    # direction, stream
-    "fftlab_fourstep_pass1": (_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _P),
-    # mr, mi, yr, yi, tw2, batch, log_l1, log_l2, log_r, direction, scale,
-    # stream
-    "fftlab_fourstep_pass2": (_P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _F, _P),
-    # mr, mi, yr, yi, tw2, hr, hi, batch, log_l1, log_l2, log_r, direction,
-    # scale, stream
+    # geometry, direction, stream
+    "fftlab_fourstep_pass1": (_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _G, _I, _P),
+    # mr, mi, yr, yi, tw2, batch, log_l1, log_l2, log_r, geometry,
+    # direction, scale, stream
+    "fftlab_fourstep_pass2": (_P, _P, _P, _P, _P, _LL, _I, _I, _I, _G, _I, _F, _P),
+    # mr, mi, yr, yi, tw2, hr, hi, batch, log_l1, log_l2, log_r, geometry,
+    # direction, scale, stream
     "fftlab_fourstep_pass2_filter": (_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I,
-                                     _I, _F, _P),
+                                     _G, _I, _F, _P),
     # xr, xi, yr, yi, tw_fwd, tw_inv, hr, hi, batch, log_n, scale, stream
     "fftlab_filter_rows": (_P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _F, _P),
     # xr, xi, yr, yi, tw_fwd, tw_inv, hr, hi, channels, n, hop, halo, log_n,
     # scale, stream
     "fftlab_os_filter": (_P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _I, _F,
                          _P),
-    # x, mr, mi, tw1, a_tab, p_tab, batch, log_l1, log_l2, log_w, direction,
-    # stream
-    "fftlab_fourstep_pass1_packed": (_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I,
+    # x, mr, mi, tw1, a_tab, p_tab, batch, log_l1, log_l2, log_w, geometry,
+    # direction, stream
+    "fftlab_fourstep_pass1_packed": (_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _G, _I,
                                      _P),
-    # mr, mi, y, tw2, batch, log_l1, log_l2, log_r, direction, scale, stream
-    "fftlab_fourstep_pass2_interleaved": (_P, _P, _P, _P, _LL, _I, _I, _I, _I, _F,
+    # mr, mi, y, tw2, batch, log_l1, log_l2, log_r, geometry, direction,
+    # scale, stream
+    "fftlab_fourstep_pass2_interleaved": (_P, _P, _P, _P, _LL, _I, _I, _I, _G, _I, _F,
                                           _P),
     # x, zr, zi, total, stream
     "fftlab_pack_real": (_P, _P, _P, _LL, _P),
@@ -73,9 +87,9 @@ SIGNATURES = {
     # x, n, win, tw, utw, yr, yi, n_frames, hop, log_m, log_t, bins, stream
     "fftlab_stft_frames": (_P, _LL, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _P),
     # xr, xi, mr, mi, tw1, a_tab, p_tab, batch, log_f1, log_l1, log_l2, log_w,
-    # direction, stream
-    "fftlab_fourstep_pass1_swap": (_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I,
-                                   _P),
+    # geometry, direction, stream
+    "fftlab_fourstep_pass1_swap": (_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _G,
+                                   _I, _P),
     # xr, xi, yr, yi, tw, a_tab, p_tab, rows, log_r, log_m, log_t, log_g,
     # direction, twiddle, stream
     "fftlab_fused_stage": (_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _P),
@@ -112,8 +126,9 @@ def find_nvcc() -> str:
         f"from {CSRC} at first use and need the CUDA toolkit")
 
 
-def _run_all(cmds: list[list[str]]) -> None:
-    """Run the commands at once; raise on the first that fails."""
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands at once; raise on the first that fails. Returns
+    their standard error, joined."""
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                               text=True) for c in cmds]
     outs = [p.communicate() for p in procs]  # waits for every process
@@ -122,6 +137,7 @@ def _run_all(cmds: list[list[str]]) -> None:
             raise RuntimeError(
                 f"nvcc failed with exit code {proc.returncode}:\n"
                 f"{' '.join(cmd)}\n{out}{err}")
+    return "".join(err for _, err in outs)
 
 
 def compile_library(out: Path) -> Path:
@@ -132,8 +148,9 @@ def compile_library(out: Path) -> Path:
     tag = f"{os.getpid()}.tmp"
     sources = sorted(CSRC.glob("*.cu"))
     objs = [out.with_name(f"{src.stem}.{tag}.o") for src in sources]
-    _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
-              for src, o in zip(sources, objs)])
+    report = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                       for src, o in zip(sources, objs)])
+    out.with_name(PTXAS_LOG).write_text(report)
     tmp = out.with_name(f"{out.name}.{tag}")
     _run_all([[nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)]])
     for o in objs:
@@ -156,6 +173,31 @@ def load_library() -> ctypes.CDLL:
     lib.fftlab_error_string.argtypes = [ctypes.c_int]
     lib.fftlab_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def ptxas_report() -> list[dict]:
+    """Registers and spills of every kernel of the built library, from
+    ptxas's report: [{"kernel", "registers", "spill_stores",
+    "spill_loads"}], the kernel's name shortened from its mangled form
+    with its integer and bool template arguments
+    (`fourstep_pass1_kernel<0, 10>`, `fused_stage_kernel<true>`)."""
+    log = BUILD_ROOT / source_digest() / PTXAS_LOG
+    rows, cur = [], None
+    for line in log.read_text().splitlines():
+        if m := re.search(r"Compiling entry function '_Z(\d+)(\w+)'", line):
+            name, rest = m.group(2)[: int(m.group(1))], m.group(2)[int(m.group(1)):]
+            if t := re.match(r"I((?:L[ib]\d+E)+)E", rest):
+                args = re.findall(r"L([ib])(\d+)E", t.group(1))
+                name += "<" + ", ".join(
+                    v if k == "i" else ("true" if v == "1" else "false") for k, v in args) + ">"
+            cur = {"kernel": name}
+            rows.append(cur)
+        elif cur is not None and (m := re.search(
+                r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        elif cur is not None and (m := re.search(r"Used (\d+) registers", line)):
+            cur["registers"] = int(m.group(1))
+    return rows
 
 
 def check(lib: ctypes.CDLL, name: str, rc: int) -> None:

@@ -2,12 +2,14 @@
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
 import torch
 
-from fftlab_torch.core.types import Direction
+from fftlab_torch.core.types import Direction, log2_int
+from fftlab_torch.kernels import _build
 
 
 class DtypeError(TypeError, ValueError):
@@ -104,6 +106,62 @@ def twiddle_np(L: int, direction) -> np.ndarray:
     shared-memory Stockham stages read (csrc/fft_smem.cuh)."""
     m = np.arange(L, dtype=np.float64)
     return np.exp(2j * np.pi * float(int(direction)) * m / L)
+
+
+def radix_schedule(L: int) -> tuple[int, ...]:
+    """The passes of the register engine (csrc/fft_reg.cuh) for pow2 L:
+    radix 16 while four bits are left, then one pass of the leftover radix
+    8, 4 or 2. Their product is L."""
+    e = log2_int(L)
+    return (16,) * (e // 4) + ((1 << (e % 4),) if e % 4 else ())
+
+
+def pass_twiddle_np(L: int, direction) -> np.ndarray:
+    """The register engine's twiddle table for length L, in float64: for
+    each pass after the first (radix R, sub-transform length ns > 1), the
+    values W_{ns*R}^{r*k} for r < R, k < ns as R/2 rows of ns pairs
+    (W^{2h*k}, W^{(2h+1)*k}): entry [(h*ns + k)*2 + e] holds r = 2h + e;
+    the passes one after another (csrc/fft_reg.cuh `twiddle`)."""
+    rows = []
+    ns = 1
+    for R in radix_schedule(L):
+        if ns > 1:
+            rk = np.arange(ns)[:, None] * np.arange(R)[None, :]
+            w = np.exp(2j * np.pi * float(int(direction)) * rk / (ns * R))  # (ns, R)
+            rows.append(w.reshape(ns, R // 2, 2).transpose(1, 0, 2).ravel())
+        ns *= R
+    return np.concatenate(rows)
+
+
+@dataclasses.dataclass(frozen=True)
+class TileGeometry:
+    """The launch of a register-engine kernel (csrc/fft_reg.cuh): a tile
+    of T transforms of length L per block, 16 values per thread, and the
+    exchange's planes (re, then im): element e of transform t at
+    t*stride + e + (e >> log_pad) floats, or, with log_pad = 0 (a single
+    row, no pad), at e ^ ((e >> 4) & 31). The C side checks it
+    (`valid_geometry`) and runs what it is given."""
+    L: int
+    T: int
+    schedule: tuple[int, ...]
+    threads: int
+    smem: int
+    log_pad: int
+    stride: int
+
+    def c_struct(self) -> _build.Geometry:
+        last = self.schedule[-1] if self.schedule[-1] != 16 else 1
+        return _build.Geometry(self.threads, self.smem, log2_int(last), self.log_pad,
+                               self.stride)
+
+
+def tile_geometry(L: int, T: int) -> TileGeometry:
+    """The geometry of a tile of T transforms of length L: T*L/16 threads,
+    and a single row swizzled with no pad (T = 1) or one pad float every
+    16 with a row stride of L + L/16 + 4 (T > 1): the layouts that a
+    model of the engine's bank accesses chose (tests/test_torch_geometry.py)."""
+    log_pad, stride = (0, L) if T == 1 else (4, L + L // 16 + 4)
+    return TileGeometry(L, T, radix_schedule(L), T * L // 16, 8 * T * stride, log_pad, stride)
 
 
 def stream_of(t: torch.Tensor) -> int:

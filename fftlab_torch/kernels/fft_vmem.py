@@ -3,9 +3,11 @@ route (counterpart of fftlab/kernels/fft_vmem.py:42-75 and :158-215), and
 the FFT -> H -> IFFT sandwich of such rows (:237-282).
 
 On a CUDA tensor the hand-written kernel `fft_rows` (csrc/fft_rows.cu)
-runs: one block per row, the whole row in shared memory, a radix-4
-Stockham FFT, natural order out. On a CPU tensor the plain version runs:
-the JAX kernel's math (`_fwd_body`) in tensor ops with the same tables,
+runs: one block per row on the register engine of csrc/fft_reg.cuh
+(radix-16 passes in registers, the row in shared memory only between
+passes), natural order out, at the launch geometry of `rows_geometry`.
+On a CPU tensor the plain version runs: the JAX kernel's math
+(`_fwd_body`) in tensor ops with the same tables,
 
     view x as B[j2, j1] (m, 128), j = j1 + 128*j2
     C  = F_m @ B           # column FFTs over j2
@@ -36,15 +38,18 @@ from fftlab_torch.core.types import FORWARD, Direction, is_power_of_two, log2_in
 from fftlab_torch.kernels import _build
 from fftlab_torch.kernels._ad import make_differentiable
 from fftlab_torch.kernels._common import (
+    TileGeometry,
     check_cuda,
     check_planes,
     check_response,
     complex_table,
     effective_scale,
     on_cpu,
+    pass_twiddle_np,
     response_planes,
     rows_of,
     stream_of,
+    tile_geometry,
     twiddle_np,
 )
 
@@ -106,7 +111,20 @@ def fft_rows_plain(xr: torch.Tensor, xi: torch.Tensor, direction=FORWARD,
 
 @functools.lru_cache(maxsize=32)
 def _device_twiddle(n: int, direction: Direction, device: torch.device):
+    """W_n^m, m < n: the table of the shared-memory kernels (fft_smem.cuh)."""
     return complex_table(twiddle_np(n, direction), device)
+
+
+@functools.lru_cache(maxsize=32)
+def _engine_twiddle(n: int, direction: Direction, device: torch.device):
+    """The register engine's per-pass table for length n (fft_reg.cuh)."""
+    return complex_table(pass_twiddle_np(n, direction), device)
+
+
+def rows_geometry(n: int) -> TileGeometry:
+    """The launch of `fft_rows` at pow2 n in [512, 16384]: one row per
+    block on n/16 threads (one row per SM at 16384, two or more below)."""
+    return tile_geometry(n, 1)
 
 
 def fft_rows(xr: torch.Tensor, xi: torch.Tensor, direction=FORWARD,
@@ -122,12 +140,12 @@ def fft_rows(xr: torch.Tensor, xi: torch.Tensor, direction=FORWARD,
     lib = _build.load_library()
     yr = torch.empty_like(xr)
     yi = torch.empty_like(xi)
-    tw = _device_twiddle(n, direction, xr.device)
+    tw = _engine_twiddle(n, direction, xr.device)
     with torch.cuda.device(xr.device):
         rc = lib.fftlab_fft_rows(
             xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
-            tw.data_ptr(), B, log2_int(n), int(direction), float(scale),
-            stream_of(xr))
+            tw.data_ptr(), B, log2_int(n), rows_geometry(n).c_struct(), int(direction),
+            float(scale), stream_of(xr))
     _build.check(lib, "fft_rows", rc)
     LAUNCHES["fft_rows"] += 1
     return yr, yi

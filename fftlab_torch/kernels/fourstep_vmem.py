@@ -10,8 +10,10 @@ n = L1*L2 (`_split_sides`, L1 <= L2), j = j1*L2 + j2, k = k2*L1 + k1:
           [k2, k1], which flattens to the natural spectrum order.
 
 On a CUDA tensor the hand-written kernels `fourstep_pass1` and
-`fourstep_pass2` (csrc/fourstep.cu) run. On a CPU tensor the plain
-version runs: the JAX kernel's math in tensor ops with the same tables,
+`fourstep_pass2` (csrc/fourstep.cu) run, on the register engine of
+csrc/fft_reg.cuh at the launch geometry of `pass1_geometry` and
+`pass2_geometry`. On a CPU tensor the plain version runs: the JAX
+kernel's math in tensor ops with the same tables,
 the length-L FFT as the fa*fb contraction pair of `_col_fft_vmem` and
 the pass-1 twiddle in the rank-1 form A[c, k1]*P[k1, l] of
 `_rank1_twiddle_np`. Forward unscaled, inverse 1/n; `scale` multiplies
@@ -53,6 +55,7 @@ from fftlab_torch.core.types import (FORWARD, INVERSE, Direction, is_power_of_tw
 from fftlab_torch.kernels import _build
 from fftlab_torch.kernels._ad import make_differentiable
 from fftlab_torch.kernels._common import (
+    TileGeometry,
     check_aligned,
     check_cuda,
     check_planes,
@@ -61,19 +64,22 @@ from fftlab_torch.kernels._common import (
     complex_table,
     effective_scale,
     on_cpu,
+    pass_twiddle_np,
     response_planes,
     rows_of,
     stream_of,
-    twiddle_np,
+    tile_geometry,
 )
 
 MIN_N = 1 << 15
 MAX_N = 1 << 21
 
-# Columns per pass-1 block: 16 floats = 64 contiguous bytes per j1 row.
+# Columns of the pass-1 rank-1 twiddle tables (csrc/fourstep.cu
+# kLogTableWidth): a pass-1 block of W <= 16 columns reads its part.
 PASS1_WIDTH = 16
-# Complex values of one shared-memory tile (csrc/fft_smem.cuh kMaxTile).
-MAX_TILE = 16384
+# Values of a tile that lets two blocks share an SM (8K values: 512
+# threads and 70 KB of exchange planes each).
+SHARED_TILE = 8192
 
 # Launches of the CUDA kernels since the counts were last reset.
 LAUNCHES = {"fourstep_pass1": 0, "fourstep_pass2": 0,
@@ -98,10 +104,26 @@ def _split_factors(L: int) -> tuple[int, int]:
     return fa, L // fa
 
 
-def _pass2_rows(L2: int) -> int:
-    """Rows per pass-2 block: 16, or fewer where a tile of R rows would
-    pass MAX_TILE (8 at L2 = 2048)."""
-    return min(16, MAX_TILE // L2)
+def pass1_geometry(L1: int, L2: int, width: int | None = None) -> TileGeometry:
+    """The launch of pass 1 at sides (L1, L2): W columns of length L1 per
+    block, W = 16 (64-byte runs per row) where the tile stays within
+    SHARED_TILE, else 8 (32-byte runs, two blocks per SM at L1 = 1024).
+    `width` overrides W, for the geometry A/B of chip_smoke.py."""
+    W = width or (16 if 16 * L1 <= SHARED_TILE else 8)
+    if W > min(PASS1_WIDTH, L2):
+        raise ValueError(f"pass 1 takes W <= {min(PASS1_WIDTH, L2)} columns; got {W}")
+    return tile_geometry(L1, W)
+
+
+def pass2_geometry(L1: int, L2: int, rows: int | None = None) -> TileGeometry:
+    """The launch of pass 2 at sides (L1, L2): R rows of length L2 per
+    block, R = 16 where the tile stays within SHARED_TILE, else 8 (the
+    store's runs of 8 consecutive k1 need R >= 8). `rows` overrides R, as
+    `width` in `pass1_geometry`."""
+    R = rows or (16 if 16 * L2 <= SHARED_TILE else 8)
+    if R > L1:
+        raise ValueError(f"pass 2 takes R <= L1 = {L1} rows; got {R}")
+    return tile_geometry(L2, R)
 
 
 def _col_fft_tables(L: int, direction: Direction, scale: float | None = None):
@@ -225,14 +247,14 @@ def fourstep_pass2_plain(mr: torch.Tensor, mi: torch.Tensor, direction=FORWARD,
 @functools.lru_cache(maxsize=32)
 def _pass1_tables(L1: int, L2: int, direction: Direction, device: torch.device):
     A, P = _rank1_twiddle_np(L1, L2, PASS1_WIDTH, direction)
-    return (complex_table(twiddle_np(L1, direction), device),
+    return (complex_table(pass_twiddle_np(L1, direction), device),
             complex_table(A.reshape(-1, L1), device),
             complex_table(P, device))
 
 
 @functools.lru_cache(maxsize=32)
 def _pass2_twiddle(L2: int, direction: Direction, device: torch.device):
-    return complex_table(twiddle_np(L2, direction), device)
+    return complex_table(pass_twiddle_np(L2, direction), device)
 
 
 def fourstep_pass1_packed_plain(x: torch.Tensor, direction=FORWARD):
@@ -295,12 +317,13 @@ def fourstep_pass1_packed(x: torch.Tensor, direction=FORWARD):
 
 
 def _launch_pass1(name: str, xr, xi, direction, sides: tuple[int, int],
-                  counts: dict, swap: int = 1):
+                  counts: dict, swap: int = 1, geometry: TileGeometry | None = None):
     """Launch pass 1 at `sides` = (L1, L2) on contiguous [B, L1*L2] planes
     (xi None: a packed real row); `swap` = F1 > 1 launches the swap-store
     mode (`fftlab_fourstep_pass1_swap`): row k1 of input row o*F1 + k1a is
-    stored at row (o, k1, k1a). The launch adds one to `counts[name]`, the
-    LAUNCHES of the module whose wrapper it serves."""
+    stored at row (o, k1, k1a). `geometry` defaults to `pass1_geometry`.
+    The launch adds one to `counts[name]`, the LAUNCHES of the module
+    whose wrapper it serves."""
     direction = Direction(int(direction))
     packed = xi is None
     _check_launch(xr, xi, name, sides)
@@ -311,9 +334,10 @@ def _launch_pass1(name: str, xr, xi, direction, sides: tuple[int, int],
     lib = _build.load_library()
     mr = torch.empty(B, L1 * L2, device=xr.device)
     mi = torch.empty_like(mr)
+    geo = geometry or pass1_geometry(L1, L2)
     tw1, a_tab, p_tab = _pass1_tables(L1, L2, direction, xr.device)
     tabs = (tw1.data_ptr(), a_tab.data_ptr(), p_tab.data_ptr())
-    logs = (log2_int(L1), log2_int(L2), log2_int(PASS1_WIDTH))
+    logs = (log2_int(L1), log2_int(L2), log2_int(geo.T), geo.c_struct())
     tail = (int(direction), stream_of(xr))
     with torch.cuda.device(xr.device):
         if packed:
@@ -358,9 +382,11 @@ def fourstep_pass2_interleaved(mr: torch.Tensor, mi: torch.Tensor,
 
 
 def _launch_pass2(name: str, mr, mi, h, direction, scale: float,
-                  sides: tuple[int, int], counts: dict):
+                  sides: tuple[int, int], counts: dict,
+                  geometry: TileGeometry | None = None):
     """Launch pass 2 (the store of `name`) on contiguous [B, L1*L2]
-    intermediate planes; `sides` and `counts` as in `_launch_pass1`."""
+    intermediate planes; `sides` and `counts` as in `_launch_pass1`,
+    `geometry` defaults to `pass2_geometry`."""
     direction = Direction(int(direction))
     _check_launch(mr, mi, name, sides)
     L1, L2 = sides
@@ -370,7 +396,8 @@ def _launch_pass2(name: str, mr, mi, h, direction, scale: float,
         check_response(*h, n, mr, name)
     lib = _build.load_library()
     tw2 = _pass2_twiddle(L2, direction, mr.device)
-    args = (mr.shape[0], log2_int(L1), log2_int(L2), log2_int(_pass2_rows(L2)),
+    geo = geometry or pass2_geometry(L1, L2)
+    args = (mr.shape[0], log2_int(L1), log2_int(L2), log2_int(geo.T), geo.c_struct(),
             int(direction), float(scale), stream_of(mr))
     interleaved = name == "fourstep_pass2_interleaved"
     if interleaved:

@@ -30,6 +30,7 @@ import torch
 import fftlab_torch
 from _torch_parity import (CASE_IDS, CASES, cplx, hide_nvcc, oracle, planes,
                            requires_cuda, snr_db, tt, whole_scale)
+from fftlab_torch.dsp import convolution
 from fftlab_torch.kernels import (_build, fft_vmem, fourstep_vmem, os_filter_vmem,
                                   rfft_resident, rfft_vmem, stage_fused, stft_vmem,
                                   threestep_vmem)
@@ -415,6 +416,21 @@ def test_filter_plan_defaults_to_the_card():
     assert plan(np.ones(4096, np.float32)).device.type == "cuda"
 
 
+@pytest.mark.parametrize("nx,nh", [(3000, 97), (40000, 129)])  # m = 4096, 65536
+def test_fft_convolution_defaults_to_the_card(no_tf32, nx, nh):
+    """numpy planes with no `device`: the convolution runs on the card,
+    through the row sandwich or the two-pass one."""
+    xr, xi = planes(nx + nh, (2, nx))
+    h = np.random.default_rng(nh).standard_normal(nh)
+    before = _launches()
+    yr, yi = convolution.fft_convolution_split(xr, xi, h)
+    assert yr.device.type == "cuda" and yi.device.type == "cuda"
+    assert sum(_launches()[k] - before[k] for k in before) >= 1
+    z = xr.astype(np.float64) + 1j * xi.astype(np.float64)
+    want = np.stack([np.convolve(row, h) for row in z])
+    assert snr_db(cplx(yr, yi), want) >= 110.0
+
+
 @pytest.mark.parametrize("n,B", [(1 << 22, 2), (1 << 25, 1)])
 @pytest.mark.parametrize("direction,scale", CASES, ids=CASE_IDS)
 def test_three_pass_matches_plain(no_tf32, n, B, direction, scale):
@@ -527,3 +543,88 @@ def test_huge_and_stage_wrappers_refuse():
     y = torch.zeros(2, 3 * 128, device="cuda")
     with pytest.raises(ValueError, match="pow2 r"):
         stage_fused.fused_stage(y, y, 3)
+
+
+# ------------- the register engine (fft_reg.cuh) at every length and geometry
+
+
+def _card_oracle(xr, xi, direction, scale):
+    """The float64 transform on the card (an oracle only), as complex128
+    numpy: numpy's would take seconds at 2^26."""
+    z = torch.complex(xr.double(), xi.double())
+    y = torch.fft.fft(z) if direction == -1 else torch.fft.ifft(z) * z.shape[-1]
+    return (y * scale).cpu().numpy()
+
+
+@pytest.mark.parametrize("n", [1 << e for e in range(9, 15)])
+@pytest.mark.parametrize("direction,scale", CASES, ids=CASE_IDS)
+def test_engine_rows_at_every_length(no_tf32, n, direction, scale):
+    xr, xi = _cuda_pair(n + 7, (3, n))
+    eff = whole_scale(n, direction, scale)
+    before = fft_vmem.LAUNCHES["fft_rows"]
+    got = cplx(*fft_vmem.fft_rows(xr, xi, direction, eff))
+    assert fft_vmem.LAUNCHES["fft_rows"] == before + 1
+    assert snr_db(got, cplx(*fft_vmem.fft_rows_plain(xr, xi, direction, eff))) >= 110.0
+    assert snr_db(got, _card_oracle(xr, xi, direction, eff)) >= 110.0
+
+
+def _pass_geometries(L1, L2):
+    """Every pass geometry the wrappers or chip_smoke's A/B launch at
+    (L1, L2): W in {8, 16} and R in {4, 8, 16} where the tile fits."""
+    g1 = [fourstep_vmem.pass1_geometry(L1, L2, W) for W in (8, 16)]
+    g2 = [fourstep_vmem.pass2_geometry(L1, L2, R) for R in (4, 8, 16) if R * L2 <= 16384]
+    return g1, g2
+
+
+@pytest.mark.parametrize("n", [1 << e for e in range(15, 22)])
+@pytest.mark.parametrize("direction,scale", CASES, ids=CASE_IDS)
+def test_engine_two_pass_at_every_length_and_geometry(no_tf32, n, direction, scale):
+    xr, xi = _cuda_pair(n % 89 + 1, (2, n))
+    eff = whole_scale(n, direction, scale)
+    sides = fourstep_vmem._split_sides(n)
+    want = _card_oracle(xr, xi, direction, eff)
+    counts = dict.fromkeys(fourstep_vmem.LAUNCHES, 0)
+    g1s, g2s = _pass_geometries(*sides)
+    for g1 in g1s:
+        mid = fourstep_vmem._launch_pass1("fourstep_pass1", xr, xi, direction, sides, counts,
+                                          geometry=g1)
+        assert snr_db(cplx(*mid), cplx(*fourstep_vmem.fourstep_pass1_plain(xr, xi, direction))) >= 110.0
+        for g2 in g2s:
+            got = cplx(*fourstep_vmem._launch_pass2("fourstep_pass2", *mid, None, direction, eff,
+                                                    sides, counts, geometry=g2))
+            assert snr_db(got, cplx(*fourstep_vmem.fourstep_pass2_plain(*mid, direction, eff))) >= 110.0
+            assert snr_db(got, want) >= 120.0, (g1.T, g2.T)
+    assert counts["fourstep_pass1"] == len(g1s) and counts["fourstep_pass2"] == len(g1s) * len(g2s)
+
+
+@pytest.mark.parametrize("n", [1 << e for e in range(15, 22)])
+@pytest.mark.parametrize("direction", [-1, 1])
+def test_engine_pass_modes_at_every_length(no_tf32, n, direction):
+    """The packed-real load, the interleaved store and the filter store."""
+    x, xc = _real(n % 83 + 2, (2, 2 * n))
+    mid = fourstep_vmem.fourstep_pass1_packed(xc, direction)
+    assert snr_db(cplx(*mid), cplx(*fourstep_vmem.fourstep_pass1_packed_plain(xc, direction))) >= 110.0
+    y = fourstep_vmem.fourstep_pass2_interleaved(*mid, direction, 0.5)
+    y_plain = fourstep_vmem.fourstep_pass2_interleaved_plain(*mid, direction, 0.5)
+    assert snr_db(y.cpu().numpy(), y_plain.cpu().numpy()) >= 110.0
+    z = _card_oracle(xc[:, 0::2], xc[:, 1::2], direction, 0.5)
+    assert snr_db(y.cpu().numpy(), np.stack([z.real, z.imag], -1).reshape(2, 2 * n)) >= 120.0
+    hr, hi = _cuda_pair(n % 79 + 3, (n,))
+    got = cplx(*fourstep_vmem.fourstep_pass2_filter(*mid, hr, hi, direction, 0.5))
+    plain = cplx(*fourstep_vmem.fourstep_pass2_filter_plain(*mid, hr, hi, direction, 0.5))
+    assert snr_db(got, plain) >= 110.0
+    assert snr_db(got, z * cplx(hr, hi)) >= 120.0
+
+
+@pytest.mark.parametrize("n", [1 << 22, 1 << 24, 1 << 26])
+@pytest.mark.parametrize("direction,scale", CASES, ids=CASE_IDS)
+def test_engine_three_pass_sides(no_tf32, n, direction, scale):
+    xr, xi = _cuda_pair(n % 103, (1, n))
+    eff = whole_scale(n, direction, scale)
+    a = threestep_vmem.threestep_pass_a(xr, xi, direction)
+    assert snr_db(cplx(*a), cplx(*threestep_vmem.threestep_pass_a_plain(xr, xi, direction))) >= 110.0
+    b = threestep_vmem.threestep_pass_b(*a, direction)
+    assert snr_db(cplx(*b), cplx(*threestep_vmem.threestep_pass_b_plain(*a, direction))) >= 110.0
+    c = threestep_vmem.threestep_pass_c(*b, direction, eff)
+    assert snr_db(cplx(*c), cplx(*threestep_vmem.threestep_pass_c_plain(*b, direction, eff))) >= 110.0
+    assert snr_db(cplx(*c), _card_oracle(xr, xi, direction, eff)) >= 120.0

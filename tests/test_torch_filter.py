@@ -330,6 +330,28 @@ def test_fft_convolution_split_matches_jax(nx, nh):
     assert snr_db(cplx(yr, yi), want) >= 110.0
 
 
+def test_fft_convolution_split_numpy_input_needs_the_card(monkeypatch):
+    """A numpy input runs on the card by default, as the JAX function runs
+    on its default device; with no CUDA device that raises and names
+    `device="cpu"` (it never falls back to the CPU)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    xr, xi = planes(200, (2, 200))
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        convolution.fft_convolution_split(xr, xi, np.ones(17, np.float32))
+
+
+@pytest.mark.parametrize("nx,nh", [(200, 17), (900, 33), (30000, 65)])
+def test_fft_convolution_split_numpy_on_cpu_matches_jax(nx, nh):
+    """numpy planes with device="cpu": the same result as the JAX function,
+    on the CPU."""
+    xr, xi = planes(nx, (2, nx))
+    h = np.random.default_rng(nh).standard_normal(nh).astype(np.float32)
+    yr, yi = convolution.fft_convolution_split(xr, xi, h, device="cpu")
+    assert yr.device.type == "cpu" and yr.shape == (2, nx + nh - 1)
+    jr, ji = jx_conv.fft_convolution_split(xr, xi, h)
+    assert snr_db(cplx(yr, yi), cplx(jr, ji)) >= 110.0
+
+
 # --------------------------------------------------------- the designs
 
 

@@ -1,0 +1,162 @@
+"""The launch geometry that the register-engine wrappers hand their
+kernels (csrc/fft_reg.cuh), checked on the CPU for every size of both
+windows: `fft_rows` (pow2 n in 512..16384, one row per block) and the
+two-pass pair (pow2 n in 2^15..2^21 at the JAX `_split_sides`), and the
+three-pass sides that reuse the pair (2^21..2^26). The C side checks what
+it is given (`valid_geometry`) and runs it; these are its conditions and
+the hardware's: at most 1024 threads in whole warps, at most 232,448
+bytes of shared memory a block, a radix schedule whose product is L, and
+exchange planes that hold every element of the tile at its own place.
+
+The engine's twiddle table and schedule are also run here as a float64
+numpy model of its passes (same slots, same table offsets), which must
+give the DFT to float64 rounding; and its shared-memory exchanges as a
+model of the banks: every warp's store and load of 32 floats of one
+plane must take one wavefront (single rows, and tiles of 8 or 16
+transforms at L >= 512) or at most two (tiles at L <= 256).
+"""
+
+import math
+
+import numpy as np
+import pytest
+
+import fftlab.kernels.fourstep_vmem as jx_fs
+import fftlab.kernels.threestep_vmem as jx_ts
+from fftlab_torch.kernels import _common, fft_vmem, fourstep_vmem, threestep_vmem
+
+MAX_SMEM = 232448
+
+WINDOWS = ([("rows", 1 << e) for e in range(9, 15)]
+           + [("two_pass", 1 << e) for e in range(15, 22)]
+           + [("three_pass", 1 << e) for e in range(21, 27)])
+
+
+def _at(geo, t, e):
+    """Where the engine keeps element e of transform t in each exchange
+    plane, in floats (csrc/fft_reg.cuh `padded`)."""
+    if geo.log_pad == 0:  # a single row: no pad, swizzled
+        return e ^ ((e >> 4) & 31)
+    return t * geo.stride + e + (e >> geo.log_pad)
+
+
+def _launches(window: str, n: int):
+    """(L, geometry, role) of every launch a wrapper makes at size n."""
+    if window == "rows":
+        return [(n, fft_vmem.rows_geometry(n), "row")]
+    if window == "two_pass":
+        L1, L2 = fourstep_vmem._split_sides(n)
+        assert (L1, L2) == jx_fs._split_sides(n)
+        return [(L1, fourstep_vmem.pass1_geometry(L1, L2), "columns"),
+                (L2, fourstep_vmem.pass2_geometry(L1, L2), "rows")]
+    F1, F2, F3 = threestep_vmem._split_three(n)
+    assert (F1, F2, F3) == jx_ts._split_three(n)
+    return [(F1, fourstep_vmem.pass1_geometry(F1, F2 * F3), "columns"),
+            (F2, fourstep_vmem.pass1_geometry(F2, F3), "columns"),
+            (F3, fourstep_vmem.pass2_geometry(F1 * F2, F3), "rows")]
+
+
+@pytest.mark.parametrize("window,n", WINDOWS,
+                         ids=[f"{w}-2^{n.bit_length() - 1}" for w, n in WINDOWS])
+def test_launch_geometry(window, n):
+    for L, geo, role in _launches(window, n):
+        assert geo.L == L
+        assert geo.threads <= 1024 and geo.threads % 32 == 0
+        assert 16 * geo.threads == geo.T * L
+        assert geo.smem <= MAX_SMEM
+        assert math.prod(geo.schedule) == L
+        assert all(r == 16 for r in geo.schedule[:-1]) and geo.schedule[-1] in (2, 4, 8, 16)
+        at = _at(geo, np.arange(geo.T)[:, None], np.arange(L)[None, :])
+        assert len(np.unique(at)) == geo.T * L and at.min() >= 0
+        assert at.max() < geo.T * geo.stride and geo.smem >= 8 * geo.T * geo.stride
+        if role == "row":
+            assert geo.T == 1
+        elif role == "columns":
+            # W columns: runs of 8 or 16 floats, inside the width-16 tables
+            assert geo.T in (8, 16)
+        else:
+            # R rows: the corner-turned store writes runs of 8 k1
+            assert geo.T in (8, 16)
+        # tiles of up to 8K values let two blocks share an SM
+        if geo.T * L <= fourstep_vmem.SHARED_TILE:
+            assert 2 * geo.smem <= MAX_SMEM and 2 * geo.threads <= 2048
+        assert geo.smem == 8 * geo.T * geo.stride
+
+
+def _slots(L, T, R, g, threads):
+    """(thread, slot) -> (j, t) of a radix-R pass (fft_reg.cuh slot_of)."""
+    log_j = (L // R).bit_length() - 1
+    s = np.arange(threads)[:, None] + np.arange(16 // R)[None, :] * threads
+    hi = s >> g
+    return hi & ((1 << log_j) - 1), ((hi >> log_j) << g) | (s & ((1 << g) - 1))
+
+
+@pytest.mark.parametrize("L", [128, 256, 512, 1024, 2048, 4096, 8192, 16384])
+@pytest.mark.parametrize("direction", [-1, 1])
+def test_engine_schedule_computes_the_dft(L, direction):
+    """The passes of fft_reg.cuh `fft_tile` in float64 numpy, on T = 2
+    transforms with the pass-2 slot mappings (g = 0 first, then g = 1):
+    inputs j + r*L/R, twiddle r of butterfly class k from the pass's
+    pairs in `pass_twiddle_np` at [offset + ((r//2)*ns + k)*2 + r%2],
+    outputs at (j/ns)*ns*R + j mod ns + r*ns."""
+    T = 2
+    rng = np.random.default_rng(L)
+    x = rng.standard_normal((T, L)) + 1j * rng.standard_normal((T, L))
+    tw = _common.pass_twiddle_np(L, direction)
+    threads = T * L // 16
+    cur = x.copy()
+    ns, offset = 1, 0
+    for p, R in enumerate(_common.radix_schedule(L)):
+        j, t = _slots(L, T, R, 0 if p == 0 else 1, threads)
+        r = np.arange(R)
+        a = cur[t[..., None], j[..., None] + r * (L // R)]  # (threads, slots, R)
+        if ns > 1:
+            a *= tw[offset + ((r // 2) * ns + (j & (ns - 1))[..., None]) * 2 + r % 2]
+            offset += ns * R
+        F = np.exp(2j * np.pi * direction * np.outer(r, r) / R)
+        y = a @ F.T
+        nxt = np.empty_like(cur)
+        nxt[t[..., None], ((j // ns) * ns * R + j % ns)[..., None] + r * ns] = y
+        cur, ns = nxt, ns * R
+    assert offset == len(tw)
+    want = np.fft.fft(x) if direction == -1 else np.fft.ifft(x) * L
+    assert np.max(np.abs(cur - want)) <= 1e-10 * np.max(np.abs(want))
+
+
+# (role, L, T, slot mapping of the first pass, of the later passes):
+# every exchange the kernels run (fft_rows.cu, fourstep.cu)
+EXCHANGES = ([("row", 1 << e, 1, 0, 0) for e in range(9, 15)]
+             + [("columns", 1 << e, T, 3, 3) for e in range(7, 11) for T in (8, 16)]
+             + [("rows", 1 << e, T, 0, 3) for e in range(7, 12) for T in (8, 16)
+                if T << e <= 16384])
+
+
+def _wavefronts(addr):
+    """Wavefronts of each warp access: addr is (warps, 32) floats."""
+    bank = addr % 32
+    worst = np.zeros(addr.shape[0], np.int64)
+    for b in range(32):
+        hit = np.where(bank == b, addr, -1)
+        distinct = np.array([len(set(row[row >= 0])) for row in hit])
+        worst = np.maximum(worst, distinct)
+    return worst
+
+
+@pytest.mark.parametrize("role,L,T,g_first,g", EXCHANGES,
+                         ids=[f"{r}-L{L}-T{T}" for r, L, T, _, _ in EXCHANGES])
+def test_exchange_layout_bank_conflicts(role, L, T, g_first, g):
+    geo = _common.tile_geometry(L, T)
+    threads = geo.threads
+    worst = 0
+    ns = 1
+    for p, R in enumerate(geo.schedule):
+        j, t = _slots(L, T, R, g_first if p == 0 else g, threads)  # (threads, slots)
+        for r in range(R):
+            for kind in ("store", "load"):
+                if (kind == "store" and p == len(geo.schedule) - 1) or (kind == "load" and p == 0):
+                    continue  # the first pass loads and the last stores in device memory
+                e = ((j // ns) * ns * R + j % ns + r * ns) if kind == "store" else j + r * (L // R)
+                a = _at(geo, t, e)
+                worst = max(worst, int(_wavefronts(a.T.reshape(-1, 32)).max()))
+        ns *= R
+    assert worst <= (1 if T == 1 or L >= 512 else 2)

@@ -42,13 +42,15 @@ def test_split_three_and_window_equal(e):
 
 @pytest.mark.parametrize("e", range(21, 27))
 def test_pass_tiles_fit_the_kernels(e):
-    """Each launch's shared-memory tile is within fft_smem's range
-    (csrc/fourstep.cu valid_tile: 512..16384 values): F1 and F2 columns
-    of W = 16 in passes A and B, R rows of F3 in pass C."""
+    """Each launch's tile is within the register engine's range
+    (csrc/fft_reg.cuh valid_geometry: sides 128..16384, 512..16384
+    values, at most 1024 threads): F1 and F2 columns in passes A and B,
+    R rows of F3 in pass C, at the wrappers' geometry."""
     F1, F2, F3 = threestep_vmem._split_three(1 << e)
-    W = fourstep_vmem.PASS1_WIDTH
-    for tile in (F1 * W, F2 * W, F3 * fourstep_vmem._pass2_rows(F3)):
-        assert 512 <= tile <= fourstep_vmem.MAX_TILE
+    for geo in (fourstep_vmem.pass1_geometry(F1, F2 * F3), fourstep_vmem.pass1_geometry(F2, F3),
+                fourstep_vmem.pass2_geometry(F1 * F2, F3)):
+        assert 128 <= geo.L <= 16384
+        assert 512 <= geo.T * geo.L <= 16384 and geo.threads <= 1024
 
 
 @pytest.mark.parametrize("n,blocked", [(1 << 21, False), (1 << 22, False),
