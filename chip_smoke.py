@@ -56,7 +56,11 @@ Phases, in order; any failure raises and the exit code is non-zero:
    pipeline (4 launches) at 8 x 2^21, in turns, and the geometry A/B of
    the two-pass kernels at 16 x 2^20 and 4 x 2^21 (W columns per pass-1
    block, R rows per pass-2 block), each candidate checked against the
-   plain version first and timed in turns;
+   plain version first and timed in turns; `stft_frames` and
+   `fft_rows`, whose wrappers' host time per call can be as long as the
+   kernel, and their library calls are also timed as CUDA graphs of the
+   10 calls (the device time alone), and so is the A/B of `stft_frames`'
+   frames per block (T in {16, 32} at 256/128, {2, 4} at 2048/512);
 6. result: one JSON line of kernels, each with its bound (the larger of
    its bytes in and out over 3.35 TB/s and its float32 operations over
    67 TFLOP/s, the H100 SXM's published peaks), then the device line
@@ -103,6 +107,8 @@ RFFT_SHAPE = (8, 1 << 21)
 RFFT_PIPE_SHAPE = (4, 1 << 22)
 STFT_N = 1 << 22
 STFT_CASES = ((2048, 512), (256, 128))
+# the A/B of stft_frames' frames per block at each case's frame size
+STFT_AB_FRAMES = {2048: [2, 4], 256: [16, 32]}
 WELCH = 256 // 2 + 1  # bins of welch_psd_split's default 256-point segments
 # the huge-n path: bench.py fft_16m_single (one 2^24 transform), the
 # three-pass window's ends, the r2c at a half size of 2^22, and the JAX
@@ -125,6 +131,40 @@ GATE_ORACLE_DB = {"rows": 110.0, "two_pass": 120.0, "os_filter": 100.0,
 # the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOP_PER_S = 67e12
+
+
+def time_ms(fn, graph: bool = False, iters: int = 25, inner: int = 10,
+            warmup: int = 10) -> float:
+    """Median over `iters` runs of `inner` calls of `fn`, per call, timed
+    between two CUDA events. The calls run back to back, so the host's
+    enqueue of one call hides behind the previous one's kernels, unless
+    the host takes longer per call than the card. With `graph`, the
+    `inner` calls are captured once in a CUDA graph (after the warm-up,
+    which builds the tables they use) and each run replays it: the
+    device time alone. Both sides of a comparison are timed the same
+    way."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    run = lambda: [fn() for _ in range(inner)]
+    if graph:
+        torch.cuda.synchronize()
+        captured = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(captured):
+            run()
+        run = captured.replay
+        run()
+    runs = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        run()
+        end.record()
+        end.synchronize()
+        runs.append(start.elapsed_time(end) / inner)
+    return statistics.median(runs)
 
 
 class SmokeFailure(RuntimeError):
@@ -866,25 +906,7 @@ def main() -> int:
     print(f"huge-n path launches: {huge_launches}")
     del pr, pi, qr, qi, sr, si, tr, ti
 
-    # phase 5: timing with CUDA events
-    def time_ms(fn, iters: int = 25, inner: int = 10, warmup: int = 10) -> float:
-        """Median over `iters` runs of `inner` back-to-back calls, per
-        call: the device time, with the host's enqueue of one call hidden
-        behind the previous one."""
-        for _ in range(warmup):
-            fn()
-        runs = []
-        for _ in range(iters):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(inner):
-                fn()
-            end.record()
-            end.synchronize()
-            runs.append(start.elapsed_time(end) / inner)
-        return statistics.median(runs)
-
+    # phase 5: timing with CUDA events (time_ms)
     ms = {}
     B, n = MAIN_SHAPE
     xr, xi = planes(B, n)
@@ -906,8 +928,15 @@ def main() -> int:
     ms["fft_rows"] = time_ms(lambda: fft_vmem.fft_rows(ur, ui))
     ms["fft_rows_plain"] = time_ms(lambda: fft_vmem.fft_rows_plain(ur, ui))
     ms["cufft_16k"] = time_ms(lambda: torch.fft.fft(uc))
-    shapes = {name: ROWS_MAIN_SHAPE for name in ("fft_rows", "fft_rows_plain",
-                                                 "cufft_16k")}
+    # the device time alone, of the kernel and of cuFFT: for a kernel this
+    # short the calls' time can be the host's (stft_frames below)
+    ms["fft_rows_graph"] = time_ms(lambda: fft_vmem.fft_rows(ur, ui), graph=True)
+    ms["cufft_16k_graph"] = time_ms(lambda: torch.fft.fft(uc), graph=True)
+    print(f"graph {ROWS_MAIN_SHAPE[0]} x {ROWS_MAIN_SHAPE[1]}: fft_rows "
+          f"{ms['fft_rows_graph']:.4f} ms, cuFFT {ms['cufft_16k_graph']:.4f} ms; calls "
+          f"{ms['fft_rows']:.4f} and {ms['cufft_16k']:.4f} ms [{card}]")
+    shapes = {name: ROWS_MAIN_SHAPE for name in ("fft_rows", "fft_rows_graph", "fft_rows_plain",
+                                                 "cufft_16k", "cufft_16k_graph")}
 
     B, n = FILTER_MAIN_SHAPE
     xr, xi = planes(B, n)
@@ -1088,24 +1117,56 @@ def main() -> int:
                   + f"; default {'W' if kernel == 'pass1' else 'R'}={default}, faster "
                   f"{faster} [{card}]")
     del xr, xi, mid, want1, want2
+    # stft_frames: at 256/128 the wrapper's host time per call is as long
+    # as the kernel, so the calls' time is the host's there; the kernel
+    # and torch.stft are also timed as CUDA graphs (the device time
+    # alone), and so is the A/B of T, frames_per_block's T against the
+    # other candidate, in turns a b b a; its launches count apart from
+    # the main path's
     sig = reals(1, STFT_N)[0]
+    ab_stft = {"stft_frames": 0}
     for fft_size, hop in STFT_CASES:
         n_frames = (STFT_N - fft_size) // hop + 1
         w = stft_vmem.window_table("hann", fft_size, dev)
         tag = f"_{fft_size}_{hop}"
-        ms["stft_frames" + tag] = time_ms(
-            lambda: stft_vmem.stft_frames(sig, fft_size, hop, w, n_frames))
+        kernel = lambda: stft_vmem.stft_frames(sig, fft_size, hop, w, n_frames)
+        library = lambda: torch.stft(sig, fft_size, hop, window=w, center=False,
+                                     return_complex=True)
+        ms["stft_frames" + tag] = time_ms(kernel)
+        ms["cufft_stft" + tag] = time_ms(library)
+        ms["stft_frames_graph" + tag] = time_ms(kernel, graph=True)
+        ms["cufft_stft_graph" + tag] = time_ms(library, graph=True)
+        print(f"graph stft {fft_size}/{hop}: stft_frames {ms['stft_frames_graph' + tag]:.4f} "
+              f"ms, torch.stft {ms['cufft_stft_graph' + tag]:.4f} ms; calls "
+              f"{ms['stft_frames' + tag]:.4f} and {ms['cufft_stft' + tag]:.4f} ms [{card}]")
+        arms = STFT_AB_FRAMES[fft_size]
+        for T in arms:
+            for onesided in (True, False):
+                s_t = snr_db(stft_vmem._launch_stft(sig, fft_size, hop, w, n_frames, onesided,
+                                                    T, ab_stft),
+                             stft_vmem.stft_frames_plain(sig, fft_size, hop, w, n_frames,
+                                                         onesided))
+                require(s_t >= GATE_PLAIN_DB, f"stft_frames T={T} vs plain {s_t:.1f} dB")
+        runs = {T: [] for T in arms}
+        for T in arms + arms[::-1]:
+            runs[T].append(time_ms(lambda: stft_vmem._launch_stft(
+                sig, fft_size, hop, w, n_frames, True, T, ab_stft), graph=True))
+        for T, rs in runs.items():
+            ms[f"ab_stft_T{T}{tag}"] = statistics.mean(rs)
+            shapes[f"ab_stft_T{T}{tag}"] = (1, STFT_N)
+        print(f"A/B stft_frames {fft_size}/{hop} T: "
+              + ", ".join(f"T={T} {rs} ms" for T, rs in runs.items())
+              + f"; default T={stft_vmem.frames_per_block(fft_size)}, faster "
+              f"T={min(runs, key=lambda T: statistics.mean(runs[T]))} [{card}]")
         ms["stft_frames_plain" + tag] = time_ms(
             lambda: stft_vmem.stft_frames_plain(sig, fft_size, hop, w, n_frames))
-        ms["cufft_stft" + tag] = time_ms(
-            lambda: torch.stft(sig, fft_size, hop, window=w, center=False,
-                               return_complex=True))
         ref = torch.stft(sig, fft_size, hop, window=w, center=False, return_complex=True)
         s_ref = snr_db(stft_vmem.stft_frames(sig, fft_size, hop, w, n_frames),
                        (ref.real.T, ref.imag.T))
         require(s_ref >= GATE_PLAIN_DB, f"stft_frames vs torch.stft {s_ref:.1f} dB")
-        shapes.update(dict.fromkeys(("stft_frames" + tag, "stft_frames_plain" + tag,
-                                     "cufft_stft" + tag), (1, STFT_N)))
+        shapes.update(dict.fromkeys(("stft_frames" + tag, "stft_frames_graph" + tag,
+                                     "stft_frames_plain" + tag, "cufft_stft" + tag,
+                                     "cufft_stft_graph" + tag), (1, STFT_N)))
     # the huge-n kernels at the main shapes: one 2^24 transform (bench.py
     # fft_16m_single), 4 x 2^22, and the pipeline at 16 x 2^20
     B, n = HUGE_MAIN_SHAPE

@@ -9,9 +9,12 @@ twiddles are one complex multiply, and the digit reversal is a single
 final transpose. This route has no kernel of its own, as the JAX package
 leaves it to XLA.
 
-On a CUDA tensor the contractions are float32 matmuls, which must not run
-in TF32 (`torch.backends.cuda.matmul.allow_tf32`, False by default):
-TF32 costs about 60 dB of SNR.
+The contractions are float32 matmuls, and the route pins full float32
+itself (core/precision.py `full_float32`), as the JAX package pins
+`Precision.HIGHEST`: whatever the caller set with
+`torch.set_float32_matmul_precision` or `allow_tf32`, they run at
+"highest" with TF32 off (TF32 or bfloat16 would cost 60-70 dB of SNR),
+and the caller's setting is back when the call returns.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import numpy as np
 import torch
 
 from fftlab_torch.algos.stockham import max_prime_factor, plan_factors
+from fftlab_torch.core.precision import full_float32
 from fftlab_torch.core.twiddle import dft_matrix_np, stage_twiddle_np
 from fftlab_torch.core.types import FORWARD, Direction
 
@@ -44,8 +48,9 @@ def _contract_split(xr, xi, Fr, Fi, axis_from_end: int):
     else:
         tail = string.ascii_lowercase[2 : 2 + axis_from_end]
         eq = f"...a{tail},ba->...b{tail}"
-    yr = torch.einsum(eq, xr, Fr) - torch.einsum(eq, xi, Fi)
-    yi = torch.einsum(eq, xr, Fi) + torch.einsum(eq, xi, Fr)
+    with full_float32():
+        yr = torch.einsum(eq, xr, Fr) - torch.einsum(eq, xi, Fi)
+        yi = torch.einsum(eq, xr, Fi) + torch.einsum(eq, xi, Fr)
     return yr, yi
 
 

@@ -1,7 +1,8 @@
-// Shared device code: the register-resident FFT engine of `fft_rows` and
-// of the two-pass pair (fourstep.cu). A length-L FFT (L = 2^log_l,
-// 128 <= L <= 16384) down each of the T = 2^log_t transforms of a tile,
-// Stockham autosort, natural order in and out.
+// Shared device code: the register-resident FFT engine of `fft_rows`, of
+// the two-pass pair (fourstep.cu) and of `stft_frames` (real.cu). A
+// length-L FFT (L = 2^log_l, 64 <= L <= 16384) down each of the T =
+// 2^log_t transforms of a tile, Stockham autosort, natural order in and
+// out.
 //
 // Each thread holds kP = 16 complex values in registers for a whole pass.
 // The length is a template parameter (the kernels are instantiated for
@@ -12,11 +13,15 @@
 // The passes are radix 16 (four radix-2 levels with no shared memory in
 // between), and the leftover bits of L make one last pass of radix 8, 4
 // or 2: 16384 = 16*16*16*4 takes 4 passes and 3 exchanges, 1024 =
-// 16*16*4 and 2048 = 16*16*8 take 2, 256 = 16*16 and 128 = 16*8 take 1.
+// 16*16*4 and 2048 = 16*16*8 take 2, 256 = 16*16, 128 = 16*8 and 64 =
+// 16*4 take 1.
 // The first pass reads its inputs straight from device memory (through
 // the caller's `load`), the last pass writes its outputs straight back
 // (through `store`), so the tile crosses shared memory only between
-// passes. A tile of T*L values runs on exactly T*L/16 threads.
+// passes; `run_in_place` instead leaves the outputs in the planes, for a
+// kernel that works on the spectrum in shared memory afterwards (the
+// STFT's Hermitian unpack). A tile of T*L values runs on exactly T*L/16
+// threads.
 //
 // Pass p (radix R, sub-transform length ns): butterfly j of transform t
 // reads elements j + r*L/R, multiplies input r by W_{ns*R}^{r*(j mod ns)},
@@ -262,7 +267,7 @@ template <int kLogL, int kLogPad>
 struct Engine {
   static constexpr int kLogLast = kLogL & 3;  // the last pass's radix: 2^kLogLast, or 16
   static constexpr int kLastR = kLogLast == 0 ? 16 : 1 << kLogLast;
-  // radix-16 passes between the first and the last (kLogL >= 7: at
+  // radix-16 passes between the first and the last (kLogL >= 6: at
   // least two passes in all)
   static constexpr int kMid = (kLogL >> 2) - (kLogLast == 0 ? 2 : 1);
 
@@ -387,6 +392,55 @@ struct Engine {
       g_w = g;
     }
     last(v, log_ns, g_w, tw, scale, store);
+  }
+
+  // The whole transform with its outputs left in the planes: element e of
+  // transform t at padded(t, e), natural order. The passes are `run`'s;
+  // the last one reads all of its inputs into registers before a barrier
+  // and writes its outputs in place after it, and a closing barrier makes
+  // every output readable by every thread.
+  template <class Load>
+  __device__ __forceinline__ void run_in_place(const float2* __restrict__ tw, Load load) const {
+    constexpr int R = kLastR;
+    constexpr int kLogJ = kLogL - (kLogLast == 0 ? 4 : kLogLast);  // k = j: ns = L/R
+    float2 v[kP];
+    load_first(v, load);
+    dft<16>(v, 0, sign);
+    int log_ns = 0;
+    int g_w = g_first;
+#pragma unroll
+    for (int p = 0; p < kMid; ++p) {
+      exchange16(v, log_ns, g_w, tw);
+      tw += 16 << (log_ns + 4);
+      log_ns += 4;
+      g_w = g;
+    }
+    write16(v, log_ns, g_w);
+#pragma unroll
+    for (int i = 0; i < kP / R; ++i) {
+      int j, t;
+      slot_of(i, g, kLogJ, j, t);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int at = padded<kLogPad>(x, t, j + (r << kLogJ));
+        v[i * R + r] = make_float2(x.re[at], x.im[at]);
+      }
+      twiddle<R>(v, i * R, tw, j, 1 << kLogJ);
+      dft<R>(v, i * R, sign);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < kP / R; ++i) {
+      int j, t;
+      slot_of(i, g, kLogJ, j, t);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int at = padded<kLogPad>(x, t, j + (r << kLogJ));
+        x.re[at] = v[i * R + r].x;
+        x.im[at] = v[i * R + r].y;
+      }
+    }
+    __syncthreads();
   }
 };
 

@@ -48,6 +48,13 @@ class Geometry(ctypes.Structure):
 
 _G = Geometry
 
+
+class StftLayout(ctypes.Structure):
+    """csrc/real.cu `StftLayout`, passed by value: the shared memory of one
+    `stft_frames` block (kernels/stft_vmem.py `stft_layout`)."""
+    _fields_ = [(name, _I) for name in
+                ("nseg", "words", "seg_pitch", "span", "window", "stage_pitch", "total")]
+
 # C signature of every exported kernel entry (all return int).
 SIGNATURES = {
     # xr, xi, yr, yi, tw, batch, log_n, geometry, direction, scale, stream
@@ -84,8 +91,10 @@ SIGNATURES = {
     "fftlab_herm_unpack": (_P, _P, _P, _P, _P, _LL, _I, _F, _P),
     # xr, xi, zr, zi, tw, rows, m, stream
     "fftlab_herm_repack": (_P, _P, _P, _P, _P, _LL, _I, _P),
-    # x, n, win, tw, utw, yr, yi, n_frames, hop, log_m, log_t, bins, stream
-    "fftlab_stft_frames": (_P, _LL, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _P),
+    # x, n, win, tw, utw, yr, yi, n_frames, hop, log_m, log_t, bins,
+    # geometry, layout, stream
+    "fftlab_stft_frames": (_P, _LL, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _G, StftLayout,
+                           _P),
     # xr, xi, mr, mi, tw1, a_tab, p_tab, batch, log_f1, log_l1, log_l2, log_w,
     # geometry, direction, stream
     "fftlab_fourstep_pass1_swap": (_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _G,

@@ -33,6 +33,7 @@ import functools
 import numpy as np
 import torch
 
+from fftlab_torch.core.precision import full_float32
 from fftlab_torch.core.twiddle import dft_matrix_np, stage_twiddle_np
 from fftlab_torch.core.types import FORWARD, Direction, is_power_of_two, log2_int
 from fftlab_torch.kernels import _build
@@ -99,12 +100,13 @@ def fft_rows_plain(xr: torch.Tensor, xi: torch.Tensor, direction=FORWARD,
         n, Direction(int(direction)), float(scale), xr.device)
     x3r = xr.reshape(B, m, N1)
     x3i = xi.reshape(B, m, N1)
-    cr = torch.matmul(Fmr, x3r) - torch.matmul(Fmi, x3i)
-    ci = torch.matmul(Fmr, x3i) + torch.matmul(Fmi, x3r)
-    tr = cr * twr - ci * twi
-    ti = cr * twi + ci * twr
-    dr = torch.matmul(tr, F1r.T) - torch.matmul(ti, F1i.T)
-    di = torch.matmul(tr, F1i.T) + torch.matmul(ti, F1r.T)
+    with full_float32():
+        cr = torch.matmul(Fmr, x3r) - torch.matmul(Fmi, x3i)
+        ci = torch.matmul(Fmr, x3i) + torch.matmul(Fmi, x3r)
+        tr = cr * twr - ci * twi
+        ti = cr * twi + ci * twr
+        dr = torch.matmul(tr, F1r.T) - torch.matmul(ti, F1i.T)
+        di = torch.matmul(tr, F1i.T) + torch.matmul(ti, F1r.T)
     return (dr.transpose(1, 2).reshape(B, n),
             di.transpose(1, 2).reshape(B, n))
 

@@ -49,6 +49,7 @@ import functools
 import numpy as np
 import torch
 
+from fftlab_torch.core.precision import full_float32
 from fftlab_torch.core.twiddle import dft_matrix_np
 from fftlab_torch.core.types import (FORWARD, INVERSE, Direction, is_power_of_two,
                                      log2_int)
@@ -167,8 +168,9 @@ def _col_fft(xr, xi, tabs, fa: int, fb: int):
     B, L, W = xr.shape
     x3r = xr.reshape(B, fa, fb * W)
     x3i = xi.reshape(B, fa, fb * W)
-    sr = torch.matmul(Far, x3r) - torch.matmul(Fai, x3i)
-    si = torch.matmul(Far, x3i) + torch.matmul(Fai, x3r)
+    with full_float32():
+        sr = torch.matmul(Far, x3r) - torch.matmul(Fai, x3i)
+        si = torch.matmul(Far, x3i) + torch.matmul(Fai, x3r)
     sr = sr.reshape(B, fa, fb, W)
     si = si.reshape(B, fa, fb, W)
     wr = twr.reshape(fa, fb, 1)
@@ -176,8 +178,9 @@ def _col_fft(xr, xi, tabs, fa: int, fb: int):
     tr = sr * wr - si * wi
     ti = sr * wi + si * wr
     # (fb, fb) @ (B, fa, fb, W) contracts j1b -> (B, fa, k1b, W)
-    yr = torch.matmul(Fbr, tr) - torch.matmul(Fbi, ti)
-    yi = torch.matmul(Fbr, ti) + torch.matmul(Fbi, tr)
+    with full_float32():
+        yr = torch.matmul(Fbr, tr) - torch.matmul(Fbi, ti)
+        yi = torch.matmul(Fbr, ti) + torch.matmul(Fbi, tr)
     return (yr.transpose(1, 2).reshape(B, L, W),
             yi.transpose(1, 2).reshape(B, L, W))
 

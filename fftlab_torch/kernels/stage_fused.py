@@ -34,6 +34,7 @@ import functools
 import numpy as np
 import torch
 
+from fftlab_torch.core.precision import full_float32
 from fftlab_torch.core.twiddle import dft_matrix_np, stage_twiddle_np
 from fftlab_torch.core.types import FORWARD, Direction, is_power_of_two, log2_int
 from fftlab_torch.kernels import _build
@@ -79,8 +80,9 @@ def fused_stage_plain(xr: torch.Tensor, xi: torch.Tensor, r: int, direction=FORW
     Fr, Fi, twr, twi = _plain_tables(r, M, direction, bool(twiddle), xr.device)
     x3r = xr.reshape(B, r, M)
     x3i = xi.reshape(B, r, M)
-    yr = torch.matmul(Fr, x3r) - torch.matmul(Fi, x3i)
-    yi = torch.matmul(Fr, x3i) + torch.matmul(Fi, x3r)
+    with full_float32():
+        yr = torch.matmul(Fr, x3r) - torch.matmul(Fi, x3i)
+        yi = torch.matmul(Fr, x3i) + torch.matmul(Fi, x3r)
     if twiddle:
         yr, yi = yr * twr - yi * twi, yr * twi + yi * twr
     return yr.reshape(B, n), yi.reshape(B, n)
@@ -174,8 +176,9 @@ def _pipeline(xr, xi, direction, factors, scale, stage):
     Fr, Fi = _leaf_table(r, direction, effective_scale(n, direction, scale), xr.device)
     a_r = xr.reshape(bfold, r)
     a_i = xi.reshape(bfold, r)
-    yr = torch.matmul(a_r, Fr) - torch.matmul(a_i, Fi)
-    yi = torch.matmul(a_r, Fi) + torch.matmul(a_i, Fr)
+    with full_float32():
+        yr = torch.matmul(a_r, Fr) - torch.matmul(a_i, Fi)
+        yi = torch.matmul(a_r, Fi) + torch.matmul(a_i, Fr)
     K = len(factors)
     perm = (0,) + tuple(range(K, 0, -1))
     yr = yr.reshape(B, *factors).permute(perm).reshape(B, n)

@@ -2,26 +2,29 @@
 of fftlab/kernels/stft_vmem.py).
 
 Frame f of fft_size = 2m points starts at f*hop. On a CUDA tensor the
-hand-written kernel `stft_frames` (csrc/real.cu) runs: each block loads
-T frames straight from the signal as float2 pairs, windows them, runs
-the m-point FFT of each packed frame z[j] = x[2j] + i*x[2j+1] on one
-shared-memory tile and the Hermitian unpack from the same tile, and
-writes bins 0..m (one-sided) or all 2m bins (the upper half as
-conjugate mirrors), frames in natural order. Samples past the signal's
-end read as zeros, which is the JAX package's tail padding without the
-copy. On a CPU tensor the plain version runs: the frames as one strided
-view, the same pack, the einsum m-point FFT and the unpaired unpack.
+hand-written kernel `stft_frames` (csrc/real.cu) runs, one block per T
+consecutive frames: it reads the frames' span of the signal once into
+shared memory in 16-byte words (`stft_layout`), runs the m-point FFT of
+each windowed, packed frame z[j] = x[2j] + i*x[2j+1] on the register
+engine (csrc/fft_reg.cuh), unpacks bins 0..m (one-sided) or all 2m bins
+(the upper half as conjugate mirrors) into a staging area laid out as
+the block's T output rows, and stores those rows as one contiguous run
+per plane, frames in natural order. Samples past the signal's end read
+as zeros, which is the JAX package's tail padding without the copy. On a
+CPU tensor the plain version runs: the frames as one strided view, the
+same pack, the einsum m-point FFT and the unpaired unpack.
 
 The JAX package has two kernels: one frame per program for
 fft_size = m*128 (1K..16K, hop % 128 == 0), and FBS = 32 frames per
 program in interleaved sets for 128/256/512 (`small_frame_supported`).
-Here both are one kernel with T = max(1, min(FBS, 2048 // m)) frames per
-block; the routing windows stay the JAX package's, so the same inputs
-take the kernel in both packages.
+Here both are one kernel with T = `frames_per_block(fft_size)` frames
+per block; the routing windows stay the JAX package's, so the same
+inputs take the kernel in both packages.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -33,19 +36,24 @@ from fftlab_torch.core.types import FORWARD, log2_int
 from fftlab_torch.core.window import get_window
 from fftlab_torch.kernels import _build
 from fftlab_torch.kernels._common import (
+    TileGeometry,
     check_aligned,
     check_cuda,
     check_real,
     on_cpu,
     stream_of,
+    tile_geometry,
 )
-from fftlab_torch.kernels.fft_vmem import N1, _device_twiddle, supported_size
+from fftlab_torch.kernels.fft_vmem import N1, _engine_twiddle, supported_size
 from fftlab_torch.kernels.rfft_vmem import _pair_twiddle, herm_unpack_plain
 
 FBS = 32  # frames per program of the JAX small-frame kernel
 
 # Complex points in one block's tile: T frames of m = fft_size/2 points.
 FRAME_TILE = 2048
+# The kernel's limits (csrc/real.cu fftlab_stft_frames): m in 64..8192,
+# T*m <= 4096 values where T > 1, one frame per block above m = 1024.
+MIN_M, MAX_M, MAX_TILE, MAX_TILED_M = 64, 8192, 4096, 1024
 
 # Launches of the CUDA kernel since the count was last reset.
 LAUNCHES = {"stft_frames": 0}
@@ -70,6 +78,71 @@ def kernel_supported(fft_size: int, hop: int) -> bool:
 def frames_per_block(fft_size: int) -> int:
     """T: frames of one block's tile."""
     return max(1, min(FBS, FRAME_TILE // (fft_size // 2)))
+
+
+def span_at(u):
+    """Where float u of a signal segment sits in shared memory: four pad
+    floats after every 32 (the kernel's addressing, csrc/real.cu
+    `span_at`)."""
+    return u + 4 * (u >> 5)
+
+
+@dataclasses.dataclass(frozen=True)
+class StftLayout:
+    """The shared memory of one `stft_frames` block, in floats, which the
+    kernel takes as it is given (csrc/real.cu `StftLayout`; C only checks
+    it, `valid_layout`): the engine's exchange planes from 0, then `nseg`
+    segments of the signal at `span`, `seg_pitch` floats apart (one
+    segment, the block's span of (T-1)*hop + fft_size samples, where
+    hop <= fft_size; one per frame above), each read as `words` 16-byte
+    words from the one that holds its first sample, then the window at
+    `window`. After the FFT the staging area overlays them from 0: two
+    planes (re, im) of `stage_pitch` floats."""
+    nseg: int
+    words: int
+    seg_pitch: int
+    span: int
+    window: int
+    stage_pitch: int
+    total: int
+
+    def c_struct(self) -> _build.StftLayout:
+        return _build.StftLayout(*dataclasses.astuple(self))
+
+
+@functools.lru_cache(maxsize=64)
+def stft_layout(m: int, hop: int, T: int, stride: int, bins: int) -> StftLayout:
+    """The layout of a block of T frames of m pairs at `hop`, `bins`
+    floats out per frame, planes of `stride` (`StftLayout`)."""
+    fft_size = 2 * m
+    nseg = 1 if hop <= fft_size else T
+    seg_len = (T - 1) * hop + fft_size if nseg == 1 else fft_size
+    words = (seg_len + 6) // 4  # a lead of up to 3 floats before the first sample
+    seg_pitch = (span_at(4 * words) + 3) & ~3
+    span = 2 * T * stride
+    window = span + nseg * seg_pitch
+    stage_pitch = (T * bins + 6) & ~3
+    return StftLayout(nseg, words, seg_pitch, span, window, stage_pitch,
+                      max(window + fft_size, 2 * stage_pitch))
+
+
+@functools.lru_cache(maxsize=64)
+def stft_geometry(fft_size: int, hop: int, T: int, bins: int) -> TileGeometry:
+    """The launch of `stft_frames`: the engine's tile of T frames of
+    m = fft_size/2 points (one frame a row, swizzled, above m = 1024;
+    padded planes of T >= 2 frames below), its shared memory the whole
+    `stft_layout`."""
+    m = fft_size // 2
+    if not (MIN_M <= m <= MAX_M) or m & (m - 1) or T & (T - 1):
+        raise ValueError(f"stft_frames takes pow2 fft_size in [{2 * MIN_M}, {2 * MAX_M}] "
+                         f"and pow2 T; got {fft_size}, T={T}")
+    if (T == 1) != (m > MAX_TILED_M) or (T > 1 and T * m > MAX_TILE) or T * m < 512:
+        raise ValueError(f"stft_frames runs one frame per block above fft_size "
+                         f"{2 * MAX_TILED_M} and 512..{MAX_TILE} values per block below; "
+                         f"got fft_size {fft_size}, T={T}")
+    geo = tile_geometry(m, T)
+    lay = stft_layout(m, hop, T, geo.stride, bins)
+    return dataclasses.replace(geo, smem=4 * lay.total)
 
 
 @functools.lru_cache(maxsize=16)
@@ -116,21 +189,31 @@ def stft_frames(x: torch.Tensor, fft_size: int, hop: int, w: torch.Tensor,
     if hop <= 0 or hop % 2 or n_frames < 1:
         raise ValueError(f"stft_frames reads frames as float2 pairs and needs an "
                          f"even hop and a frame; got hop={hop}, n_frames={n_frames}")
+    return _launch_stft(x, fft_size, hop, w, n_frames, onesided,
+                        frames_per_block(fft_size), LAUNCHES)
+
+
+def _launch_stft(x, fft_size: int, hop: int, w, n_frames: int, onesided: bool,
+                 T: int, counts: dict):
+    """Launch `stft_frames` at T frames per block on checked tensors; the
+    launch adds one to `counts["stft_frames"]` (LAUNCHES, or the counts of
+    chip_smoke.py's A/B of T)."""
     m = fft_size // 2
-    log_m = log2_int(m)
     bins = m + 1 if onesided else fft_size
+    geo = stft_geometry(fft_size, hop, T, bins)
+    lay = stft_layout(m, hop, T, geo.stride, bins)
     yr = torch.empty(n_frames, bins, device=x.device)
     yi = torch.empty_like(yr)
-    tw = _device_twiddle(m, FORWARD, x.device)
+    tw = _engine_twiddle(m, FORWARD, x.device)
     utw = _pair_twiddle(fft_size, FORWARD, x.device)
     lib = _build.load_library()
     with torch.cuda.device(x.device):
         rc = lib.fftlab_stft_frames(
             x.data_ptr(), x.numel(), w.data_ptr(), tw.data_ptr(), utw.data_ptr(),
-            yr.data_ptr(), yi.data_ptr(), n_frames, hop, log_m,
-            log2_int(frames_per_block(fft_size)), bins, stream_of(x))
+            yr.data_ptr(), yi.data_ptr(), n_frames, hop, log2_int(m), log2_int(T), bins,
+            geo.c_struct(), lay.c_struct(), stream_of(x))
     _build.check(lib, "stft_frames", rc)
-    LAUNCHES["stft_frames"] += 1
+    counts["stft_frames"] += 1
     return yr, yi
 
 

@@ -359,7 +359,8 @@ def _stft_oracle(x, fft_size, hop, n_frames, onesided):
 
 @pytest.mark.parametrize("fft_size,hop,n", [(2048, 512, 1 << 20), (256, 128, 1 << 20),
                                             (128, 128, 100003), (512, 256, 70001),
-                                            (16384, 4096, 300001), (1024, 128, 99999)])
+                                            (16384, 4096, 300001), (1024, 128, 99999),
+                                            (4096, 1024, 200001), (8192, 2048, 250003)])
 @pytest.mark.parametrize("onesided", [True, False], ids=["onesided", "twosided"])
 def test_stft_frames_matches_plain(no_tf32, fft_size, hop, n, onesided):
     x, xc = _real(fft_size + n, n)
@@ -372,6 +373,59 @@ def test_stft_frames_matches_plain(no_tf32, fft_size, hop, n, onesided):
     assert got[0].shape == plain[0].shape
     assert snr_db(cplx(*got), cplx(*plain)) >= 110.0
     assert snr_db(cplx(*got), _stft_oracle(x, fft_size, hop, n_frames, onesided)) >= 110.0
+
+
+def _stft_frame_choices():
+    """(fft_size, T): every frame size of the kernel window at every T the
+    kernel takes (512..4096 values a block up to m = 1024, one frame
+    above)."""
+    out = []
+    for fft_size in (128, 256, 512, 1024, 2048, 4096, 8192, 16384):
+        m = fft_size // 2
+        Ts = [1] if m > 1024 else [T for T in (1, 2, 4, 8, 16, 32, 64)
+                                   if T > 1 and 512 <= T * m <= 4096]
+        out += [(fft_size, T) for T in Ts]
+    return out
+
+
+@pytest.mark.parametrize("fft_size,T", _stft_frame_choices())
+@pytest.mark.parametrize("offset", [0, 2], ids=["aligned", "offset8"])
+def test_stft_frames_at_every_T(no_tf32, fft_size, T, offset):
+    """The staged kernel at each frames-per-block choice, one- and
+    two-sided, on a signal 16-byte aligned or 8 bytes past (the span's
+    lead), with a ragged last block and frames past the signal's end."""
+    n = 37 * fft_size + 555
+    x, xc = _real(fft_size + T, n + 2)
+    sig = xc[offset:offset + n]
+    hop = fft_size // 4 if fft_size >= 512 else 128
+    n_frames = (n - fft_size) // hop + 3
+    w = stft_vmem.window_table("hann", fft_size, xc.device)
+    counts = {"stft_frames": 0}
+    for onesided in (True, False):
+        got = stft_vmem._launch_stft(sig, fft_size, hop, w, n_frames, onesided, T, counts)
+        plain = stft_vmem.stft_frames_plain(sig, fft_size, hop, w, n_frames, onesided)
+        assert snr_db(cplx(*got), cplx(*plain)) >= 110.0
+        want = _stft_oracle(x[offset:offset + n], fft_size, hop, n_frames, onesided)
+        assert snr_db(cplx(*got), want) >= 110.0
+    assert counts["stft_frames"] == 2
+
+
+def test_einsum_route_at_high_precision():
+    """"high" turns TF32 on for float32 matmuls on the card; the einsum
+    route pins full float32 (core/precision.py) and keeps its 120 dB, and
+    the caller's setting is back afterwards."""
+    torch.set_float32_matmul_precision("high")
+    try:
+        xr, xi = planes(0, (4, 1000))
+        yr, yi = fftlab_torch.fft_split(tt(xr, "cuda"), tt(xi, "cuda"))
+        assert torch.get_float32_matmul_precision() == "high"
+        assert torch.backends.cuda.matmul.allow_tf32
+        assert snr_db(cplx(yr, yi), oracle(xr, xi, -1)) >= 120.0
+        br, bi = fftlab_torch.spectral_filter_auto(tt(xr, "cuda"), tt(xi, "cuda"),
+                                                   np.ones(1000), np.zeros(1000))
+        assert snr_db(cplx(br, bi), xr + 1j * xi.astype(np.float64)) >= 120.0
+    finally:
+        torch.set_float32_matmul_precision("highest")
 
 
 def test_real_kernels_refuse_odd_offsets():

@@ -16,6 +16,7 @@ plane must take one wavefront (single rows, and tiles of 8 or 16
 transforms at L >= 512) or at most two (tiles at L <= 256).
 """
 
+import dataclasses
 import math
 
 import numpy as np
@@ -23,7 +24,7 @@ import pytest
 
 import fftlab.kernels.fourstep_vmem as jx_fs
 import fftlab.kernels.threestep_vmem as jx_ts
-from fftlab_torch.kernels import _common, fft_vmem, fourstep_vmem, threestep_vmem
+from fftlab_torch.kernels import _common, fft_vmem, fourstep_vmem, stft_vmem, threestep_vmem
 
 MAX_SMEM = 232448
 
@@ -91,7 +92,7 @@ def _slots(L, T, R, g, threads):
     return hi & ((1 << log_j) - 1), ((hi >> log_j) << g) | (s & ((1 << g) - 1))
 
 
-@pytest.mark.parametrize("L", [128, 256, 512, 1024, 2048, 4096, 8192, 16384])
+@pytest.mark.parametrize("L", [64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384])
 @pytest.mark.parametrize("direction", [-1, 1])
 def test_engine_schedule_computes_the_dft(L, direction):
     """The passes of fft_reg.cuh `fft_tile` in float64 numpy, on T = 2
@@ -140,6 +141,97 @@ def _wavefronts(addr):
         distinct = np.array([len(set(row[row >= 0])) for row in hit])
         worst = np.maximum(worst, distinct)
     return worst
+
+
+# (fft_size, hop, T): `stft_frames` at the STFT window's frame sizes, at
+# the T of frames_per_block and of chip_smoke.py's A/B
+STFT_BANKS = [(128, 128, 32), (256, 128, 16), (256, 128, 32), (512, 256, 8), (1024, 128, 4),
+              (1024, 128, 8), (2048, 512, 2), (2048, 512, 4), (4096, 1024, 1), (16384, 4096, 1)]
+
+
+@pytest.mark.parametrize("fft_size,hop,T", STFT_BANKS,
+                         ids=[f"{f}-{h}-T{t}" for f, h, t in STFT_BANKS])
+@pytest.mark.parametrize("onesided", [True, False], ids=["onesided", "twosided"])
+def test_stft_layout_bank_conflicts(fft_size, hop, T, onesided):
+    """csrc/real.cu `stft_frames_kernel`'s own shared-memory accesses: the
+    first pass's 8-byte reads of the frames' pairs from the span
+    (`span_at`, one frame's lanes and the next one's on the two halves of
+    the banks at hop = 128), the unpack's reads of Z[k] and Z[m-k] from
+    the planes, its writes of bins k, m-k and the two-sided mirrors into
+    the staging rows (at each alignment shift), and the copy-out's 16-byte
+    reads of the staging run. An 8-byte access takes at least one
+    wavefront per half-warp."""
+    m, half = fft_size // 2, fft_size // 4
+    bins = m + 1 if onesided else fft_size
+    geo = stft_vmem.stft_geometry(fft_size, hop, T, bins)
+    lay = stft_vmem.stft_layout(m, hop, T, geo.stride, bins)
+    threads = geo.threads
+    worst = {}
+    # the first pass (g = 0): thread s holds butterfly j of frame t, inputs
+    # j + r*m/16; frame t's pairs start at lead + t*hop in one span
+    j, t = _slots(m, T, 16, 0, threads)
+    for lead in (0, 2):  # x 16-byte aligned, or 8 bytes past
+        for r in range(16):
+            u = lead + t * hop * (lay.nseg == 1) + 2 * (j + r * (m // 16))
+            a = lay.span + (t * lay.seg_pitch if lay.nseg > 1 else 0) + stft_vmem.span_at(u)
+            pairs = np.stack([a, a + 1], -1).reshape(-1, 16, 2).reshape(-1, 32)  # half-warps
+            key = f"span{lead}"
+            worst[key] = max(worst.get(key, 0), int(_wavefronts(pairs).max()))
+    # the unpack: pair p = thread + i*threads -> (t, k), k fastest
+    p = np.arange(threads)[:, None] + np.arange(8)[None, :] * threads
+    t, k = p >> (m.bit_length() - 2), p & (half - 1)
+    for e in (k, np.where(k == 0, 0, m - k)):
+        worst["planes"] = max(worst.get("planes", 0),
+                              int(_wavefronts(_at(geo, t, e).T.reshape(-1, 32)).max()))
+    for shift in range(4):
+        for b in (k, m - k, 2 * m - k, m + k) if not onesided else (k, m - k):
+            ok = (b >= 0) & (b < bins)
+            addr = np.where(ok, shift + t * bins + b, -1)
+            worst["stage"] = max(worst.get("stage", 0),
+                                 int(_wavefronts(addr.T.reshape(-1, 32)).max()))
+    words = 4 * np.arange(min(threads, 64))[:, None] + np.arange(4)[None, :]
+    worst["copy"] = int(_wavefronts(words.reshape(-1, 8, 4).reshape(-1, 32)).max())
+    # an aligned signal's frames take one wavefront per half-warp from
+    # m = 128 up (at m = 64 four frames share a half-warp: two); a lead of
+    # two floats, or the wrap of a pad in the planes (k = 0..31 spans 33
+    # floats, and Z[m-k] starts one past a 32-float boundary), costs one
+    # more; the staging rows and the copy-out take one
+    assert worst == {"span0": 1 if m >= 128 else 2, "span2": 2, "planes": 2, "stage": 1,
+                     "copy": 1}, worst
+
+
+# and two hops longer than the frame, where each frame has its segment
+STFT_LAYOUTS = STFT_BANKS + [(1024, 2048, 4), (8192, 16384, 1)]
+
+
+@pytest.mark.parametrize("fft_size,hop,T", STFT_LAYOUTS,
+                         ids=[f"{f}-{h}-T{t}" for f, h, t in STFT_LAYOUTS])
+def test_stft_layout_struct(fft_size, hop, T):
+    """`stft_layout` is the layout's one copy: it goes to the kernel as it
+    is (`StftLayout.c_struct`), whose launcher only checks it
+    (csrc/real.cu `valid_layout`). The C struct has the dataclass's
+    fields in order and its values; the layout holds what the kernel
+    reads and writes (each segment's words over a lead of up to 3
+    floats, the planes, segments, window and staging planes apart, the
+    16-byte words aligned) in the geometry's shared memory."""
+    m = fft_size // 2
+    for bins in (m + 1, fft_size):
+        geo = stft_vmem.stft_geometry(fft_size, hop, T, bins)
+        lay = stft_vmem.stft_layout(m, hop, T, geo.stride, bins)
+        c = lay.c_struct()
+        names = [f.name for f in dataclasses.fields(lay)]
+        assert [name for name, _ in c._fields_] == names
+        assert [getattr(c, name) for name in names] == list(dataclasses.astuple(lay))
+        seg_len = (T - 1) * hop + fft_size if lay.nseg == 1 else fft_size
+        assert lay.nseg == (1 if hop <= fft_size else T)
+        assert 4 * lay.words >= seg_len + 3
+        assert lay.seg_pitch % 4 == 0
+        assert lay.seg_pitch >= stft_vmem.span_at(4 * (lay.words - 1)) + 4
+        assert lay.span % 4 == 0 and lay.span >= 2 * T * geo.stride
+        assert lay.window % 2 == 0 and lay.window >= lay.span + lay.nseg * lay.seg_pitch
+        assert lay.stage_pitch % 4 == 0 and lay.stage_pitch >= T * bins + 3
+        assert lay.total >= max(lay.window + fft_size, 2 * lay.stage_pitch)
+        assert geo.smem == 4 * lay.total <= 232448  # a block's shared memory on the H100
 
 
 @pytest.mark.parametrize("role,L,T,g_first,g", EXCHANGES,

@@ -68,6 +68,109 @@ def test_pallas_stft_matches_pallas(fft_size, hop, n, onesided):
     assert snr_db(got, stft_oracle(x, fft_size, hop, n_frames, onesided=onesided)) >= 110.0
 
 
+def _stft_kernel_model(x, fft_size, hop, w, n_frames, onesided, T, x_shift, y_shift):
+    """csrc/real.cu `stft_frames_kernel` as numpy index maths over the
+    kernel's shared memory (`stft_vmem.stft_layout`): per block of T
+    frames, the 16-byte words of the span at `span_at`, the frames' pairs
+    read back through the span offsets, the FFT (float64 numpy here) left
+    in the engine's planes, the paired unpack into the staging planes
+    (rows of `bins`, the mirrors, the output's alignment shift) and the
+    block's rows copied out as one run. x sits `x_shift` floats past a
+    16-byte boundary and each output plane `y_shift` floats past one.
+    Shared memory starts as NaN and the floats before x[0] are NaN, so a
+    read of anything the kernel did not write shows in the result."""
+    m = fft_size // 2
+    half = m // 2
+    bins = m + 1 if onesided else fft_size
+    geo = stft_vmem.stft_geometry(fft_size, hop, T, bins)
+    lay = stft_vmem.stft_layout(m, hop, T, geo.stride, bins)
+    assert geo.smem == 4 * lay.total and lay.span == 2 * T * geo.stride
+    n = len(x)
+    mem = np.concatenate([np.full(x_shift, np.nan), x.astype(np.float64), np.zeros(8)])
+    out = np.full((2, n_frames * bins), np.nan)
+
+    def plane_at(t, e):
+        if geo.log_pad == 0:
+            return e ^ ((e >> 4) & 31)
+        return t * geo.stride + e + (e >> geo.log_pad)
+
+    def unpack(zl, zh, w):
+        """csrc/real.cu `unpack_pair`: (X[k], X[m-k]) from Z[k], Z[m-k]."""
+        er, ei = 0.5 * (zl.real + zh.real), 0.5 * (zl.imag - zh.imag)
+        wo = (0.5 * (zl.imag + zh.imag) - 0.5j * (zl.real - zh.real)) * w
+        return er + wo.real + 1j * (ei + wo.imag), er - wo.real + 1j * (wo.imag - ei)
+
+    k = np.arange(half)
+    utw = np.exp(-2j * np.pi * np.arange(half + 1) / fft_size)
+    for f0 in range(0, n_frames, T):
+        smem = np.full(lay.total, np.nan)
+        for s in range(lay.nseg):
+            g0 = (f0 + s) * hop
+            g = g0 - (x_shift + g0) % 4 + 4 * np.arange(lay.words)
+            assert np.all((x_shift + g) % 4 == 0) and g[0] >= -x_shift
+            dst = lay.span + s * lay.seg_pitch + stft_vmem.span_at(4 * np.arange(lay.words))
+            assert dst[-1] + 4 <= lay.span + (s + 1) * lay.seg_pitch
+            for i in range(4):  # floats from x[n] on read as zeros
+                smem[dst + i] = np.where(g + i < n, mem[np.minimum(x_shift + g + i, n + x_shift)], 0.0)
+        assert lay.window + fft_size <= lay.total
+        smem[lay.window:lay.window + fft_size] = w
+        Z = []
+        for t in range(T):
+            s = 0 if lay.nseg == 1 else t
+            lead = (x_shift + (f0 + s) * hop) % 4
+            u = lead + (t * hop if lay.nseg == 1 else 0) + 2 * np.arange(m)
+            a = lay.span + s * lay.seg_pitch + stft_vmem.span_at(u)
+            wa = lay.window + 2 * np.arange(m)
+            Z.append(np.fft.fft(smem[a] * smem[wa] + 1j * smem[a + 1] * smem[wa + 1]))
+        at = np.array([[plane_at(t, e) for e in range(m)] for t in range(T)])
+        assert len(np.unique(at)) == T * m and at.max() < geo.stride * T <= lay.span // 2
+        planes = np.full(lay.span // 2, np.nan, complex)
+        planes[at] = np.array(Z)
+        sh = [(y_shift + f0 * bins) % 4] * 2
+        base = [sh[0], lay.stage_pitch + sh[1]]
+        for t in range(T):
+            low, high = unpack(planes[at[t, k]], planes[at[t, np.where(k == 0, 0, m - k)]],
+                               utw[:half])
+            zm = planes[at[t, [half]]]
+            mid = unpack(zm, zm, utw[half])[0]
+            for bin_, v in ((k, low), (m - k, high), (np.array([half]), mid)):
+                for p, part in enumerate((v.real, v.imag)):
+                    assert base[p] + t * bins + bins <= (p + 1) * lay.stage_pitch
+                    smem[base[p] + t * bins + bin_] = part
+                    if not onesided:
+                        mir = (bin_ >= 1) & (bin_ < m)
+                        smem[base[p] + t * bins + 2 * m - bin_[mir]] = (-1) ** p * part[mir]
+        rows = min(T, n_frames - f0) * bins
+        for p in range(2):
+            out[p, f0 * bins:f0 * bins + rows] = smem[base[p]:base[p] + rows]
+    assert np.isfinite(out).all()
+    return out[0].reshape(n_frames, bins) + 1j * out[1].reshape(n_frames, bins)
+
+
+@pytest.mark.parametrize("fft_size,hop,n", KERNEL_CASES)
+@pytest.mark.parametrize("onesided", [True, False], ids=["onesided", "twosided"])
+def test_stft_kernel_layout_model(fft_size, hop, n, onesided):
+    """The staged layout of the `stft_frames` kernel (span offsets, the
+    T*bins output region, the mirrors, the alignment shifts) as a numpy
+    model, against the plain version and the JAX kernel in interpret mode,
+    at T = frames_per_block and at the other T of chip_smoke's A/B."""
+    x = real(fft_size + hop + n, n)
+    n_frames = (-(-n // 128) * 128 - fft_size) // hop + 1
+    w = get_window("hann", fft_size)
+    plain = cplx(*stft_vmem.stft_frames_plain(tt(x), fft_size, hop,
+                                              tt(w.astype(np.float32)), n_frames, onesided))
+    want = cplx(*jx_kernel.pallas_stft_split(x, fft_size, hop, onesided=onesided,
+                                             interpret=True))
+    T0 = stft_vmem.frames_per_block(fft_size)
+    T1 = 2 * T0 if 2 * T0 * fft_size <= 2 * stft_vmem.MAX_TILE else T0 // 2
+    for T, x_shift, y_shift in ((T0, 0, 0), (T0, 2, 1), (T1, 2, 3)):
+        got = _stft_kernel_model(x, fft_size, hop, w.astype(np.float32), n_frames, onesided,
+                                 T, x_shift, y_shift)
+        assert got.shape == plain.shape == want.shape
+        assert snr_db(got, plain) >= 110.0
+        assert snr_db(got, want) >= 110.0
+
+
 @pytest.mark.parametrize("window", ["hamming", "blackman", np.linspace(0.1, 1.0, 256)],
                          ids=["hamming", "blackman", "array"])
 def test_pallas_stft_windows(window):
