@@ -11,11 +11,14 @@ Each tree runs in its own process, which puts the tree first on the
 import path, builds its kernels from its own sources and times the same
 cases on the same inputs; the processes run in turns (a b b a), and the
 script prints each case's times per tree, their means and the ratio.
-The cases: `stft_frames` at 2^22 samples and frame/hop 256/128, 2048/512,
-4096/1024 and 16384/4096 (one-sided), beside `torch.stft`; `fft_rows` at
-256 x 16384 beside `torch.fft.fft`; and the register-engine kernels the
-STFT kernel shares its engine with (csrc/fft_reg.cuh): the two-pass pair
-at 16 x 2^20, its packed-real and interleaved modes at 8 x 2^21 and the
+The cases: the filter kernels, `filter_rows` at 256 x 16384 and 64 x 1024
+(the Bluestein and `fft_convolution_split` end) and `os_filter` on 2^23
+samples x two planes with 129 taps in 1K and 16K frames and with 1025
+taps in 2K frames; `stft_frames` at 2^22 samples and frame/hop 256/128,
+2048/512, 4096/1024 and 16384/4096 (one-sided), beside `torch.stft`;
+`fft_rows` at 256 x 16384 beside `torch.fft.fft`; and the other
+register-engine kernels (csrc/fft_reg.cuh): the two-pass pair at
+16 x 2^20, its packed-real and interleaved modes at 8 x 2^21 and the
 three passes of the huge-n FFT at 1 x 2^24. Each is timed both ways of
 chip_smoke.py's `time_ms`: 10 back-to-back calls between CUDA events,
 and a CUDA graph of the 10 calls (the device time alone).
@@ -35,6 +38,9 @@ ROWS_SHAPE = (256, 16384)
 PAIR_SHAPE = (16, 1 << 20)
 REAL_SHAPE = (8, 1 << 21)
 HUGE_SHAPE = (1, 1 << 24)
+FILTER_ROWS_SHAPES = ((256, 16384), (64, 1024))
+OS_N = 1 << 23
+OS_CASES = ((129, 1024), (129, 16384), (1025, 2048))  # (taps, frame)
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -46,8 +52,10 @@ def worker(tree: str) -> dict:
 
     sys.path.insert(0, os.path.abspath(tree))
     from fftlab_torch import INVERSE
-    from fftlab_torch.kernels import (_build, fft_vmem, fourstep_vmem, stft_vmem,
-                                      threestep_vmem)
+    import numpy as np
+
+    from fftlab_torch.kernels import (_build, fft_vmem, fourstep_vmem, os_filter_vmem,
+                                      stft_vmem, threestep_vmem)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     _build.load_library()
@@ -60,6 +68,18 @@ def worker(tree: str) -> dict:
                 torch.randn(B, n, generator=gen, device=dev))
 
     cases = {}
+    for B, n in FILTER_ROWS_SHAPES:
+        fr, fi = planes(B, n)
+        hr, hi = (h[0] for h in planes(1, n))
+        cases[f"filter_rows {B} x {n}"] = (
+            lambda fr=fr, fi=fi, hr=hr, hi=hi: fft_vmem.filter_rows(fr, fi, hr, hi))
+    sr, si = planes(1, OS_N)
+    rng = np.random.default_rng(0)
+    for nh, fsz in OS_CASES:
+        taps = rng.standard_normal(nh) / nh
+        kr, ki = os_filter_vmem._cached_response(taps.tobytes(), fsz, dev)
+        cases[f"os_filter 2^23 x 2, {nh} taps, {fsz} frames"] = (
+            lambda kr=kr, ki=ki, nh=nh: os_filter_vmem.os_filter(sr, si, kr, ki, nh))
     sig = torch.randn(STFT_N, generator=gen, device=dev)
     for fft_size, hop in STFT_CASES:
         n_frames = (STFT_N - fft_size) // hop + 1

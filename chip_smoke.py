@@ -16,10 +16,11 @@ Phases, in order; any failure raises and the exit code is non-zero:
    (torch.fft on complex128 and np.convolve, used as oracles only):
    the c2c kernels forward, inverse and scale=0.5 (>= 120 dB two-pass,
    >= 110 dB rows); the sandwiches ifft(fft(x) * H) with a random H
-   (>= 110 dB `filter_rows`, >= 120 dB `fourstep_pass2_filter` and the
-   four-launch sandwich); `os_filter` at 2 x 2^20 with 9, 129 and 1025
-   taps in 16K frames and 129 taps in 1K frames against np.convolve
-   (>= 100 dB); the real-signal kernels at 8 x 2^21 and 4 x 2^22 reals
+   (>= 110 dB `filter_rows`, also at 64 x 1024, >= 120 dB
+   `fourstep_pass2_filter` and the four-launch sandwich); `os_filter` at
+   2 x 2^20 with 9, 129 and 1025 taps in 16K frames, 129 taps in 1K
+   frames and 1025 taps in 2K frames against np.convolve (>= 100 dB);
+   the real-signal kernels at 8 x 2^21 and 4 x 2^22 reals
    and 2^22 samples: `pack_real` and `interleave` bit-exact,
    `herm_unpack`, `herm_repack`, the packed pass 1 and the interleaved
    pass 2 (8 x 2^21) and
@@ -34,7 +35,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
    forward and inverse and fft_split_auto at 256 x 16384; (b) the filter
    path, spectral_filter_auto at 16 x 2^20, fft_filter_split at
    256 x 16384, fft_split_auto at 4 x 500009 (Bluestein, m = 2^20) and
-   FilterPlan on a 2^23-sample signal (two planes, packed real, stream);
+   64 x 509 (Bluestein, m = 1024, the row sandwich) and FilterPlan on a
+   2^23-sample signal (two planes, packed real, stream);
    (c) the real-signal path, plan_r2c_1d_split(2^21, batch=8) (the fused
    kernels) and plan_c2r_1d_split on its output, the r2c/c2r plans at
    4 x 2^22 (pack -> two_pass at 2^21 -> unpack, and back), stft_split of
@@ -61,6 +63,12 @@ Phases, in order; any failure raises and the exit code is non-zero:
    kernel, and their library calls are also timed as CUDA graphs of the
    10 calls (the device time alone), and so is the A/B of `stft_frames`'
    frames per block (T in {16, 32} at 256/128, {2, 4} at 2048/512);
+   `filter_rows` (256 x 16384, 64 x 1024) and `os_filter` at the serving
+   shape (1K and 16K frames) are timed as calls and as graphs, beside the
+   A/B of `os_filter`'s frames per block at 1K frames (T in {2, 4, 8}, graph,
+   in turns) and its frame-size sweep (1K..16K frames at the serving
+   shape, each checked against the plain version first; no default
+   changes with it);
 6. result: one JSON line of kernels, each with its bound (the larger of
    its bytes in and out over 3.35 TB/s and its float32 operations over
    67 TFLOP/s, the H100 SXM's published peaks), then the device line
@@ -79,6 +87,8 @@ import sys
 import time
 
 ROWS_SHAPES = ((256, 8192), (128, 16384), (256, 16384))
+# filter_rows also at the Bluestein and fft_convolution_split end
+FILTER_ROWS_SHAPES = ROWS_SHAPES + ((64, 1024),)
 TWO_PASS_SHAPES = ((64, 1 << 15), (16, 1 << 20), (4, 1 << 21))
 # the geometry A/B of the two-pass kernels: the headline shape and the
 # window's top, whose L2 = 2048 rows take R <= 8
@@ -91,8 +101,14 @@ OS_SHAPE = (2, 1 << 20)
 # (taps, frame): bench.py's 16K frames, and FilterPlan's default frame for
 # its 129 taps (fft_size = next_pow2(4 * 129) = 1024), which the serving
 # main path runs
-OS_CASES = ((9, 16384), (129, 16384), (1025, 16384), (129, 1024))
+OS_CASES = ((9, 16384), (129, 16384), (1025, 16384), (129, 1024), (1025, 2048))
 BLUESTEIN_SHAPE = (4, 500009)
+# a prime whose sandwich is the row kernel's: m = next_pow2(2*509 - 1) = 1024
+BLUESTEIN_ROWS_SHAPE = (64, 509)
+# os_filter: the A/B of frames per block at 1K frames, and the frame sizes
+# of the sweep at the serving shape
+OS_AB_FRAMES = [2, 4, 8]
+OS_SWEEP = (1024, 2048, 4096, 8192, 16384)
 SERVING_N = 1 << 23
 SERVING_TAPS = 129
 # the np.convolve gate of the serving shape reads this prefix (bench.py
@@ -233,7 +249,8 @@ def main() -> int:
     # every instantiation of the register engine: a kernel per length
     engine = ({f"fft_rows_kernel<{e}>" for e in range(9, 15)}
               | {f"fourstep_pass1_kernel<{m}, {e}>" for m in range(3) for e in range(7, 11)}
-              | {f"fourstep_pass2_kernel<{m}, {e}>" for m in range(3) for e in range(7, 12)})
+              | {f"fourstep_pass2_kernel<{m}, {e}>" for m in range(3) for e in range(7, 12)}
+              | {f"{k}_kernel<{e}>" for k in ("filter_rows", "os_filter") for e in range(9, 15)})
     missing = engine - {k["kernel"] for k in ptxas}
     require(not missing, f"ptxas reported no {sorted(missing)}")
     require(all(k["spill_stores"] == 0 and k["spill_loads"] == 0 for k in ptxas),
@@ -306,7 +323,7 @@ def main() -> int:
         return y.real, y.imag
 
     err.update({"filter_rows": 0.0, "fourstep_pass2_filter": 0.0, "os_filter": 0.0})
-    for B, n in ROWS_SHAPES:
+    for B, n in FILTER_ROWS_SHAPES:
         xr, xi = planes(B, n)
         hr, hi = planes(1, n)
         hr, hi = hr[0], hi[0]
@@ -618,6 +635,12 @@ def main() -> int:
     rr, ri = fft_split_auto(qr, qi, INVERSE)
     torch.cuda.synchronize()
     bluestein = {k: v - before[k] for k, v in read_counts().items()}
+    B5, n5 = BLUESTEIN_ROWS_SHAPE
+    br5, bi5 = planes(B5, n5)
+    before = read_counts()
+    cr5, ci5 = fft_split_auto(br5, bi5)
+    torch.cuda.synchronize()
+    bluestein_rows = {k: v - before[k] for k, v in read_counts().items()}
     h_taps = rng.standard_normal(SERVING_TAPS) / SERVING_TAPS
     plan = FilterPlan(h_taps, device=dev)
     sr, si = planes(2, SERVING_N)
@@ -632,7 +655,7 @@ def main() -> int:
     torch.cuda.synchronize()
     filter_launches = read_counts()
     print(f"filter path launches: {filter_launches}; of them Bluestein "
-          f"4 x 500009: {bluestein}")
+          f"4 x 500009: {bluestein}; Bluestein {B5} x {n5}: {bluestein_rows}")
     require(select_filter_impl(n) == "two_pass", f"2^20 sandwich route "
             f"{select_filter_impl(n)}")
     require(select_filter_impl(n3) == "smem_rows", f"16384 sandwich route "
@@ -640,12 +663,14 @@ def main() -> int:
     require(plan.uses_kernel(), f"FilterPlan route: {plan.describe()}")
     for name in ("fourstep_pass1", "fourstep_pass2_filter", "fourstep_pass2"):
         require(bluestein[name] > 0, f"Bluestein did not launch {name}")
+    require(bluestein_rows["filter_rows"] > 0, f"Bluestein {n5} did not launch filter_rows")
     for name in ("filter_rows", "fourstep_pass1", "fourstep_pass2",
                  "fourstep_pass2_filter", "os_filter"):
         require(filter_launches[name] > 0,
                 f"kernel {name} was not launched on the filter path")
     for t, shape in ((fr, (B, n)), (fi, (B, n)), (lr, (B3, n3)), (li, (B3, n3)),
-                     (qr, (B4, n4)), (qi, (B4, n4)), (yr, (SERVING_N,)),
+                     (qr, (B4, n4)), (qi, (B4, n4)), (cr5, (B5, n5)), (ci5, (B5, n5)),
+                     (yr, (SERVING_N,)),
                      (yi, (SERVING_N,)), (packed, (SERVING_N,)),
                      (streamed, (STREAM_CUTS[-1],))):
         require(tuple(t.shape) == shape and t.dtype == torch.float32,
@@ -656,6 +681,7 @@ def main() -> int:
     s_lp = snr_db((lr, li), sandwich_oracle(ur, ui, h_low, torch.zeros_like(h_low)))
     s_bl = snr_db((qr, qi), oracle(pr, pi, FORWARD, 1.0))
     s_bl_rt = snr_db((rr, ri), (pr, pi))
+    s_bl_rows = snr_db((cr5, ci5), oracle(br5, bi5, FORWARD, 1.0))
     m = PREFIX
     s_plan = snr_db((yr[:m], yi[:m]), (conv_oracle(sr, h_taps, m),
                                        conv_oracle(si, h_taps, m)))
@@ -670,7 +696,8 @@ def main() -> int:
     stream_err = float((streamed - whole).abs().max())
     print(f"filter path: sandwich 16 x 2^20 vs oracle {s_sf:.1f} dB; "
           f"fft_filter_split 256 x 16384 vs oracle {s_lp:.1f} dB; Bluestein "
-          f"4 x 500009 vs oracle {s_bl:.1f} dB, round trip {s_bl_rt:.1f} dB; "
+          f"4 x 500009 vs oracle {s_bl:.1f} dB, round trip {s_bl_rt:.1f} dB; Bluestein "
+          f"{B5} x {n5} vs oracle {s_bl_rows:.1f} dB; "
           f"{plan.describe()} 2^23 two planes vs np.convolve {s_plan:.1f} dB, "
           f"packed real {s_packed:.1f} dB (second half {s_packed_half:.1f} dB), "
           f"stream vs whole max abs {stream_err:.3g}")
@@ -679,6 +706,7 @@ def main() -> int:
     require(s_bl >= GATE_ORACLE_DB["bluestein"], f"Bluestein {s_bl:.1f} dB")
     require(s_bl_rt >= GATE_ORACLE_DB["bluestein"],
             f"Bluestein round trip {s_bl_rt:.1f} dB")
+    require(s_bl_rows >= GATE_ORACLE_DB["bluestein"], f"Bluestein {n5} {s_bl_rows:.1f} dB")
     for what, v in (("FilterPlan", s_plan), ("packed real", s_packed),
                     ("packed real second half", s_packed_half)):
         require(v >= GATE_ORACLE_DB["os_filter"], f"{what} {v:.1f} dB")
@@ -698,6 +726,7 @@ def main() -> int:
     hold_plain("Bluestein 4 x 500009 forward", (qr, qi), fft_split_auto(*host(pr, pi)))
     hold_plain("Bluestein 4 x 500009 inverse", (rr, ri),
                fft_split_auto(*host(qr, qi), INVERSE))
+    hold_plain(f"Bluestein {B5} x {n5}", (cr5, ci5), fft_split_auto(*host(br5, bi5)))
     host_plan = FilterPlan(h_taps, device="cpu")
     zeros = torch.zeros(SERVING_N, device=dev)
     hold_plain("FilterPlan 2^23 two planes", (yr, yi), host_plan(*host(sr, si)))
@@ -968,8 +997,25 @@ def main() -> int:
         lambda: fft_vmem.spectral_filter_rows_plain(ur, ui, hr, hi))
     ms["cufft_sandwich_16k"] = time_ms(
         lambda: torch.fft.ifft(torch.fft.fft(uc) * hc))
-    shapes.update(dict.fromkeys(("filter_rows", "filter_rows_plain",
-                                 "cufft_sandwich_16k"), FILTER_ROWS_MAIN_SHAPE))
+    ms["filter_rows_graph"] = time_ms(lambda: fft_vmem.filter_rows(ur, ui, hr, hi), graph=True)
+    ms["cufft_sandwich_16k_graph"] = time_ms(
+        lambda: torch.fft.ifft(torch.fft.fft(uc) * hc), graph=True)
+    shapes.update(dict.fromkeys(("filter_rows", "filter_rows_plain", "filter_rows_graph",
+                                 "cufft_sandwich_16k", "cufft_sandwich_16k_graph"),
+                                FILTER_ROWS_MAIN_SHAPE))
+    # the Bluestein and fft_convolution_split end of the row sandwich
+    B5, n5 = FILTER_ROWS_SHAPES[-1]
+    wr, wi = planes(B5, n5)
+    gr, gi = (g[0] for g in planes(1, n5))
+    ms["filter_rows_small"] = time_ms(lambda: fft_vmem.filter_rows(wr, wi, gr, gi))
+    ms["filter_rows_small_graph"] = time_ms(lambda: fft_vmem.filter_rows(wr, wi, gr, gi),
+                                            graph=True)
+    shapes.update(dict.fromkeys(("filter_rows_small", "filter_rows_small_graph"), (B5, n5)))
+    print(f"graph filter_rows {B} x {n}: {ms['filter_rows_graph']:.4f} ms, cuFFT's three "
+          f"calls {ms['cufft_sandwich_16k_graph']:.4f} ms; calls {ms['filter_rows']:.4f} and "
+          f"{ms['cufft_sandwich_16k']:.4f} ms; {B5} x {n5}: graph "
+          f"{ms['filter_rows_small_graph']:.4f} ms, calls {ms['filter_rows_small']:.4f} ms "
+          f"[{card}]")
     # the serving shape: bench.py bench_serving_filter, one 2^23-sample
     # signal of two planes, 129 taps; in FilterPlan's frame (the main
     # path's launches, 1K) and in bench.py's 16K frames
@@ -999,8 +1045,12 @@ def main() -> int:
         ms[names[1]] = time_ms(
             lambda: os_filter_vmem.os_filter_plain(sr, si, kr, ki, nh))
         ms[names[2]] = time_ms(cufft_os)
+        names.append(f"os_filter{tag}_graph")
+        ms[names[3]] = time_ms(lambda: os_filter_vmem.os_filter(sr, si, kr, ki, nh), graph=True)
         shapes.update(dict.fromkeys(names, (1, SERVING_N)))
-        print(f"serving shape: fft_size {fsz}, hop {hop}, {n_blocks} frames")
+        print(f"serving shape: fft_size {fsz}, hop {hop}, {n_blocks} frames, T = "
+              f"{os_filter_vmem.frames_per_block(fsz)}: os_filter {ms[names[0]]:.4f} ms, graph "
+              f"{ms[names[3]]:.4f} ms [{card}]")
     # the library's causal FIR on the same planes: one conv1d call (cuDNN,
     # TF32 off) of the flipped taps over both planes as a batch of two
     sig2 = torch.stack([sr[0], si[0]]).unsqueeze(1)
@@ -1015,6 +1065,41 @@ def main() -> int:
     ms["conv1d_fir"] = time_ms(conv)
     shapes["conv1d_fir"] = (1, SERVING_N)
     print(f"os_filter vs conv1d: {s_conv:.1f} dB")
+    # os_filter's frames per block at FilterPlan's frame, each T checked
+    # against the plain version, then timed as graphs in turns (a b b a);
+    # its launches count apart from the main path's
+    fsz = plan.kernel_fft_size()
+    want = os_filter_vmem.os_filter_plain(sr, si, kr, ki, nh)
+    ab_os = {"os_filter": 0}
+    launch_t = lambda T: os_filter_vmem._launch_os(sr, si, kr, ki, nh, T, ab_os)
+    for T in OS_AB_FRAMES:
+        s_t = snr_db(launch_t(T), want)
+        require(s_t >= GATE_PLAIN_DB, f"os_filter T={T} vs plain {s_t:.1f} dB")
+    runs = {T: [] for T in OS_AB_FRAMES}
+    for T in OS_AB_FRAMES + OS_AB_FRAMES[::-1]:
+        runs[T].append(time_ms(lambda: launch_t(T), graph=True))
+    for T, rs in runs.items():
+        ms[f"ab_os_T{T}"], shapes[f"ab_os_T{T}"] = statistics.mean(rs), (1, SERVING_N)
+    print(f"A/B os_filter {fsz} frames T: "
+          + ", ".join(f"T={T} {rs} ms" for T, rs in runs.items())
+          + f"; default T={os_filter_vmem.frames_per_block(fsz)}, faster "
+          f"T={min(runs, key=lambda T: statistics.mean(runs[T]))} [{card}]")
+    # the frame-size sweep at the serving shape, each size checked against
+    # the plain version first; FilterPlan's choice of frame does not change
+    # with it
+    for fsz in OS_SWEEP:
+        kr, ki = os_filter_vmem._cached_response(
+            np.asarray(h_taps, np.float64).tobytes(), fsz, dev)
+        s_f = snr_db(os_filter_vmem.os_filter(sr, si, kr, ki, nh),
+                     os_filter_vmem.os_filter_plain(sr, si, kr, ki, nh))
+        require(s_f >= GATE_PLAIN_DB, f"os_filter {fsz} frames vs plain {s_f:.1f} dB")
+        call = lambda: os_filter_vmem.os_filter(sr, si, kr, ki, nh)
+        name = f"sweep_os_{fsz}"
+        ms[name], ms[name + "_graph"] = time_ms(call), time_ms(call, graph=True)
+        shapes[name] = shapes[name + "_graph"] = (1, SERVING_N)
+        print(f"sweep os_filter {fsz} frames, {nh} taps, hop {fsz - nh + 1}, T = "
+              f"{os_filter_vmem.frames_per_block(fsz)}: {ms[name]:.4f} ms, graph "
+              f"{ms[name + '_graph']:.4f} ms ({s_f:.1f} dB vs plain) [{card}]")
     # the real-signal kernels at the main path's shapes
     B, n = RFFT_SHAPE
     x = reals(B, n)

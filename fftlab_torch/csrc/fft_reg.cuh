@@ -1,5 +1,6 @@
 // Shared device code: the register-resident FFT engine of `fft_rows`, of
-// the two-pass pair (fourstep.cu) and of `stft_frames` (real.cu). A
+// the two-pass pair (fourstep.cu), of `stft_frames` (real.cu) and of the
+// filter sandwiches `filter_rows` and `os_filter` (filter.cu). A
 // length-L FFT (L = 2^log_l, 64 <= L <= 16384) down each of the T =
 // 2^log_t transforms of a tile, Stockham autosort, natural order in and
 // out.
@@ -38,10 +39,15 @@
 // element e of transform t at t*stride + e + (e >> 4): one pad float
 // every 16 and a row stride of L + L/16 + 4. A single row has no pad: it
 // puts element e at e ^ ((e >> 4) & 31), bits 0..4 of e XORed with bits
-// 4..8. Every exchange store and load of every pass then takes one
-// wavefront per 32 floats in a row and in a tile of 8 or 16 transforms at
-// L >= 512, and at most two in the smaller tiles (a model of the
-// accesses chose the layouts and checks them: tests/test_torch_geometry.py).
+// 4..8. A tile whose every pass puts neighbouring threads on neighbouring
+// elements of one transform (slot mapping g = 0 throughout: the filter
+// kernels of filter.cu) stacks such rows instead, element e of transform
+// t at t*stride + (e ^ ((e >> 4) & 31)), stride a multiple of 32
+// (`kFrameRows`). Every exchange store and load of every pass then takes
+// one wavefront per 32 floats in a row, in stacked rows and in a tile of
+// 8 or 16 transforms at L >= 512, and at most two in the smaller tiles (a
+// model of the accesses chose the layouts and checks them:
+// tests/test_torch_geometry.py).
 //
 // Twiddles: one float32 table per length L, built on the host in
 // float64 (kernels/_common.py `pass_twiddle_np`): for each pass after the
@@ -77,9 +83,13 @@ struct Geometry {
   int stride;
 };
 
+// The layout of stacked swizzled rows (`padded<kFrameRows>`), in the place
+// of a log_pad.
+constexpr int kFrameRows = -1;
+
 // The geometry of a kernel whose layout is log_pad (one pad float every
-// 2^log_pad; 0: the single row's swizzle, no pad), for T = 2^log_t
-// transforms of length 2^log_l.
+// 2^log_pad; 0: the single row's swizzle, no pad; kFrameRows: stacked
+// swizzled rows), for T = 2^log_t transforms of length 2^log_l.
 inline bool valid_geometry(const Geometry& g, int log_l, int log_t, int log_pad) {
   if (log_l < 7 || log_l > 14 || log_t < 0 || log_t > 4 || g.log_pad != log_pad) return false;
   const long long L = 1LL << log_l;
@@ -87,7 +97,8 @@ inline bool valid_geometry(const Geometry& g, int log_l, int log_t, int log_pad)
   // the schedule: radix-16 passes, then one of radix 2^(log_l mod 4)
   if (g.log_last != (log_l & 3)) return false;
   if (g.threads != T * L / kP || g.threads > kMaxThreads || g.threads % 32 != 0) return false;
-  if (g.stride < (log_pad == 0 ? L : L + ((L - 1) >> log_pad) + 1)) return false;
+  if (g.stride < (log_pad <= 0 ? L : L + ((L - 1) >> log_pad) + 1)) return false;
+  if (log_pad == kFrameRows && g.stride % 32 != 0) return false;
   return g.smem >= 8 * T * g.stride && g.smem <= kMaxSmem;
 }
 
@@ -130,6 +141,8 @@ template <int kLogPad>
 __device__ __forceinline__ int padded(const Tile& x, int t, int e) {
   if constexpr (kLogPad == 0) {
     return e ^ ((e >> 4) & 31);  // a single row (t = 0)
+  } else if constexpr (kLogPad == kFrameRows) {
+    return t * x.stride + (e ^ ((e >> 4) & 31));
   } else {
     return t * x.stride + e + (e >> kLogPad);
   }

@@ -69,12 +69,13 @@ SIGNATURES = {
     # direction, scale, stream
     "fftlab_fourstep_pass2_filter": (_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I,
                                      _G, _I, _F, _P),
-    # xr, xi, yr, yi, tw_fwd, tw_inv, hr, hi, batch, log_n, scale, stream
-    "fftlab_filter_rows": (_P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _F, _P),
-    # xr, xi, yr, yi, tw_fwd, tw_inv, hr, hi, channels, n, hop, halo, log_n,
-    # scale, stream
-    "fftlab_os_filter": (_P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _I, _F,
-                         _P),
+    # xr, xi, yr, yi, tw_fwd, tw_inv, hr, hi, batch, log_n, geometry, scale,
+    # stream
+    "fftlab_filter_rows": (_P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _G, _F, _P),
+    # xr, xi, yr, yi, tw_fwd, tw_inv, hr, hi, channels, n, hop, halo, log_l,
+    # log_t, geometry, scale, stream
+    "fftlab_os_filter": (_P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _I, _I, _G,
+                         _F, _P),
     # x, mr, mi, tw1, a_tab, p_tab, batch, log_l1, log_l2, log_w, geometry,
     # direction, stream
     "fftlab_fourstep_pass1_packed": (_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _G, _I,

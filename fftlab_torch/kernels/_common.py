@@ -139,8 +139,9 @@ class TileGeometry:
     of T transforms of length L per block, 16 values per thread, and the
     exchange's planes (re, then im): element e of transform t at
     t*stride + e + (e >> log_pad) floats, or, with log_pad = 0 (a single
-    row, no pad), at e ^ ((e >> 4) & 31). The C side checks it
-    (`valid_geometry`) and runs what it is given."""
+    row, no pad), at e ^ ((e >> 4) & 31), or, with log_pad = FRAME_ROWS
+    (stacked rows), at t*stride + (e ^ ((e >> 4) & 31)). The C side
+    checks it (`valid_geometry`) and runs what it is given."""
     L: int
     T: int
     schedule: tuple[int, ...]
@@ -162,6 +163,21 @@ def tile_geometry(L: int, T: int) -> TileGeometry:
     model of the engine's bank accesses chose (tests/test_torch_geometry.py)."""
     log_pad, stride = (0, L) if T == 1 else (4, L + L // 16 + 4)
     return TileGeometry(L, T, radix_schedule(L), T * L // 16, 8 * T * stride, log_pad, stride)
+
+
+# The layout of stacked swizzled rows, in the place of a log_pad
+# (csrc/fft_reg.cuh `kFrameRows`).
+FRAME_ROWS = -1
+
+
+def frame_geometry(L: int, T: int) -> TileGeometry:
+    """The geometry of a tile of T transforms of length L whose every pass
+    puts neighbouring threads on neighbouring elements of one transform
+    (the filter kernels): each transform a row swizzled as a single row,
+    the rows L floats apart, T*L/16 threads. A model of the bank accesses
+    chose it over the padded tile, whose exchanges take two wavefronts
+    under that slot mapping (tests/test_torch_geometry.py)."""
+    return TileGeometry(L, T, radix_schedule(L), T * L // 16, 8 * T * L, FRAME_ROWS, L)
 
 
 def stream_of(t: torch.Tensor) -> int:

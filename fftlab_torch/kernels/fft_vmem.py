@@ -21,9 +21,12 @@ is folded into the last stage (the kernel) or the last table (plain).
 (kernels/_ad.py; fftlab/kernels/fft_vmem.py:297).
 
 The sandwich `pallas_spectral_filter` launches `filter_rows`
-(csrc/filter.cu) on a CUDA tensor: forward FFT, times H in natural bin
-order, inverse FFT with 1/n, one read and one write of the row. Its plain
-version is the plain row FFT, the multiply and the plain inverse.
+(csrc/filter.cu) on a CUDA tensor: one row per block on the same engine
+and geometry as `fft_rows`, the forward FFT's spectrum left in the
+exchange planes, the inverse's first pass reading it times H in natural
+bin order, its last pass storing with 1/n: one read and one write of the
+row. Its plain version is the plain row FFT, the multiply and the plain
+inverse.
 """
 
 from __future__ import annotations
@@ -51,7 +54,6 @@ from fftlab_torch.kernels._common import (
     rows_of,
     stream_of,
     tile_geometry,
-    twiddle_np,
 )
 
 N1 = 128
@@ -112,20 +114,16 @@ def fft_rows_plain(xr: torch.Tensor, xi: torch.Tensor, direction=FORWARD,
 
 
 @functools.lru_cache(maxsize=32)
-def _device_twiddle(n: int, direction: Direction, device: torch.device):
-    """W_n^m, m < n: the table of the shared-memory kernels (fft_smem.cuh)."""
-    return complex_table(twiddle_np(n, direction), device)
-
-
-@functools.lru_cache(maxsize=32)
 def _engine_twiddle(n: int, direction: Direction, device: torch.device):
     """The register engine's per-pass table for length n (fft_reg.cuh)."""
     return complex_table(pass_twiddle_np(n, direction), device)
 
 
+@functools.lru_cache(maxsize=16)
 def rows_geometry(n: int) -> TileGeometry:
-    """The launch of `fft_rows` at pow2 n in [512, 16384]: one row per
-    block on n/16 threads (one row per SM at 16384, two or more below)."""
+    """The launch of `fft_rows` and `filter_rows` at pow2 n in
+    [512, 16384]: one row per block on n/16 threads (one row per SM at
+    16384, two or more below)."""
     return tile_geometry(n, 1)
 
 
@@ -197,13 +195,13 @@ def filter_rows(xr: torch.Tensor, xi: torch.Tensor, hr: torch.Tensor,
     lib = _build.load_library()
     yr = torch.empty_like(xr)
     yi = torch.empty_like(xi)
-    tw_fwd = _device_twiddle(n, Direction.FORWARD, xr.device)
-    tw_inv = _device_twiddle(n, Direction.INVERSE, xr.device)
+    tw_fwd = _engine_twiddle(n, Direction.FORWARD, xr.device)
+    tw_inv = _engine_twiddle(n, Direction.INVERSE, xr.device)
     with torch.cuda.device(xr.device):
         rc = lib.fftlab_filter_rows(
             xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
             tw_fwd.data_ptr(), tw_inv.data_ptr(), hr.data_ptr(), hi.data_ptr(),
-            B, log2_int(n), 1.0 / n, stream_of(xr))
+            B, log2_int(n), rows_geometry(n).c_struct(), 1.0 / n, stream_of(xr))
     _build.check(lib, "filter_rows", rc)
     LAUNCHES["filter_rows"] += 1
     return yr, yi

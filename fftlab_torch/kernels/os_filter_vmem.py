@@ -8,10 +8,15 @@ frame goes through the FFT -> H -> IFFT sandwich, and its last hop
 samples are the valid output.
 
 On a CUDA tensor the hand-written kernel `os_filter` (csrc/filter.cu)
-runs: block (channel, frame) reads its frame straight from the signal,
-zero outside it, runs the row sandwich in shared memory and writes its
-hop valid samples. On a CPU tensor the plain version runs: the same
-frames as one strided view, the plain row sandwich, the valid slices.
+runs on the register engine of csrc/fft_reg.cuh: each block takes T =
+`frames_per_block(fft_size)` consecutive frames of one channel (4096/
+fft_size up to 2K frames, one from 4K), its first pass reads them
+straight from the signal (zero outside it), it runs the sandwich of each
+frame (the forward transform's spectrum left in the exchange planes,
+the inverse reading it times H) and stores outputs halo..fft_size-1 of
+every frame straight to the output, one contiguous run of T*hop samples
+per plane. On a CPU tensor the plain version runs: the same frames as
+one strided view, the plain row sandwich, the valid slices.
 The JAX kernels round the halo up to whole 128-lane rows and batch
 frames per program (FFTLAB_OS_ALIGNED, FFTLAB_OS_FRAMES) for their DMA
 layout; neither changes the output, and neither exists here.
@@ -29,22 +34,30 @@ from fftlab_torch.core.framing import frame_signal_strided
 from fftlab_torch.core.types import Direction, log2_int
 from fftlab_torch.kernels import _build
 from fftlab_torch.kernels._common import (
+    TileGeometry,
     check_cuda,
     check_planes,
     check_response,
+    frame_geometry,
     on_cpu,
     rows_of,
     stream_of,
+    tile_geometry,
 )
 from fftlab_torch.kernels.fft_vmem import (
     N1,
-    _device_twiddle,
+    _engine_twiddle,
     spectral_filter_rows_plain,
     supported_size,
 )
 
 # The largest frame the row sandwich takes (fft_vmem.supported_size).
 MAX_FFT_SIZE = 16384
+# Points of one block's frames up to 2K frames, and the most the kernel
+# takes there (csrc/filter.cu `os_threads`): 4096 beat 8192 by 9% at 1K
+# frames (chip_smoke.py's A/B of T); from 4K frames (ONE_FRAME) one frame
+# a block (`kLogOneFrame`).
+FRAME_TILE, MAX_TILE, ONE_FRAME = 4096, 8192, 4096
 
 # Launches of the CUDA kernel since the count was last reset.
 LAUNCHES = {"os_filter": 0}
@@ -91,33 +104,62 @@ def os_filter_plain(xr: torch.Tensor, xi: torch.Tensor, hr: torch.Tensor,
     return valid(yr), valid(yi)
 
 
+def frames_per_block(fft_size: int) -> int:
+    """T: frames of one block (FRAME_TILE points; one from ONE_FRAME)."""
+    return 1 if fft_size >= ONE_FRAME else FRAME_TILE // fft_size
+
+
+@functools.lru_cache(maxsize=64)
+def os_geometry(fft_size: int, T: int) -> TileGeometry:
+    """The launch of `os_filter`: T frames of fft_size points a block as
+    stacked swizzled rows (`frame_geometry`); from ONE_FRAME one frame a
+    block, a single swizzled row (`tile_geometry`)."""
+    if (fft_size < 512 or fft_size > MAX_FFT_SIZE or fft_size & (fft_size - 1)
+            or T < 1 or T & (T - 1) or T * fft_size > max(MAX_TILE, fft_size)
+            or (fft_size >= ONE_FRAME and T != 1)):
+        raise ValueError(f"os_filter takes pow2 fft_size in [512, {MAX_FFT_SIZE}] and pow2 T "
+                         f"with T*fft_size <= {MAX_TILE}, T = 1 from {ONE_FRAME}; "
+                         f"got {fft_size}, T={T}")
+    return tile_geometry(fft_size, 1) if fft_size >= ONE_FRAME else frame_geometry(fft_size, T)
+
+
 def os_filter(xr: torch.Tensor, xi: torch.Tensor, hr: torch.Tensor,
               hi: torch.Tensor, nh: int):
     """Launch the overlap-save kernel on contiguous [C, n] CUDA float32
-    planes; hr, hi: the fft_size-bin response of the nh taps (fft_size
-    pow2 in 512..16384, nh - 1 < fft_size)."""
+    planes (at any float offset); hr, hi: the fft_size-bin response of
+    the nh taps (fft_size pow2 in 512..16384, nh - 1 < fft_size)."""
     check_planes(xr, xi, "os_filter")
     check_cuda(xr, xi, hr, hi, name="os_filter")
-    C, n = xr.shape
     fft_size = int(hr.shape[-1])
     check_response(hr, hi, fft_size, xr, "os_filter")
-    halo = nh - 1
-    if fft_size < 512 or fft_size > MAX_FFT_SIZE or not 0 <= halo < fft_size:
+    if fft_size < 512 or fft_size > MAX_FFT_SIZE or not 0 <= nh - 1 < fft_size:
         raise ValueError(f"os_filter takes pow2 fft_size in [512, {MAX_FFT_SIZE}] "
                          f"and nh <= fft_size; got {fft_size}, nh={nh}")
-    log_n = log2_int(fft_size)
+    return _launch_os(xr, xi, hr, hi, nh, frames_per_block(fft_size), LAUNCHES)
+
+
+def _launch_os(xr, xi, hr, hi, nh: int, T: int, counts: dict):
+    """Launch `os_filter` at T frames per block on checked tensors; the
+    launch adds one to `counts["os_filter"]` (LAUNCHES, or the counts of
+    chip_smoke.py's A/B of T)."""
+    C, n = xr.shape
+    fft_size = int(hr.shape[-1])
+    halo = nh - 1
+    hop = fft_size - halo
+    geo = os_geometry(fft_size, T)
     lib = _build.load_library()
     yr = torch.empty_like(xr)
     yi = torch.empty_like(xi)
-    tw_fwd = _device_twiddle(fft_size, Direction.FORWARD, xr.device)
-    tw_inv = _device_twiddle(fft_size, Direction.INVERSE, xr.device)
+    tw_fwd = _engine_twiddle(fft_size, Direction.FORWARD, xr.device)
+    tw_inv = _engine_twiddle(fft_size, Direction.INVERSE, xr.device)
     with torch.cuda.device(xr.device):
         rc = lib.fftlab_os_filter(
             xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
             tw_fwd.data_ptr(), tw_inv.data_ptr(), hr.data_ptr(), hi.data_ptr(),
-            C, n, fft_size - halo, halo, log_n, 1.0 / fft_size, stream_of(xr))
+            C, n, hop, halo, log2_int(fft_size), log2_int(T), geo.c_struct(),
+            1.0 / fft_size, stream_of(xr))
     _build.check(lib, "os_filter", rc)
-    LAUNCHES["os_filter"] += 1
+    counts["os_filter"] += 1
     return yr, yi
 
 

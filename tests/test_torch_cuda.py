@@ -116,7 +116,7 @@ def _sandwich_oracle(xr, xi, hr, hi):
     return np.fft.ifft(np.fft.fft(z) * h)
 
 
-@pytest.mark.parametrize("n", [1024, 8192, 16384])
+@pytest.mark.parametrize("n", [512, 1024, 2048, 4096, 8192, 16384])
 def test_filter_rows_matches_plain(no_tf32, n):
     xr, xi = _cuda_pair(n, (8, n))
     hr, hi = _cuda_pair(n + 1, (n,))
@@ -162,6 +162,40 @@ def test_os_filter_matches_plain(no_tf32, nh, fft_size):
     want = [np.stack([np.convolve(row, h)[:n] for row in np.asarray(x.cpu(), np.float64)])
             for x in (xr, xi)]
     assert snr_db(cplx(*got), want[0] + 1j * want[1]) >= 100.0
+
+
+def _os_frame_choices():
+    """(fft_size, T): every frame size of the kernel at its default T, and
+    1K frames also at the other T of chip_smoke.py's A/B."""
+    sizes = (512, 1024, 2048, 4096, 8192, 16384)
+    return [(f, os_filter_vmem.frames_per_block(f)) for f in sizes] + [(1024, 2), (1024, 8)]
+
+
+@pytest.mark.parametrize("fft_size,T", _os_frame_choices())
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+def test_os_filter_at_every_frame_size(no_tf32, fft_size, T, offset):
+    """The span kernel at each frame size and T, with 1, 9, 129 and 1025
+    taps where the halo fits the frame, on C = 2 channels whose planes
+    start `offset` floats into a larger buffer (the span's lead) and whose
+    rows start at odd offsets from one another; a ragged last block."""
+    C = 2
+    counts = {"os_filter": 0}
+    taps = [nh for nh in (1, 9, 129, 1025) if nh - 1 < fft_size]
+    for nh in taps:
+        hop = fft_size - (nh - 1)
+        n = 3 * T * hop + 777
+        xr, xi = _cuda_pair(nh + offset, (C * n + 4,))
+        xr = xr[offset:offset + C * n].view(C, n)
+        xi = xi[3 - offset:3 - offset + C * n].view(C, n)
+        h = np.random.default_rng(nh).standard_normal(nh) / nh
+        hr, hi = (torch.from_numpy(a).cuda() for a in os_filter_vmem.os_response_np(h, fft_size))
+        got = os_filter_vmem._launch_os(xr, xi, hr, hi, nh, T, counts)
+        plain = os_filter_vmem.os_filter_plain(xr, xi, hr, hi, nh)
+        assert snr_db(cplx(*got), cplx(*plain)) >= 110.0, nh
+        want = [np.stack([np.convolve(row, h)[:n] for row in np.asarray(x.cpu(), np.float64)])
+                for x in (xr, xi)]
+        assert snr_db(cplx(*got), want[0] + 1j * want[1]) >= 100.0, nh
+    assert counts["os_filter"] == len(taps)
 
 
 @pytest.mark.parametrize("n,kernels", [

@@ -32,7 +32,7 @@ from _torch_parity import cplx, planes, snr_db, tt
 from fftlab_torch.algos import split_stockham as ss
 from fftlab_torch.algos.stockham import plan_factors
 from fftlab_torch.dsp import convolution, filtering
-from fftlab_torch.kernels import fft_vmem, fourstep_vmem, os_filter_vmem, resident_vmem
+from fftlab_torch.kernels import _common, fft_vmem, fourstep_vmem, os_filter_vmem, resident_vmem
 from fftlab_torch.plan import dispatch
 
 
@@ -259,6 +259,183 @@ def test_os_filter_refuses_what_jax_refuses():
     with pytest.raises(TypeError, match="float32"):
         x = torch.zeros(100, dtype=torch.float64)
         os_filter_vmem.pallas_os_filter_split(x, x, np.ones(3))
+
+
+# ------------------------------------------ models of the CUDA sandwiches
+
+
+def _slots(L, T, R, threads):
+    """(thread, slot) -> (j, t) of a radix-R pass under slot mapping 0, the
+    mapping of every pass of the filter kernels (csrc/fft_reg.cuh
+    `slot_of`): neighbouring threads on neighbouring butterflies of one
+    transform."""
+    log_j = (L // R).bit_length() - 1
+    s = np.arange(threads)[:, None] + np.arange(16 // R)[None, :] * threads
+    return s & ((1 << log_j) - 1), s >> log_j
+
+
+def _plane_at(geo, t, e):
+    """Element e of transform t in an exchange plane (fft_reg.cuh `padded`):
+    the swizzled row, or stacked swizzled rows."""
+    swz = e ^ ((e >> 4) & 31)
+    return swz if geo.log_pad == 0 else t * geo.stride + swz
+
+
+def _engine_model(smem, geo, direction, load, store=None):
+    """The register engine's passes on one block, in float64, through the
+    exchange planes of `smem` (re plane at 0, im plane at T*stride floats):
+    first-pass inputs from load(t, e) (arrays over (thread, slot, r)); each
+    pass reads all of its inputs before it writes (the barriers); the last
+    pass's outputs go to store(t, e, y), or back into the planes where it
+    read them (the in-place hand-off of csrc/filter.cu
+    `forward_in_place`) when store is None."""
+    L, T, threads = geo.L, geo.T, geo.threads
+    im = T * geo.stride
+    tw = _common.pass_twiddle_np(L, direction)
+    ns, offset, y = 1, 0, None
+    for p, R in enumerate(geo.schedule):
+        j, t = _slots(L, T, R, threads)
+        r = np.arange(R)
+        e_in = j[..., None] + r * (L // R)
+        t_in = np.broadcast_to(t[..., None], e_in.shape)
+        if p == 0:
+            a = load(t_in, e_in)
+        else:
+            a = smem[_plane_at(geo, t_in, e_in)] + 1j * smem[im + _plane_at(geo, t_in, e_in)]
+            a = a * tw[offset + ((r // 2) * ns + (j & (ns - 1))[..., None]) * 2 + r % 2]
+            offset += ns * R
+        y = a @ np.exp(2j * np.pi * direction * np.outer(r, r) / R).T
+        if p < len(geo.schedule) - 1:
+            e_out = ((j // ns) * ns * R + j % ns)[..., None] + r * ns
+            smem[_plane_at(geo, t_in, e_out)] = y.real
+            smem[im + _plane_at(geo, t_in, e_out)] = y.imag
+        elif store is None:
+            smem[_plane_at(geo, t_in, e_in)] = y.real
+            smem[im + _plane_at(geo, t_in, e_in)] = y.imag
+        else:
+            store(t_in, e_in, y)
+        ns *= R
+    assert offset == len(tw)
+
+
+def _sandwich_model(smem, geo, H, load, store):
+    """csrc/filter.cu `sandwich`: the forward with its spectrum left in the
+    planes, then the inverse whose first pass reads it there times H and
+    whose last pass stores with 1/L."""
+    L = geo.L
+    im = geo.T * geo.stride
+    _engine_model(smem, geo, -1, load)
+    spectrum = lambda t, e: (smem[_plane_at(geo, t, e)] + 1j * smem[im + _plane_at(geo, t, e)]) * H[e]
+    _engine_model(smem, geo, 1, spectrum, lambda t, e, y: store(t, e, y / L))
+
+
+SANDWICH_MODELS = ([("filter_rows", 1 << e, 1) for e in range(9, 15)]
+                   + [("os_filter", 1 << e, os_filter_vmem.frames_per_block(1 << e))
+                      for e in range(9, 15)] + [("os_filter", 1024, 2), ("os_filter", 1024, 8)])
+
+
+@pytest.mark.parametrize("kernel,L,T", SANDWICH_MODELS,
+                         ids=[f"{k}-L{L}-T{T}" for k, L, T in SANDWICH_MODELS])
+def test_sandwich_schedule_model(kernel, L, T):
+    """The sandwich as the CUDA kernels run it (slot mapping 0 in every
+    pass of both transforms, the spectrum handed over in place in the
+    planes, H on the inverse's first-pass reads, 1/L on its last pass's
+    stores), modelled in float64 at every length, at every T the wrappers
+    pick and the other T of the A/B at 1K frames: ifft(fft(x) * H) to
+    float64 rounding."""
+    geo = (fft_vmem.rows_geometry(L) if kernel == "filter_rows"
+           else os_filter_vmem.os_geometry(L, T))
+    assert geo.T == T
+    rng = np.random.default_rng(L + T)
+    x = rng.standard_normal((T, L)) + 1j * rng.standard_normal((T, L))
+    H = rng.standard_normal(L) + 1j * rng.standard_normal(L)
+    smem = np.full(geo.smem // 4, np.nan)  # poison: a read of an unwritten float shows
+    out = np.full((T, L), np.nan, complex)
+
+    def store(t, e, y):
+        out[t, e] = y
+
+    _sandwich_model(smem, geo, H, lambda t, e: x[t, e], store)
+    want = np.fft.ifft(np.fft.fft(x) * H)
+    assert np.max(np.abs(out - want)) <= 1e-12 * np.max(np.abs(want))
+
+
+def _os_block_model(xr, xi, h, fft_size):
+    """csrc/filter.cu `os_filter_kernel` on [C, n] float32 planes, in
+    float64: block (c, g) takes frames f0 = g*T .. f0+T-1 (T =
+    `frames_per_block`); its first pass reads frame t's element e from
+    x[s0 + t*hop + e], s0 = f0*hop - halo, zero outside [0, n); outputs
+    e >= halo of frame t go to y[f0*hop + t*hop + e - halo] below n.
+    Returns y and how many times each output was written."""
+    C, n = xr.shape
+    nh = len(h)
+    halo, hop = nh - 1, fft_size - (nh - 1)
+    T = os_filter_vmem.frames_per_block(fft_size)
+    geo = os_filter_vmem.os_geometry(fft_size, T)
+    H = np.fft.fft(np.pad(np.asarray(h, np.float64), (0, fft_size - nh)))
+    H = H.real.astype(np.float32) + 1j * H.imag.astype(np.float32)
+    n_groups = -(-(-(-n // hop)) // T)
+    y = np.zeros((C, n), complex)
+    written = np.zeros((C, n), int)
+    for c in range(C):
+        for g in range(n_groups):
+            out0 = g * T * hop
+            s0 = out0 - halo
+
+            def load(t, e, c=c, s0=s0):
+                k = s0 + t * hop + e
+                ok = (k >= 0) & (k < n)
+                kk = np.where(ok, k, 0)
+                return np.where(ok, xr[c, kk] + 1j * xi[c, kk].astype(np.float64), 0)
+
+            def store(t, e, v, c=c, out0=out0):
+                q = out0 + t * hop + e - halo
+                keep = (e >= halo) & (q < n)
+                np.add.at(written[c], q[keep], 1)
+                y[c, q[keep]] = v[keep]
+
+            _sandwich_model(np.full(geo.smem // 4, np.nan), geo, H, load, store)
+    return y, written
+
+
+def _os_model_cases():
+    out = []
+    for nh in (1, 9, 129, 1025):
+        for fft_size in (1024, 2048, 4096):
+            if nh - 1 >= fft_size or not os_filter_vmem.taps_fit(nh, fft_size):
+                continue
+            hop = fft_size - nh + 1
+            for n in (1, hop - 1, 3 * hop - 1, 3 * hop + 1):
+                if n >= 1:
+                    out.append((nh, fft_size, n))
+    return out
+
+
+OS_MODEL_CASES = _os_model_cases()
+
+
+@pytest.mark.parametrize("nh,fft_size,n", OS_MODEL_CASES,
+                         ids=[f"taps{a}-L{b}-n{c}" for a, b, c in OS_MODEL_CASES])
+def test_os_layout_model(nh, fft_size, n):
+    """The `os_filter` block layout (the T frames of a block and where
+    frame t's element e comes from, the output run of each block, ragged
+    and zero-padded ends) in float64 on C = 2 channels, against the plain
+    version, the JAX kernel in interpret mode and np.convolve: every
+    output written exactly once, and the filter's output,
+    convolve(x, h)[:n]."""
+    C = 2
+    xr, xi = planes(nh + n, (C, n))
+    h = np.random.default_rng(nh).standard_normal(nh) / nh
+    y, written = _os_block_model(xr, xi, h, fft_size)
+    assert np.all(written == 1)
+    want = np.stack([np.convolve(a.astype(np.float64), h)[:n]
+                     + 1j * np.convolve(b.astype(np.float64), h)[:n] for a, b in zip(xr, xi)])
+    # H is rounded to float32, as the kernel's table is
+    assert np.max(np.abs(y - want)) <= 1e-6 * max(np.max(np.abs(want)), 1.0)
+    plain = os_filter_vmem.pallas_os_filter_split(tt(xr), tt(xi), h, fft_size=fft_size)
+    assert snr_db(y, cplx(*plain)) >= 110.0
+    jax = jx_os.pallas_os_filter_split(xr, xi, h, fft_size=fft_size, interpret=True)
+    assert snr_db(y, cplx(*jax)) >= 110.0
 
 
 # ------------------------------------------------------- the dispatcher

@@ -24,7 +24,8 @@ import pytest
 
 import fftlab.kernels.fourstep_vmem as jx_fs
 import fftlab.kernels.threestep_vmem as jx_ts
-from fftlab_torch.kernels import _common, fft_vmem, fourstep_vmem, stft_vmem, threestep_vmem
+from fftlab_torch.kernels import (_common, fft_vmem, fourstep_vmem, os_filter_vmem, stft_vmem,
+                                  threestep_vmem)
 
 MAX_SMEM = 232448
 
@@ -38,6 +39,8 @@ def _at(geo, t, e):
     plane, in floats (csrc/fft_reg.cuh `padded`)."""
     if geo.log_pad == 0:  # a single row: no pad, swizzled
         return e ^ ((e >> 4) & 31)
+    if geo.log_pad == _common.FRAME_ROWS:  # stacked rows, each swizzled
+        return t * geo.stride + (e ^ ((e >> 4) & 31))
     return t * geo.stride + e + (e >> geo.log_pad)
 
 
@@ -252,3 +255,107 @@ def test_exchange_layout_bank_conflicts(role, L, T, g_first, g):
                 worst = max(worst, int(_wavefronts(a.T.reshape(-1, 32)).max()))
         ns *= R
     assert worst <= (1 if T == 1 or L >= 512 else 2)
+
+
+# ------------------------------------------------- the filter sandwiches
+
+# (kernel, L, T): `filter_rows` (one row, fft_rows' geometry) at every
+# length, and `os_filter` at every frame size at its default T, 1K frames
+# also at the other T of chip_smoke.py's A/B
+SANDWICHES = ([("filter_rows", 1 << e, 1) for e in range(9, 15)]
+              + [("os_filter", 1 << e, os_filter_vmem.frames_per_block(1 << e))
+                 for e in range(9, 15)] + [("os_filter", 1024, 2), ("os_filter", 1024, 8)])
+
+
+def _plane_accesses(geo):
+    """(kind, addresses) of every access to the exchange planes of the
+    sandwich (csrc/filter.cu `forward_in_place`, then Engine::run): the
+    forward's stores after each pass, its last pass's in-place loads and
+    stores, the inverse's loads of every pass (its first pass reads the
+    forward's spectrum) and its stores before its last pass; slot mapping
+    0 in every pass. Addresses are (warps, 32) floats of one plane."""
+    L, T, threads = geo.L, geo.T, geo.threads
+    out = []
+    for transform in ("forward", "inverse"):
+        ns = 1
+        for p, R in enumerate(geo.schedule):
+            j, t = _slots(L, T, R, 0, threads)
+            last = p == len(geo.schedule) - 1
+            for r in range(R):
+                load = j + r * (L // R)
+                store = load if last else (j // ns) * ns * R + j % ns + r * ns
+                if p > 0 or transform == "inverse":
+                    out.append(("load", _at(geo, t, load)))
+                if transform == "forward" or not last:
+                    out.append(("store", _at(geo, t, store)))
+            ns *= R
+    return [(kind, a.T.reshape(-1, 32)) for kind, a in out]
+
+
+@pytest.mark.parametrize("kernel,L,T", SANDWICHES, ids=[f"{k}-L{L}-T{T}" for k, L, T in SANDWICHES])
+def test_sandwich_bank_conflicts(kernel, L, T):
+    """Every exchange-plane access of both transforms of the filter
+    sandwiches, the in-place hand-off included, takes one wavefront per
+    32 floats: the swizzled row, and stacked swizzled rows under the slot
+    mapping 0 (the padded tile takes two there, which is why the frames
+    are rows)."""
+    geo = fft_vmem.rows_geometry(L) if kernel == "filter_rows" else os_filter_vmem.os_geometry(L, T)
+    worst = {}
+    for kind, addr in _plane_accesses(geo):
+        worst[kind] = max(worst.get(kind, 0), int(_wavefronts(addr).max()))
+    assert worst == {"load": 1, "store": 1}, worst
+    if T > 1:  # the padded tile under the same slot mapping
+        padded = _common.tile_geometry(L, T)
+        assert max(int(_wavefronts(a).max()) for _, a in _plane_accesses(padded)) == 2
+
+
+OS_LAYOUTS = [(L, T, nh) for e in range(9, 15) for L in [1 << e]
+              for T in ([1] if L >= 4096 else [t for t in (1, 2, 4, 8, 16) if t * L <= 8192])
+              for nh in (1, 9, 129, 1025, L // 2, L) if nh - 1 < L]
+
+
+@pytest.mark.parametrize("L,T,nh", OS_LAYOUTS, ids=[f"L{L}-T{T}-taps{nh}" for L, T, nh in OS_LAYOUTS])
+def test_os_geometry_struct(L, T, nh):
+    """`os_geometry` goes to the kernel as it is (`TileGeometry.c_struct`),
+    whose launcher only checks it (csrc/filter.cu fftlab_os_filter,
+    fft_reg.cuh `valid_geometry`): the C struct has the fields and values
+    the launcher reads; the stacked swizzled rows up to 2K frames (T*L <=
+    8192, 512 threads at most, the kernel's launch bounds) and one
+    swizzled row from 4K (T = 1); rows 32-float aligned, every element of
+    the tile at its own place in the planes, the planes in the block's
+    shared memory, two blocks an SM up to 8192 points; every frame's
+    samples t*hop + e and outputs t*hop + e - halo inside the block's span
+    of T*hop + halo samples, the outputs each once."""
+    hop = L - (nh - 1)
+    geo = os_filter_vmem.os_geometry(L, T)
+    c = geo.c_struct()
+    assert [name for name, _ in c._fields_] == ["threads", "smem", "log_last", "log_pad",
+                                                "stride"]
+    assert (c.threads, c.smem, c.log_pad, c.stride) == (geo.threads, geo.smem, geo.log_pad,
+                                                         geo.stride)
+    assert c.log_last == (L.bit_length() - 1) % 4
+    if L >= os_filter_vmem.ONE_FRAME:
+        assert T == 1 and geo.log_pad == 0 and geo.threads == L // 16
+    else:
+        assert T * L <= 8192 and geo.threads <= 512 and geo.log_pad == _common.FRAME_ROWS
+    assert geo.threads == T * L // 16 and geo.threads % 32 == 0
+    assert geo.stride >= L and geo.stride % 32 == 0
+    assert 8 * T * geo.stride <= geo.smem <= MAX_SMEM
+    t, e = np.arange(T)[:, None], np.arange(L)[None, :]
+    at = _at(geo, t, e)  # every element of the tile at its own place in the planes
+    assert len(np.unique(at)) == T * L and at.min() >= 0 and at.max() < T * geo.stride
+    if T * L <= 8192:  # two blocks an SM
+        assert 2 * geo.smem <= MAX_SMEM and 2 * geo.threads <= 2048
+    assert (t * hop + e).max() < T * hop + (nh - 1)
+    q = (t * hop + e - (nh - 1))[:, nh - 1:]
+    assert np.array_equal(np.sort(q.ravel()), np.arange(T * hop))
+
+
+def test_os_geometry_refuses_what_the_launcher_refuses():
+    with pytest.raises(ValueError, match="T = 1 from"):
+        os_filter_vmem.os_geometry(4096, 2)
+    with pytest.raises(ValueError, match="T\\*fft_size"):
+        os_filter_vmem.os_geometry(1024, 16)
+    assert os_filter_vmem.frames_per_block(1024) == 4
+    with pytest.raises(ValueError, match="pow2"):
+        os_filter_vmem.os_geometry(1000, 1)
