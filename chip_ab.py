@@ -19,7 +19,9 @@ taps in 2K frames; `stft_frames` at 2^22 samples and frame/hop 256/128,
 `fft_rows` at 256 x 16384 beside `torch.fft.fft`; and the other
 register-engine kernels (csrc/fft_reg.cuh): the two-pass pair at
 16 x 2^20, its packed-real and interleaved modes at 8 x 2^21 and the
-three passes of the huge-n FFT at 1 x 2^24. Each is timed both ways of
+three passes of the huge-n FFT at 1 x 2^24; and the stage pipeline at
+16 x 2^20 (`fft_split_pipeline`, factors (128, 64, 128)) with its two
+stages as `fused_stage` calls. Each is timed both ways of
 chip_smoke.py's `time_ms`: 10 back-to-back calls between CUDA events,
 and a CUDA graph of the 10 calls (the device time alone).
 """
@@ -38,6 +40,7 @@ ROWS_SHAPE = (256, 16384)
 PAIR_SHAPE = (16, 1 << 20)
 REAL_SHAPE = (8, 1 << 21)
 HUGE_SHAPE = (1, 1 << 24)
+PIPELINE_SHAPE = (16, 1 << 20)
 FILTER_ROWS_SHAPES = ((256, 16384), (64, 1024))
 OS_N = 1 << 23
 OS_CASES = ((129, 1024), (129, 16384), (1025, 2048))  # (taps, frame)
@@ -55,7 +58,7 @@ def worker(tree: str) -> dict:
     import numpy as np
 
     from fftlab_torch.kernels import (_build, fft_vmem, fourstep_vmem, os_filter_vmem,
-                                      stft_vmem, threestep_vmem)
+                                      stage_fused, stft_vmem, threestep_vmem)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     _build.load_library()
@@ -109,6 +112,15 @@ def worker(tree: str) -> dict:
     cases["threestep_pass_a 1 x 2^24"] = lambda: threestep_vmem.threestep_pass_a(hr, hi)
     cases["threestep_pass_b 1 x 2^24"] = lambda: threestep_vmem.threestep_pass_b(*a)
     cases["threestep_pass_c 1 x 2^24"] = lambda: threestep_vmem.threestep_pass_c(*b)
+    B, n = PIPELINE_SHAPE
+    factors = stage_fused.pipeline_factors(n)
+    r1, r2 = factors[0], factors[1]
+    pr, pi = planes(B, n)
+    s1r, s1i = (t.reshape(B * r1, n // r1) for t in stage_fused.fused_stage(pr, pi, r1))
+    cases["stage_pipeline 16 x 2^20"] = (
+        lambda: stage_fused.fft_split_pipeline(pr, pi, -1, factors))
+    cases[f"fused_stage r={r1} 16 x 2^20"] = lambda: stage_fused.fused_stage(pr, pi, r1)
+    cases[f"fused_stage r={r2} 16 x 2^20"] = lambda: stage_fused.fused_stage(s1r, s1i, r2)
     return {name: {"calls": time_ms(fn), "graph": time_ms(fn, graph=True)}
             for name, fn in cases.items()}
 

@@ -28,8 +28,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
    versions and np.fft-style float64 oracles; the three-pass kernels
    (`threestep_pass_a/b/c`) at 4 x 2^22, 1 x 2^24 and 1 x 2^26 (each
    pass vs plain, the whole vs float64 >= 120 dB) and `fused_stage` at
-   the JAX suite's (r, M) and the pipelines' stage shapes, with and
-   without the twiddle (>= 115 dB vs a float64 einsum);
+   the JAX suite's (r, M), every pow2 r in 2..128 and the pipelines'
+   stage shapes, with and without the twiddle (>= 115 dB vs a float64
+   einsum), and the pipelines' swap stages (`swap_stage`) and leaves
+   (`stage_leaf`) at their main-path shapes against their plain versions;
 4. main paths, each with every launch count set to 0 just before it and
    read just after: (a) the FFT, plan_dft_1d_split(2^20, batch=16)
    forward and inverse and fft_split_auto at 256 x 16384; (b) the filter
@@ -46,7 +48,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
    forward and inverse (bench.py's fft_16m_single), fft_split_auto at
    4 x 2^22 and 1 x 2^26, the r2c/c2r plans at 4 x 2^23 (half size on
    three passes), plan_from_jax("pallas_pipeline", 2^20) at 16 x 2^20
-   and run_route("stage_pipeline") at 2 x 2^15.
+   and run_route("stage_pipeline") at 2 x 2^15 (each K - 1 stage launches
+   and one leaf launch).
    Every output of a main path is held against the plain versions on
    the same inputs (>= 110 dB, over every sample) and against an oracle;
 5. timing: CUDA events around 10 back-to-back calls, median of 25 such
@@ -138,7 +141,12 @@ PIPELINE_SMALL_SHAPE = (2, 1 << 15)
 # (batch, r, M): the JAX suite's stages (tests/test_stage_fused.py) and the
 # stages of the two pipelines above
 STAGE_SHAPES = ((4, 64, 2048), (4, 128, 1024), (4, 32, 128), (4, 2, 128),
+                (4, 4, 256), (4, 8, 128), (4, 16, 512),
                 (16, 128, 8192), (2048, 64, 128), (2, 128, 256), (256, 2, 128))
+# (rows, r, M, F1) of the two pipelines' swap stages, and (batch, n, leaf)
+# of their leaves
+SWAP_SHAPES = ((2048, 64, 128, 128), (256, 2, 128, 128))
+LEAF_SHAPES = ((16, 1 << 20, 128), (2, 1 << 15, 128))
 GATE_PLAIN_DB = 110.0
 GATE_ORACLE_DB = {"rows": 110.0, "two_pass": 120.0, "os_filter": 100.0,
                   "bluestein": 95.0, "real": 110.0, "three_pass": 120.0,
@@ -250,6 +258,8 @@ def main() -> int:
     engine = ({f"fft_rows_kernel<{e}>" for e in range(9, 15)}
               | {f"fourstep_pass1_kernel<{m}, {e}>" for m in range(3) for e in range(7, 11)}
               | {f"fourstep_pass2_kernel<{m}, {e}>" for m in range(3) for e in range(7, 12)}
+              | {f"fourstep_pass1_kernel<3, {e}>" for e in range(1, 8)}  # the stages
+              | {f"fourstep_pass2_kernel<3, {e}>" for e in range(7, 12)}  # the leaves
               | {f"{k}_kernel<{e}>" for k in ("filter_rows", "os_filter") for e in range(9, 15)})
     missing = engine - {k["kernel"] for k in ptxas}
     require(not missing, f"ptxas reported no {sorted(missing)}")
@@ -493,7 +503,7 @@ def main() -> int:
     # the huge-n kernels: each of the three passes at both ends of the
     # three-pass window and at the main shape, against its plain version
     three = ("threestep_pass_a", "threestep_pass_b", "threestep_pass_c")
-    err.update(dict.fromkeys(three + ("fused_stage",), 0.0))
+    err.update(dict.fromkeys(three + ("fused_stage", "stage_leaf"), 0.0))
     for B, n in THREE_PASS_SHAPES:
         xr, xi = planes(B, n)
         for d, user in cases:
@@ -550,6 +560,29 @@ def main() -> int:
                 check(f"fused_stage vs plain at r={r} M={M}", s_plain, GATE_PLAIN_DB)
                 check(f"fused_stage vs oracle at r={r} M={M}", s_oracle,
                       GATE_ORACLE_DB["stage"])
+    for rows, r, M, f1 in SWAP_SHAPES:
+        xr, xi = planes(rows, r * M)
+        for d in (FORWARD, INVERSE):
+            got = stage_fused.swap_stage(xr, xi, r, f1, d)
+            plain = stage_fused.swap_stage_plain(xr, xi, r, f1, d)
+            torch.cuda.synchronize()
+            err["fused_stage"] = max(err["fused_stage"], max_abs(got, plain))
+            s_plain = snr_db(got, plain)
+            print(f"check swap_stage rows={rows} r={r} M={M} F1={f1} dir={int(d)}: vs plain "
+                  f"{s_plain:.1f} dB")
+            check(f"swap_stage vs plain at r={r} M={M} F1={f1}", s_plain, GATE_PLAIN_DB)
+    for B, n, leaf in LEAF_SHAPES:
+        xr, xi = planes(B, n)
+        for d, user in cases:
+            eff = (1.0 / n if d == INVERSE else 1.0) * (user or 1.0)
+            got = stage_fused.stage_leaf(xr, xi, leaf, d, eff)
+            plain = stage_fused.stage_leaf_plain(xr, xi, leaf, d, eff)
+            torch.cuda.synchronize()
+            err["stage_leaf"] = max(err["stage_leaf"], max_abs(got, plain))
+            s_plain = snr_db(got, plain)
+            print(f"check stage_leaf B={B} n={n} leaf={leaf} dir={int(d)} scale={eff:.6g}: "
+                  f"vs plain {s_plain:.1f} dB")
+            check(f"stage_leaf vs plain at n={n}", s_plain, GATE_PLAIN_DB)
 
     def reset_counts():
         for counts in (fft_vmem.LAUNCHES, fourstep_vmem.LAUNCHES,
@@ -842,7 +875,7 @@ def main() -> int:
 
     # phase 4d: the huge-n path, through the public entry points; each
     # call runs with every launch count at 0 and is read just after
-    huge_launches = dict.fromkeys(three + ("fused_stage",), 0)
+    huge_launches = dict.fromkeys(three + ("fused_stage", "stage_leaf"), 0)
 
     def drive(what, fn, kernels):
         reset_counts()
@@ -920,11 +953,12 @@ def main() -> int:
     require(pipe.algorithm == "stage_pipeline", f"pallas_pipeline maps to {pipe.algorithm}")
     pr, pi = planes(B, n)
     qr, qi = drive("plan_from_jax(pallas_pipeline, 2^20) 16 x 2^20",
-                   lambda: pipe.execute((pr, pi)), ("fused_stage",))
+                   lambda: pipe.execute((pr, pi)), ("fused_stage", "stage_leaf"))
     B2, n2 = PIPELINE_SMALL_SHAPE
     sr, si = planes(B2, n2)
     tr, ti = drive("run_route(stage_pipeline) 2 x 2^15",
-                   lambda: run_route("stage_pipeline", sr, si, FORWARD), ("fused_stage",))
+                   lambda: run_route("stage_pipeline", sr, si, FORWARD),
+                   ("fused_stage", "stage_leaf"))
     outputs_ok((qr, (B, n)), (qi, (B, n)), (tr, (B2, n2)), (ti, (B2, n2)))
     hold("stage_pipeline 16 x 2^20", (qr, qi), stage_fused.fft_split_pipeline_plain(
         pr, pi, FORWARD, stage_fused.pipeline_factors(n)), oracle(pr, pi, FORWARD, 1.0),
@@ -933,6 +967,10 @@ def main() -> int:
         sr, si, FORWARD, stage_fused.pipeline_factors(n2)), oracle(sr, si, FORWARD, 1.0),
         GATE_ORACLE_DB["stage"])
     print(f"huge-n path launches: {huge_launches}")
+    stages = len(stage_fused.pipeline_factors(n)) + len(stage_fused.pipeline_factors(n2)) - 2
+    require(huge_launches["fused_stage"] == stages and huge_launches["stage_leaf"] == 2,
+            f"the two pipelines launched {huge_launches['fused_stage']} stages and "
+            f"{huge_launches['stage_leaf']} leaves, want {stages} and 2")
     del pr, pi, qr, qi, sr, si, tr, ti
 
     # phase 5: timing with CUDA events (time_ms)
@@ -1290,23 +1328,28 @@ def main() -> int:
     B, n = PIPELINE_SHAPE
     factors = stage_fused.pipeline_factors(n)
     pr, pi = planes(B, n)
-    r1, r2 = factors[0], factors[1]
+    r1, r2, leaf = factors
     s1r, s1i = (t.reshape(B * r1, n // r1) for t in stage_fused.fused_stage(pr, pi, r1))
+    s2r, s2i = (t.reshape(B, n) for t in stage_fused.swap_stage(s1r, s1i, r2, r1))
     ms["stage_pipeline"] = time_ms(
         lambda: stage_fused.fft_split_pipeline(pr, pi, FORWARD, factors))
     ms["stage_pipeline_plain"] = time_ms(
         lambda: stage_fused.fft_split_pipeline_plain(pr, pi, FORWARD, factors))
     ms["fused_stage"] = time_ms(lambda: stage_fused.fused_stage(pr, pi, r1))
     ms["fused_stage_plain"] = time_ms(lambda: stage_fused.fused_stage_plain(pr, pi, r1))
-    ms["fused_stage_2"] = time_ms(lambda: stage_fused.fused_stage(s1r, s1i, r2))
+    ms["fused_stage_2"] = time_ms(lambda: stage_fused.swap_stage(s1r, s1i, r2, r1))
     ms["fused_stage_2_plain"] = time_ms(
-        lambda: stage_fused.fused_stage_plain(s1r, s1i, r2))
+        lambda: stage_fused.swap_stage_plain(s1r, s1i, r2, r1))
+    ms["stage_leaf"] = time_ms(lambda: stage_fused.stage_leaf(s2r, s2i, leaf))
+    ms["stage_leaf_plain"] = time_ms(lambda: stage_fused.stage_leaf_plain(s2r, s2i, leaf))
     shapes.update(dict.fromkeys(("stage_pipeline", "stage_pipeline_plain", "fused_stage",
-                                 "fused_stage_plain", "fused_stage_2", "fused_stage_2_plain"),
+                                 "fused_stage_plain", "fused_stage_2", "fused_stage_2_plain",
+                                 "stage_leaf", "stage_leaf_plain"),
                                 PIPELINE_SHAPE))
     print(f"16 x 2^20 pipeline {factors}: {ms['stage_pipeline']:.4f} ms, stages "
-          f"{ms['fused_stage']:.4f} + {ms['fused_stage_2']:.4f} ms [{card}]")
-    del pr, pi, s1r, s1i
+          f"{ms['fused_stage']:.4f} + {ms['fused_stage_2']:.4f} ms, leaf "
+          f"{ms['stage_leaf']:.4f} ms, cuFFT {ms['cufft_1m']:.4f} ms [{card}]")
+    del pr, pi, s1r, s1i, s2r, s2i
     for name, t in ms.items():
         shape = shapes.get(name, MAIN_SHAPE)
         gsps = shape[0] * shape[1] / (t * 1e6)
@@ -1337,7 +1380,8 @@ def main() -> int:
     st_frames, st_bins = (STFT_N - fft_size) // hop + 1, fft_size // 2 + 1
     Nh = math.prod(HUGE_MAIN_SHAPE)
     F1, F2, F3 = threestep_vmem._split_three(HUGE_MAIN_SHAPE[1])
-    Np, r1 = math.prod(PIPELINE_SHAPE), stage_fused.pipeline_factors(PIPELINE_SHAPE[1])[0]
+    Np = math.prod(PIPELINE_SHAPE)
+    r1, _, leaf_p = stage_fused.pipeline_factors(PIPELINE_SHAPE[1])
     ts = "fftlab/kernels/threestep_vmem.py:"
     # name, source, replaces, also_replaces, launches, timed, library, bytes, flops
     table = [
@@ -1384,8 +1428,13 @@ def main() -> int:
          "threestep_pass_b", None, 16 * Nh, 5 * Nh * lg(F2) + 6 * Nh),
         ("threestep_pass_c", "fourstep.cu", ts + "256", ts + "440", huge_launches,
          "threestep_pass_c", None, 16 * Nh, 5 * Nh * lg(F3)),
-        ("fused_stage", "stage_fused.cu", "fftlab/kernels/stage_fused.py:96", None,
+        ("fused_stage", "fourstep.cu", "fftlab/kernels/stage_fused.py:96", None,
          huge_launches, "fused_stage", None, 16 * Np, 5 * Np * lg(r1) + 6 * Np),
+        # the leaf contraction and digit reversal, which the JAX package
+        # runs outside any Pallas kernel, on pass 2's leaf mode
+        ("stage_leaf", "fourstep.cu", "fftlab/kernels/stage_fused.py:167",
+         "fftlab/kernels/stage_fused.py:176", huge_launches, "stage_leaf", None, 16 * Np,
+         5 * Np * lg(leaf_p)),
     ]
     src = "fftlab_torch/csrc/"
     kernels = []

@@ -1,9 +1,9 @@
 // Shared device code: the register-resident FFT engine of `fft_rows`, of
-// the two-pass pair (fourstep.cu), of `stft_frames` (real.cu) and of the
-// filter sandwiches `filter_rows` and `os_filter` (filter.cu). A
-// length-L FFT (L = 2^log_l, 64 <= L <= 16384) down each of the T =
-// 2^log_t transforms of a tile, Stockham autosort, natural order in and
-// out.
+// the two-pass pair and the stages of the stage pipeline (fourstep.cu),
+// of `stft_frames` (real.cu) and of the filter sandwiches `filter_rows`
+// and `os_filter` (filter.cu). A length-L FFT (L = 2^log_l, 2 <= L <=
+// 16384) down each of the T = 2^log_t transforms of a tile, Stockham
+// autosort, natural order in and out.
 //
 // Each thread holds kP = 16 complex values in registers for a whole pass.
 // The length is a template parameter (the kernels are instantiated for
@@ -14,8 +14,10 @@
 // The passes are radix 16 (four radix-2 levels with no shared memory in
 // between), and the leftover bits of L make one last pass of radix 8, 4
 // or 2: 16384 = 16*16*16*4 takes 4 passes and 3 exchanges, 1024 =
-// 16*16*4 and 2048 = 16*16*8 take 2, 256 = 16*16, 128 = 16*8 and 64 =
-// 16*4 take 1.
+// 16*16*4 and 2048 = 16*16*8 take 2, 256 = 16*16, 128 = 16*8, 64 = 16*4
+// and 32 = 16*2 take 1. A length of at most 16 is one pass with no
+// exchange and no shared memory (`run_short`): a thread holds 16/L whole
+// transforms and runs their L-point DFTs in registers.
 // The first pass reads its inputs straight from device memory (through
 // the caller's `load`), the last pass writes its outputs straight back
 // (through `store`), so the tile crosses shared memory only between
@@ -33,11 +35,13 @@
 // pick j, the rest the high bits of t. The caller picks g per pass so
 // that its device-memory accesses coalesce: g = 3 where a run of
 // transforms is contiguous in device memory (pass 1's columns, pass 2's
-// corner-turned store), g = 0 where a transform is (a row).
+// corner-turned store), 4 where it is a row of 16 (the stage pipeline's
+// stages), g = 0 where a transform is (a row).
 //
 // Exchange layout: split float planes, re then im. A tile (T > 1) puts
 // element e of transform t at t*stride + e + (e >> 4): one pad float
-// every 16 and a row stride of L + L/16 + 4. A single row has no pad: it
+// every 16 and a row stride of L + L/16 + 4 (+ 2 in the stages of length
+// 64 and 128, whose slot mapping is 4). A single row has no pad: it
 // puts element e at e ^ ((e >> 4) & 31), bits 0..4 of e XORed with bits
 // 4..8. A tile whose every pass puts neighbouring threads on neighbouring
 // elements of one transform (slot mapping g = 0 throughout: the filter
@@ -64,12 +68,33 @@
 
 #include <type_traits>
 
-#include "fft_smem.cuh"  // cmul, cadd, csub, rot, kPerThread, kMaxThreads
-
 namespace fftlab {
 
-constexpr int kP = kPerThread;    // complex values per thread
+constexpr int kP = 16;            // complex values per thread
+constexpr int kMaxThreads = 1024;
 constexpr int kMaxSmem = 232448;  // a block's shared memory on the H100
+
+__device__ __forceinline__ float2* smem_tile() {
+  extern __shared__ __align__(16) float2 fftlab_smem[];
+  return fftlab_smem;
+}
+
+__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
+  return make_float2(fmaf(a.x, b.x, -a.y * b.y), fmaf(a.x, b.y, a.y * b.x));
+}
+
+__device__ __forceinline__ float2 cadd(float2 a, float2 b) {
+  return make_float2(a.x + b.x, a.y + b.y);
+}
+
+__device__ __forceinline__ float2 csub(float2 a, float2 b) {
+  return make_float2(a.x - b.x, a.y - b.y);
+}
+
+// a * (sign * i): the radix-4 rotation, sign = direction.
+__device__ __forceinline__ float2 rot(float2 a, float sign) {
+  return make_float2(-sign * a.y, sign * a.x);
+}
 
 // The launch geometry, chosen by the Python wrapper and checked by the
 // launcher (`valid_geometry`): threads = T*L/16, the shared bytes of the
@@ -89,14 +114,19 @@ constexpr int kFrameRows = -1;
 
 // The geometry of a kernel whose layout is log_pad (one pad float every
 // 2^log_pad; 0: the single row's swizzle, no pad; kFrameRows: stacked
-// swizzled rows), for T = 2^log_t transforms of length 2^log_l.
-inline bool valid_geometry(const Geometry& g, int log_l, int log_t, int log_pad) {
-  if (log_l < 7 || log_l > 14 || log_t < 0 || log_t > 4 || g.log_pad != log_pad) return false;
+// swizzled rows), for T = 2^log_t transforms of length 2^log_l, T at
+// most 2^max_log_t. The launchers' `dispatch` ranges bound the length.
+inline bool valid_geometry(const Geometry& g, int log_l, int log_t, int log_pad,
+                           int max_log_t = 4) {
+  if (log_l < 1 || log_l > 14 || log_t < 0 || log_t > max_log_t || g.log_pad != log_pad) {
+    return false;
+  }
   const long long L = 1LL << log_l;
   const long long T = 1LL << log_t;
   // the schedule: radix-16 passes, then one of radix 2^(log_l mod 4)
   if (g.log_last != (log_l & 3)) return false;
   if (g.threads != T * L / kP || g.threads > kMaxThreads || g.threads % 32 != 0) return false;
+  if (log_l <= 4) return g.smem == 0;  // one pass in registers: no exchange
   if (g.stride < (log_pad <= 0 ? L : L + ((L - 1) >> log_pad) + 1)) return false;
   if (log_pad == kFrameRows && g.stride % 32 != 0) return false;
   return g.smem >= 8 * T * g.stride && g.smem <= kMaxSmem;
@@ -280,8 +310,8 @@ template <int kLogL, int kLogPad>
 struct Engine {
   static constexpr int kLogLast = kLogL & 3;  // the last pass's radix: 2^kLogLast, or 16
   static constexpr int kLastR = kLogLast == 0 ? 16 : 1 << kLogLast;
-  // radix-16 passes between the first and the last (kLogL >= 6: at
-  // least two passes in all)
+  // radix-16 passes between the first and the last (kLogL >= 5: at
+  // least two passes in all; shorter lengths take `run_short`)
   static constexpr int kMid = (kLogL >> 2) - (kLogLast == 0 ? 2 : 1);
 
   const Tile x;
@@ -384,6 +414,32 @@ struct Engine {
 #pragma unroll
         for (int r = 0; r < R; ++r) out(t, j + (r << kLogJ), a[r]);
       }
+    }
+  }
+
+  // A length of at most 16: one pass, no exchange, no twiddle table. The
+  // block's kThreads threads (its blockDim.x, a constant here) hold its
+  // 16/L*kThreads transforms, thread s the transforms s + i*kThreads (i <
+  // 16/L), so 32 neighbouring threads hold 32 neighbouring transforms at
+  // every load and store, and the compiler sees what a thread's transforms
+  // share (their offset mod 16, so one load of the stage's twiddle
+  // factors serves them all). All 16 loads are issued before the first
+  // DFT; the outputs go to `store(t, e, value)` unscaled.
+  template <int kThreads, class Load, class Store>
+  __device__ __forceinline__ void run_short(Load load, Store store) const {
+    static_assert(kLogL <= 4, "run_short takes lengths of at most 16");
+    constexpr int L = 1 << kLogL;
+    float2 v[kP];
+#pragma unroll
+    for (int i = 0; i < kP / L; ++i) {
+#pragma unroll
+      for (int e = 0; e < L; ++e) v[i * L + e] = load(threadIdx.x + i * kThreads, e);
+    }
+#pragma unroll
+    for (int i = 0; i < kP / L; ++i) {
+      dft<L>(v, i * L, sign);
+#pragma unroll
+      for (int e = 0; e < L; ++e) store(threadIdx.x + i * kThreads, e, v[i * L + e]);
     }
   }
 

@@ -1,9 +1,10 @@
 // fourstep_pass1 / fourstep_pass2 / fourstep_pass2_filter /
-// fourstep_pass1_packed / fourstep_pass2_interleaved / fourstep_pass1_swap:
-// the two-pass four-step FFT for power-of-two n = L1*L2 in 2^15..2^21
-// (L1 <= L2, L1 <= 1024), the FFT -> H -> IFFT sandwich on it, its
-// real-signal load and store modes, and the three passes of the huge-n
-// FFT (2^21..2^26).
+// fourstep_pass1_packed / fourstep_pass2_interleaved / fourstep_pass1_swap
+// / fused_stage / stage_leaf: the two-pass four-step FFT for power-of-two
+// n = L1*L2 in 2^15..2^21 (L1 <= L2, L1 <= 1024), the FFT -> H -> IFFT
+// sandwich on it, its real-signal load and store modes, the three passes
+// of the huge-n FFT (2^21..2^26), and the stages and leaf of the stage
+// pipeline.
 //
 // Replaces two TPU kernels that compute one transform:
 //   fftlab/kernels/resident_vmem.py `_fft_resident_v6_impl` (one VMEM
@@ -61,6 +62,33 @@
 //   pass C  pass 2 at "L1" = F1*F2, L2 = F3: rows k2*F1 + k1 of length F3,
 //           stored at k3*F1F2 + k2*F1 + k1 = k1 + F1*k2 + F1F2*k3, the
 //           natural order; the output scale rides its last pass.
+// The stage pipeline, n = r_1*...*r_K (kernels/stage_fused.py), replaces
+// fftlab/kernels/stage_fused.py `fused_stage` (pallas_call at :96,
+// `_stage_kernel`) and the leaf contraction and digit reversal that the
+// JAX package's `fft_split_pipeline` runs outside any Pallas kernel. It
+// is the same launch sequence as the three passes, in general:
+//   stage i  pass 1 at (L1, L2) = (r_i, M_i) in kStage mode, the column
+//            FFT over the leading digit and W^{k*m} in rank-1 form; from
+//            the second stage on with pass B's swap store, F1 = r_1*...*
+//            r_{i-1}, so the rows reach the leaf in the order
+//            (k_{K-1}, ..., k_1);
+//   leaf     pass 2 at ("L1", L2) = (n/leaf, leaf) in kLeaf mode: its
+//            store at k_K*(n/leaf) + row is the natural order, so the
+//            digit reversal costs no pass, and the scale rides its last
+//            pass.
+// K launches, one read and one write of the signal each; at 2^21 the
+// factors (128, 128, 128) are `_split_three`'s. A stage's block takes
+// 4096 values (256 threads): G = 256/r rows of 16 columns, so the short
+// stages of the pipelines from 2^15 to 2^20 ((128, 2..64, 128)) fill a
+// block, where one tile of 16 columns at r = 2 would be 2 threads. Lengths
+// 32 and 64 take the engine's two passes (one exchange), 2..16 one pass
+// in registers (`Engine::run_short`, 16/r columns a thread). The leaf's
+// block takes R = 4096/leaf rows (at least 8) of any batch rows, so a leaf
+// of 2 or 4 rows (n = 256, 512) still fills a block. Bound on this card:
+// device memory, as for every pass here (16 bytes a point a launch).
+// Tensor cores would not help: a radix-r stage does about 5 log2 r flops
+// a point, and the TPU kernel's contraction with F_r would do 8r.
+//
 // Every tile is at most 512*16 = 8192 values (F1, F2 <= 512 at W <= 16;
 // F3 <= 512 at R <= 16); all offsets are size_t, so B * 2^26 points index
 // safely, and the grid is checked against INT_MAX at launch. Pass A's
@@ -115,15 +143,84 @@ __device__ __forceinline__ int run_bits(int log_t) { return log_t < 3 ? log_t : 
 // bb = o*F1 + k1a and stores output row k1 of it at row (o, k1, k1a) of a
 // (batch/F1, L1, F1) row grid: the three-pass kernel's pass B, whose
 // (k1, k2) swap rides the store (runs of W floats, as the plain store).
-enum Pass1Mode { kPlainLoad, kPackedReal, kSwapStore };
+// kStage is one stage of the stage pipeline (`stage_tile`).
+enum Pass1Mode { kPlainLoad, kPackedReal, kSwapStore, kStage };
 
+// The threads of a stage's block (kStage) and of a leaf's block at its
+// shortest length (kLeaf): a tile of 4096 values.
+constexpr int kStageThreads = 256;
+
+// The most threads a block of pass 1 in `kMode` takes.
 template <int kMode, int kLogL1>
-__global__ void __launch_bounds__(tile_threads<kLogL1>(), blocks_per_sm<tile_threads<kLogL1>()>())
-fourstep_pass1_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
-                      float* __restrict__ mr, float* __restrict__ mi,
-                      const float2* __restrict__ tw1, const float2* __restrict__ a_tab,
-                      const float2* __restrict__ p_tab, int log_l2, int log_w, int log_f1,
-                      Geometry geo, float sign) {
+constexpr int pass1_threads() {
+  return kMode == kStage ? kStageThreads : tile_threads<kLogL1>();
+}
+
+// Pass 1 as one radix-L1 stage of the stage pipeline, L1 = 2..128, over
+// `rows` batch rows of L1*L2 (kernels/stage_fused.py): a block takes the
+// same 16 columns j2 (one entry of the rank-1 factor A per k1) of G =
+// 2^log_g consecutive rows, T = 16*G = 4096/L1 transforms, transform t in
+// row b0 + t/16 and column j2_0 + t%16; rows past the batch load zeros
+// and store nothing. Slot mapping 4 puts 16 neighbouring threads on a
+// row's 16 columns, one 64-byte run per plane, in the first pass's loads
+// and the last pass's stores. Output row k1 of row b = o*F1 + k1a goes to
+// row (o, k1, k1a), F1 = 2^log_f1: F1 = 1 is the plain pass-1 store (the
+// first stage), F1 = r_1*...*r_{i-1} the swap store of stage i, so the
+// rows reach the leaf in the order (k_{K-1}, ..., k_1). Lengths of at
+// most 16 run as `Engine::run_short` (no exchange, no shared memory).
+template <int kLogL1>
+__device__ __forceinline__ void stage_tile(const float* __restrict__ xr,
+                                           const float* __restrict__ xi, float* __restrict__ mr,
+                                           float* __restrict__ mi, const float2* __restrict__ tw1,
+                                           const float2* __restrict__ a_tab,
+                                           const float2* __restrict__ p_tab, int log_l2,
+                                           int log_f1, const Geometry& geo, float sign,
+                                           long long rows, int log_g) {
+  constexpr int log_l1 = kLogL1;
+  constexpr int log_w = kLogTableWidth;
+  const int log_c = log_l2 - log_w;
+  const long long b0 = static_cast<long long>(blockIdx.x >> log_c) << log_g;
+  const int c = blockIdx.x & ((1 << log_c) - 1);
+  const int j2_0 = c << log_w;
+  const float2* __restrict__ a_c = a_tab + (static_cast<size_t>(c) << log_l1);
+  const size_t f1_mask = (size_t{1} << log_f1) - 1;
+  const Engine<kLogL1, kLogPadTiles> engine{make_tile(log_g + log_w, geo), log_w, log_w, sign};
+  const auto load = [&](int t, int j1) {
+    const long long b = b0 + (t >> log_w);
+    if (b >= rows) return make_float2(0.0f, 0.0f);
+    const size_t at = (static_cast<size_t>(b) << (log_l1 + log_l2)) +
+                      (static_cast<size_t>(j1) << log_l2) + j2_0 + (t & 15);
+    return make_float2(__ldg(xr + at), __ldg(xi + at));
+  };
+  const auto store = [&](int t, int k1, float2 y) {
+    const long long b = b0 + (t >> log_w);
+    if (b >= rows) return;
+    const int l = t & 15;
+    y = cmul(y, cmul(__ldg(a_c + k1), __ldg(p_tab + (k1 << log_w) + l)));
+    const size_t row = ((static_cast<size_t>(b) & ~f1_mask) << log_l1) +
+                       (static_cast<size_t>(k1) << log_f1) + (static_cast<size_t>(b) & f1_mask);
+    const size_t at = (row << log_l2) + j2_0 + l;
+    mr[at] = y.x;
+    mi[at] = y.y;
+  };
+  if constexpr (kLogL1 <= 4) {
+    engine.template run_short<kStageThreads>(load, store);
+  } else {
+    engine.run(tw1, 1.0f, load, store);
+  }
+}
+
+// Pass 1 in the other modes: a block takes W = 2^log_w consecutive
+// columns of one batch row.
+template <int kMode, int kLogL1>
+__device__ __forceinline__ void column_tile(const float* __restrict__ xr,
+                                            const float* __restrict__ xi, float* __restrict__ mr,
+                                            float* __restrict__ mi,
+                                            const float2* __restrict__ tw1,
+                                            const float2* __restrict__ a_tab,
+                                            const float2* __restrict__ p_tab, int log_l2,
+                                            int log_w, int log_f1, const Geometry& geo,
+                                            float sign) {
   constexpr int log_l1 = kLogL1;
   const int log_c = log_l2 - log_w;
   const size_t b = blockIdx.x >> log_c;
@@ -161,20 +258,84 @@ fourstep_pass1_kernel(const float* __restrict__ xr, const float* __restrict__ xi
       });
 }
 
+template <int kMode, int kLogL1>
+__global__ void __launch_bounds__(pass1_threads<kMode, kLogL1>(),
+                                  blocks_per_sm<pass1_threads<kMode, kLogL1>()>())
+fourstep_pass1_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
+                      float* __restrict__ mr, float* __restrict__ mi,
+                      const float2* __restrict__ tw1, const float2* __restrict__ a_tab,
+                      const float2* __restrict__ p_tab, int log_l2, int log_w, int log_f1,
+                      Geometry geo, float sign, long long rows, int log_g) {
+  if constexpr (kMode == kStage) {
+    stage_tile<kLogL1>(xr, xi, mr, mi, tw1, a_tab, p_tab, log_l2, log_f1, geo, sign, rows, log_g);
+  } else {
+    column_tile<kMode, kLogL1>(xr, xi, mr, mi, tw1, a_tab, p_tab, log_l2, log_w, log_f1, geo,
+                               sign);
+  }
+}
+
 // What pass 2 does at its store: kPlainStore writes the two planes;
 // kFilter multiplies each output bin k by hr[k] + i*hi[k] first;
 // kInterleaved writes bin k as the float2 (yr[2k], yr[2k+1]) of a real
 // row (yi unused). Template parameters, not a runtime branch: a runtime
-// null check of H cost the plain pass 2 six registers.
-enum Pass2Mode { kPlainStore, kFilter, kInterleaved };
+// null check of H cost the plain pass 2 six registers. kLeaf is the
+// stage pipeline's leaf (`leaf_tile`).
+enum Pass2Mode { kPlainStore, kFilter, kInterleaved, kLeaf };
 
+// The most threads a block of pass 2 in `kMode` takes.
 template <int kMode, int kLogL2>
-__global__ void __launch_bounds__(tile_threads<kLogL2>(), blocks_per_sm<tile_threads<kLogL2>()>())
-fourstep_pass2_kernel(const float* __restrict__ mr, const float* __restrict__ mi,
-                      float* __restrict__ yr, float* __restrict__ yi,
-                      const float2* __restrict__ tw2, const float* __restrict__ hr,
-                      const float* __restrict__ hi, int log_l1, int log_r, Geometry geo,
-                      float sign, float scale) {
+constexpr int pass2_threads() {
+  return kMode == kLeaf && tile_threads<kLogL2>() < kStageThreads ? kStageThreads
+                                                                   : tile_threads<kLogL2>();
+}
+
+// Pass 2 as the leaf of the stage pipeline: the length-L2 FFT of each of
+// the `rows` = batch*L1 rows q = b*L1 + k1 (the rows of the last stage,
+// in the order (k_{K-1}, ..., k_1) within a batch row b), element k2
+// stored at k2*L1 + k1 of batch row b: the natural order, the digit
+// reversal done by the store. A block takes R = 2^log_r consecutive rows
+// of any batch rows, so a leaf whose L1 is below R (n/leaf = 2, 4, 8 at
+// n = 256, 512, 1024) fills its block from several batch rows; rows past
+// the end load zeros and store nothing. The output scale rides the last
+// pass, as in the plain pass 2.
+template <int kLogL2>
+__device__ __forceinline__ void leaf_tile(const float* __restrict__ mr,
+                                          const float* __restrict__ mi, float* __restrict__ yr,
+                                          float* __restrict__ yi, const float2* __restrict__ tw2,
+                                          int log_l1, int log_r, const Geometry& geo, float sign,
+                                          float scale, long long rows) {
+  constexpr int log_l2 = kLogL2;
+  const long long q0 = static_cast<long long>(blockIdx.x) << log_r;
+  const size_t k1_mask = (size_t{1} << log_l1) - 1;
+  const Engine<kLogL2, kLogPadTiles> engine{make_tile(log_r, geo), 0, run_bits(log_r), sign};
+  engine.run(
+      tw2, scale,
+      // a warp reads 32 consecutive floats of one row
+      [&](int r, int j2) {
+        const long long q = q0 + r;
+        if (q >= rows) return make_float2(0.0f, 0.0f);
+        const size_t at = (static_cast<size_t>(q) << log_l2) + j2;
+        return make_float2(__ldg(mr + at), __ldg(mi + at));
+      },
+      [&](int r, int k2, float2 v) {
+        const long long q = q0 + r;
+        if (q >= rows) return;
+        const size_t at = ((static_cast<size_t>(q) & ~k1_mask) << log_l2) +
+                          (static_cast<size_t>(k2) << log_l1) + (static_cast<size_t>(q) & k1_mask);
+        yr[at] = v.x;
+        yi[at] = v.y;
+      });
+}
+
+// Pass 2 in the other modes: a block takes R = 2^log_r consecutive rows k1
+// of one batch row.
+template <int kMode, int kLogL2>
+__device__ __forceinline__ void row_tile(const float* __restrict__ mr,
+                                         const float* __restrict__ mi, float* __restrict__ yr,
+                                         float* __restrict__ yi, const float2* __restrict__ tw2,
+                                         const float* __restrict__ hr,
+                                         const float* __restrict__ hi, int log_l1, int log_r,
+                                         const Geometry& geo, float sign, float scale) {
   constexpr int log_l2 = kLogL2;
   const int log_g = log_l1 - log_r;
   const int k1_0 = (blockIdx.x & ((1 << log_g) - 1)) << log_r;
@@ -203,6 +364,21 @@ fourstep_pass2_kernel(const float* __restrict__ mr, const float* __restrict__ mi
           yi[out0 + k] = v.y;
         }
       });
+}
+
+template <int kMode, int kLogL2>
+__global__ void __launch_bounds__(pass2_threads<kMode, kLogL2>(),
+                                  blocks_per_sm<pass2_threads<kMode, kLogL2>()>())
+fourstep_pass2_kernel(const float* __restrict__ mr, const float* __restrict__ mi,
+                      float* __restrict__ yr, float* __restrict__ yi,
+                      const float2* __restrict__ tw2, const float* __restrict__ hr,
+                      const float* __restrict__ hi, int log_l1, int log_r, Geometry geo,
+                      float sign, float scale, long long rows) {
+  if constexpr (kMode == kLeaf) {
+    leaf_tile<kLogL2>(mr, mi, yr, yi, tw2, log_l1, log_r, geo, sign, scale, rows);
+  } else {
+    row_tile<kMode, kLogL2>(mr, mi, yr, yi, tw2, hr, hi, log_l1, log_r, geo, sign, scale);
+  }
 }
 
 namespace {
@@ -237,7 +413,7 @@ int launch_pass1(const float* xr, const float* xi, float* mr, float* mi, const v
     return launch(fourstep_pass1_kernel<kMode, decltype(log_l1_c)::value>, blocks, geo, stream,
                   xr, xi, mr, mi, static_cast<const float2*>(tw1),
                   static_cast<const float2*>(a_tab), static_cast<const float2*>(p_tab), log_l2,
-                  log_w, log_f1, geo, static_cast<float>(direction));
+                  log_w, log_f1, geo, static_cast<float>(direction), batch, 0);
   });
 }
 
@@ -297,7 +473,7 @@ int launch_pass2(const float* mr, const float* mi, float* yr, float* yi, const v
   return dispatch<7, 11>(log_l2, [&](auto log_l2_c) {
     return launch(fourstep_pass2_kernel<kMode, decltype(log_l2_c)::value>, blocks, geo, stream,
                   mr, mi, yr, yi, static_cast<const float2*>(tw2), hr, hi, log_l1, log_r, geo,
-                  static_cast<float>(direction), scale);
+                  static_cast<float>(direction), scale, batch << log_l1);
   });
 }
 
@@ -337,6 +513,63 @@ extern "C" int fftlab_fourstep_pass2_interleaved(const float* mr, const float* m
                                                  int direction, float scale, void* stream) {
   return launch_pass2<kInterleaved>(mr, mi, y, nullptr, tw2, nullptr, nullptr, batch, log_l1,
                                     log_l2, log_r, geo, direction, scale, stream);
+}
+
+// One stage of the stage pipeline: pass 1 in kStage mode (`stage_tile`).
+// x: [rows, L1*L2] float32 planes, L1 = 2^log_l1 in 2..128, L2 =
+// 2^log_l2 >= 16; y: the same shape, output row k1 of input row
+// o*F1 + k1a stored at row (o, k1, k1a), F1 = 2^log_f1 dividing rows
+// (F1 = 1: the plain pass-1 store); tw1, a_tab, p_tab: as
+// fftlab_fourstep_pass1 (A and P of ones: no twiddle); G = 2^log_g rows
+// of 16 columns per block; geo: the launch geometry of
+// kernels/fourstep_vmem.py `stage_geometry`. Returns a cudaError_t.
+extern "C" int fftlab_fused_stage(const float* xr, const float* xi, float* yr, float* yi,
+                                  const void* tw1, const void* a_tab, const void* p_tab,
+                                  long long rows, int log_f1, int log_l1, int log_l2, int log_g,
+                                  Geometry geo, int direction, void* stream) {
+  if (rows < 1 || rows > INT_MAX || log_f1 < 0 || log_f1 > 30 ||
+      (rows & ((1LL << log_f1) - 1)) != 0 || log_g < 0 || log_l2 < kLogTableWidth ||
+      log_l2 > 26 || geo.threads != kStageThreads ||
+      !valid_geometry(geo, log_l1, log_g + kLogTableWidth, kLogPadTiles, 11) ||
+      (direction != 1 && direction != -1)) {
+    return cudaErrorInvalidValue;
+  }
+  const long long blocks = ((rows + (1LL << log_g) - 1) >> log_g) << (log_l2 - kLogTableWidth);
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  return dispatch<1, 7>(log_l1, [&](auto log_l1_c) {
+    return launch(fourstep_pass1_kernel<kStage, decltype(log_l1_c)::value>, blocks, geo, stream,
+                  xr, xi, yr, yi, static_cast<const float2*>(tw1),
+                  static_cast<const float2*>(a_tab), static_cast<const float2*>(p_tab), log_l2,
+                  kLogTableWidth, log_f1, geo, static_cast<float>(direction), rows, log_g);
+  });
+}
+
+// The leaf of the stage pipeline: pass 2 in kLeaf mode (`leaf_tile`).
+// m: [batch, L1*L2] float32 planes, the batch*L1 rows of length L2 =
+// 2^log_l2 in 128..2048 that the last stage left; y: the natural-order
+// spectrum [batch, L1*L2], times `scale`; tw2: the engine's twiddle table
+// for L2; R = 2^log_r rows per block; geo: the launch geometry of
+// kernels/fourstep_vmem.py `leaf_geometry`. Returns a cudaError_t.
+extern "C" int fftlab_stage_leaf(const float* mr, const float* mi, float* yr, float* yi,
+                                 const void* tw2, long long batch, int log_l1, int log_l2,
+                                 int log_r, Geometry geo, int direction, float scale,
+                                 void* stream) {
+  if (batch < 1 || batch > INT_MAX || log_l1 < 0 || log_l1 + log_l2 > 30 ||
+      !valid_geometry(geo, log_l2, log_r, kLogPadTiles, 5) ||
+      (direction != 1 && direction != -1)) {
+    return cudaErrorInvalidValue;
+  }
+  const long long rows = batch << log_l1;
+  const long long blocks = (rows + (1LL << log_r) - 1) >> log_r;
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  return dispatch<7, 11>(log_l2, [&](auto log_l2_c) {
+    constexpr int kLogL2 = decltype(log_l2_c)::value;
+    if (geo.threads > pass2_threads<kLeaf, kLogL2>()) return cudaErrorInvalidValue;
+    return launch(fourstep_pass2_kernel<kLeaf, kLogL2>, blocks, geo, stream, mr, mi, yr, yi,
+                  static_cast<const float2*>(tw2), static_cast<const float*>(nullptr),
+                  static_cast<const float*>(nullptr), log_l1, log_r, geo,
+                  static_cast<float>(direction), scale, rows);
+  });
 }
 
 // Message for a cudaError_t returned by the functions above.

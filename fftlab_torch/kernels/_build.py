@@ -100,9 +100,12 @@ SIGNATURES = {
     # geometry, direction, stream
     "fftlab_fourstep_pass1_swap": (_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _G,
                                    _I, _P),
-    # xr, xi, yr, yi, tw, a_tab, p_tab, rows, log_r, log_m, log_t, log_g,
-    # direction, twiddle, stream
-    "fftlab_fused_stage": (_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _P),
+    # xr, xi, yr, yi, tw1, a_tab, p_tab, rows, log_f1, log_l1, log_l2, log_g,
+    # geometry, direction, stream
+    "fftlab_fused_stage": (_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _G, _I, _P),
+    # mr, mi, yr, yi, tw2, batch, log_l1, log_l2, log_r, geometry, direction,
+    # scale, stream
+    "fftlab_stage_leaf": (_P, _P, _P, _P, _P, _LL, _I, _I, _I, _G, _I, _F, _P),
 }
 
 
@@ -189,17 +192,14 @@ def ptxas_report() -> list[dict]:
     """Registers and spills of every kernel of the built library, from
     ptxas's report: [{"kernel", "registers", "spill_stores",
     "spill_loads"}], the kernel's name shortened from its mangled form
-    with its integer and bool template arguments
-    (`fourstep_pass1_kernel<0, 10>`, `fused_stage_kernel<true>`)."""
+    with its integer template arguments (`fourstep_pass1_kernel<0, 10>`)."""
     log = BUILD_ROOT / source_digest() / PTXAS_LOG
     rows, cur = [], None
     for line in log.read_text().splitlines():
         if m := re.search(r"Compiling entry function '_Z(\d+)(\w+)'", line):
             name, rest = m.group(2)[: int(m.group(1))], m.group(2)[int(m.group(1)):]
-            if t := re.match(r"I((?:L[ib]\d+E)+)E", rest):
-                args = re.findall(r"L([ib])(\d+)E", t.group(1))
-                name += "<" + ", ".join(
-                    v if k == "i" else ("true" if v == "1" else "false") for k, v in args) + ">"
+            if t := re.match(r"I((?:Li\d+E)+)E", rest):
+                name += "<" + ", ".join(re.findall(r"Li(\d+)E", t.group(1))) + ">"
             cur = {"kernel": name}
             rows.append(cur)
         elif cur is not None and (m := re.search(

@@ -101,13 +101,6 @@ def complex_table(a: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(pair)).to(device)
 
 
-def twiddle_np(L: int, direction) -> np.ndarray:
-    """tw[m] = exp(2*pi*i*direction*m/L), m < L, in float64: the table the
-    shared-memory Stockham stages read (csrc/fft_smem.cuh)."""
-    m = np.arange(L, dtype=np.float64)
-    return np.exp(2j * np.pi * float(int(direction)) * m / L)
-
-
 def radix_schedule(L: int) -> tuple[int, ...]:
     """The passes of the register engine (csrc/fft_reg.cuh) for pow2 L:
     radix 16 while four bits are left, then one pass of the leftover radix
@@ -121,7 +114,8 @@ def pass_twiddle_np(L: int, direction) -> np.ndarray:
     each pass after the first (radix R, sub-transform length ns > 1), the
     values W_{ns*R}^{r*k} for r < R, k < ns as R/2 rows of ns pairs
     (W^{2h*k}, W^{(2h+1)*k}): entry [(h*ns + k)*2 + e] holds r = 2h + e;
-    the passes one after another (csrc/fft_reg.cuh `twiddle`)."""
+    the passes one after another (csrc/fft_reg.cuh `twiddle`). A length
+    of at most 16 is one pass and has an empty table."""
     rows = []
     ns = 1
     for R in radix_schedule(L):
@@ -130,7 +124,7 @@ def pass_twiddle_np(L: int, direction) -> np.ndarray:
             w = np.exp(2j * np.pi * float(int(direction)) * rk / (ns * R))  # (ns, R)
             rows.append(w.reshape(ns, R // 2, 2).transpose(1, 0, 2).ravel())
         ns *= R
-    return np.concatenate(rows)
+    return np.concatenate(rows) if rows else np.zeros(0, np.complex128)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -33,6 +33,10 @@ these passes, or on the three-pass kernel above 2^21
 The launch helpers take the sides (L1, L2) explicitly for the three-pass
 kernel (kernels/threestep_vmem.py), which runs these passes at its own
 sides and adds the swap-store mode of pass 1 (`fftlab_fourstep_pass1_swap`).
+The stage pipeline (kernels/stage_fused.py) runs pass 1 in its stage mode
+(`fftlab_fused_stage`, lengths 2..128, several batch rows a block) and
+pass 2 in its leaf mode (`fftlab_stage_leaf`) at the launches of
+`stage_geometry` and `leaf_geometry`.
 
 `spectral_filter_large` is the FFT -> H -> IFFT sandwich on the same
 passes (fftlab/kernels/fourstep_vmem.py:667-749): pass 1, pass 2 with H
@@ -66,6 +70,7 @@ from fftlab_torch.kernels._common import (
     effective_scale,
     on_cpu,
     pass_twiddle_np,
+    radix_schedule,
     response_planes,
     rows_of,
     stream_of,
@@ -81,6 +86,12 @@ PASS1_WIDTH = 16
 # Values of a tile that lets two blocks share an SM (8K values: 512
 # threads and 70 KB of exchange planes each).
 SHARED_TILE = 8192
+# Values of a block of the stage pipeline's kernels (256 threads,
+# csrc/fourstep.cu kStageThreads), and the slack past L + L/16 of a
+# stage's exchange row stride at which its tile takes one wavefront per 32
+# floats under slot mapping 4 (tests/test_torch_geometry.py).
+STAGE_VALUES = 4096
+STAGE_SLACK = {32: 4, 64: 2, 128: 2}
 
 # Launches of the CUDA kernels since the counts were last reset.
 LAUNCHES = {"fourstep_pass1": 0, "fourstep_pass2": 0,
@@ -125,6 +136,32 @@ def pass2_geometry(L1: int, L2: int, rows: int | None = None) -> TileGeometry:
     if R > L1:
         raise ValueError(f"pass 2 takes R <= L1 = {L1} rows; got {R}")
     return tile_geometry(L2, R)
+
+
+def stage_geometry(r: int) -> TileGeometry:
+    """The launch of one radix-r stage of the stage pipeline (pass 1 in its
+    stage mode, pow2 r in 2..128, kernels/stage_fused.py): T = 4096/r
+    transforms a block, G = T/16 batch rows of PASS1_WIDTH columns, 256
+    threads. From r = 32 the engine's padded tile, its row stride
+    r + r/16 + STAGE_SLACK[r]; below, one pass in registers and no shared
+    memory."""
+    if not (is_power_of_two(r) and 2 <= r <= 128):
+        raise ValueError(f"a stage takes pow2 r in [2, 128]; got {r}")
+    T = STAGE_VALUES // r
+    schedule = radix_schedule(r)
+    if r <= 16:
+        return TileGeometry(r, T, schedule, T * r // 16, 0, 4, r)
+    stride = r + r // 16 + STAGE_SLACK[r]
+    return TileGeometry(r, T, schedule, T * r // 16, 8 * T * stride, 4, stride)
+
+
+def leaf_geometry(leaf: int) -> TileGeometry:
+    """The launch of the stage pipeline's leaf (pass 2 in its leaf mode,
+    pow2 leaf in 128..2048): R = max(8, 4096/leaf) rows a block, of any
+    batch rows (32 at 128: 256 threads), in pass 2's padded tile."""
+    if not (is_power_of_two(leaf) and 128 <= leaf <= 2048):
+        raise ValueError(f"the leaf takes pow2 leaf in [128, 2048]; got {leaf}")
+    return tile_geometry(leaf, max(8, STAGE_VALUES // leaf))
 
 
 def _col_fft_tables(L: int, direction: Direction, scale: float | None = None):

@@ -562,7 +562,25 @@ def test_huge_real_plans_launch_kernels(no_tf32):
     assert snr_db(y.cpu().numpy(), x.astype(np.float64)) >= 110.0
 
 
-@pytest.mark.parametrize("r,M", [(64, 2048), (128, 1024), (32, 128), (2, 128)])
+def _stage_want(xr, xi, r, direction, twiddle):
+    """One radix-r stage (and its twiddle) in float64: the DFT down the
+    leading digit."""
+    z = (np.asarray(xr.cpu(), np.float64) + 1j * np.asarray(xi.cpu(), np.float64))
+    B, n = z.shape
+    M = n // r
+    z = z.reshape(B, r, M)
+    want = np.fft.fft(z, axis=1) if direction == -1 else np.fft.ifft(z, axis=1) * r
+    if twiddle:
+        want = want * np.exp(2j * np.pi * direction * np.outer(np.arange(r), np.arange(M))
+                             / (r * M))
+    return want.reshape(B, n)
+
+
+# every pow2 radix of the stage kernel, M at the pipelines' 128 and above
+STAGE_CASES = [(2, 128), (4, 256), (8, 128), (16, 512), (32, 128), (64, 2048), (128, 1024)]
+
+
+@pytest.mark.parametrize("r,M", STAGE_CASES)
 @pytest.mark.parametrize("direction", [-1, 1])
 @pytest.mark.parametrize("twiddle", [True, False], ids=["twiddle", "no_twiddle"])
 def test_fused_stage_matches_plain(no_tf32, r, M, direction, twiddle):
@@ -572,24 +590,81 @@ def test_fused_stage_matches_plain(no_tf32, r, M, direction, twiddle):
     assert stage_fused.LAUNCHES["fused_stage"] == before + 1
     plain = cplx(*stage_fused.fused_stage_plain(xr, xi, r, direction, twiddle))
     assert snr_db(got, plain) >= 110.0
+    assert snr_db(got, _stage_want(xr, xi, r, direction, twiddle)) >= 115.0
+
+
+@pytest.mark.parametrize("r,M", STAGE_CASES)
+@pytest.mark.parametrize("f1", [2, 128])
+def test_swap_stage_matches_plain(no_tf32, r, M, f1):
+    xr, xi = _cuda_pair(r + M + f1, (3 * f1, r * M))
+    before = stage_fused.LAUNCHES["fused_stage"]
+    got = stage_fused.swap_stage(xr, xi, r, f1, -1)
+    assert stage_fused.LAUNCHES["fused_stage"] == before + 1
+    plain = stage_fused.swap_stage_plain(xr, xi, r, f1, -1)
+    assert snr_db(cplx(*got), cplx(*plain)) >= 110.0
+    # the swap is a permutation of the rows: [o, k, k1a] holds row (o, k1a)'s k
+    want = _stage_want(xr, xi, r, -1, True).reshape(3, f1, r, M).transpose(0, 2, 1, 3)
+    assert snr_db(cplx(*got), want.reshape(3 * f1, r * M)) >= 115.0
+
+
+@pytest.mark.parametrize("B,n,leaf", [(3, 256, 128), (1, 512, 128), (2, 1 << 15, 128),
+                                      (4, 1 << 20, 128), (2, 1 << 12, 256), (1, 1 << 14, 512),
+                                      (2, 1 << 11, 1024), (1, 1 << 13, 2048), (5, 128, 128)])
+@pytest.mark.parametrize("direction,scale", CASES, ids=CASE_IDS)
+def test_stage_leaf_matches_plain(no_tf32, B, n, leaf, direction, scale):
+    xr, xi = _cuda_pair(n + leaf + B, (B, n))
+    eff = whole_scale(n, direction, scale)
+    before = stage_fused.LAUNCHES["stage_leaf"]
+    got = cplx(*stage_fused.stage_leaf(xr, xi, leaf, direction, eff))
+    assert stage_fused.LAUNCHES["stage_leaf"] == before + 1
+    assert snr_db(got, cplx(*stage_fused.stage_leaf_plain(xr, xi, leaf, direction, eff))) >= 110.0
     z = (np.asarray(xr.cpu(), np.float64) + 1j * np.asarray(xi.cpu(), np.float64))
-    F = np.exp(2j * np.pi * direction * np.outer(np.arange(r), np.arange(r)) / r)
-    want = np.einsum("ka,bam->bkm", F, z.reshape(3, r, M))
-    if twiddle:
-        want = want * np.exp(2j * np.pi * direction * np.outer(np.arange(r), np.arange(M))
-                             / (r * M))
-    assert snr_db(got, want.reshape(3, r * M)) >= 115.0
+    z = z.reshape(B, n // leaf, leaf)
+    y = np.fft.fft(z, axis=-1) if direction == -1 else np.fft.ifft(z, axis=-1) * leaf
+    assert snr_db(got, (y * eff).transpose(0, 2, 1).reshape(B, n)) >= 115.0
 
 
-@pytest.mark.parametrize("n,B", [(1 << 15, 2), (1 << 20, 4), (256, 3)])
+@pytest.mark.parametrize("n,B", [(1 << 15, 2), (1 << 20, 4), (256, 3), (1 << 22, 1)])
 def test_stage_pipeline_launches_kernel(no_tf32, n, B):
+    """K - 1 stage launches and one leaf launch, and nothing on the host:
+    2^22 is (128, 128, 2, 128), two swap stages."""
     xr, xi = planes(n % 89, (B, n))
     plan = fftlab_torch.plan_from_jax("pallas_pipeline", n, -1)
-    before = stage_fused.LAUNCHES["fused_stage"]
+    before = dict(stage_fused.LAUNCHES)
     yr, yi = plan.execute((tt(xr, "cuda"), tt(xi, "cuda")))
     assert plan.algorithm == "stage_pipeline"
-    assert stage_fused.LAUNCHES["fused_stage"] == before + len(stage_fused.pipeline_factors(n)) - 1
+    K = len(stage_fused.pipeline_factors(n))
+    assert stage_fused.LAUNCHES["fused_stage"] == before["fused_stage"] + K - 1
+    assert stage_fused.LAUNCHES["stage_leaf"] == before["stage_leaf"] + 1
     assert snr_db(cplx(yr, yi), oracle(xr, xi, -1)) >= 115.0
+
+
+@pytest.mark.parametrize("n,factors", [(1 << 20, (64, 128, 128)), (1 << 17, (8, 128, 128)),
+                                       (1 << 15, (2, 128, 128)), (1 << 16, (2, 2, 128, 128)),
+                                       (1 << 15, (32, 1024)), (1 << 11, (2048,))])
+@pytest.mark.parametrize("direction,scale", CASES, ids=CASE_IDS)
+def test_stage_pipeline_custom_factors(no_tf32, n, factors, direction, scale):
+    xr, xi = _cuda_pair(n % 83, (2, n))
+    before = dict(stage_fused.LAUNCHES)
+    got = cplx(*stage_fused.fft_split_pipeline(xr, xi, direction, factors, scale))
+    assert stage_fused.LAUNCHES["fused_stage"] == before["fused_stage"] + len(factors) - 1
+    assert stage_fused.LAUNCHES["stage_leaf"] == before["stage_leaf"] + 1
+    plain = stage_fused.pipeline_launches_plain(xr, xi, direction, factors, scale)
+    assert snr_db(got, cplx(*plain)) >= 110.0
+    eff = whole_scale(n, direction, scale)
+    assert snr_db(got, oracle(xr.cpu(), xi.cpu(), direction, eff)) >= 115.0
+
+
+def test_stage_pipeline_refuses_what_no_kernel_runs():
+    """A leaf above 2048 or a radix above 128 raises on the card before
+    any launch; nothing falls back to tensor ops."""
+    x = torch.zeros(1, 1 << 15, device="cuda")
+    before = dict(stage_fused.LAUNCHES)
+    with pytest.raises(ValueError, match="leaf"):
+        stage_fused.fft_split_pipeline(x, x, factors=(8, 4096))
+    with pytest.raises(ValueError, match="pow2 r"):
+        stage_fused.fft_split_pipeline(x, x, factors=(256, 128))
+    assert stage_fused.LAUNCHES == before
 
 
 @pytest.mark.parametrize("name,n", [("rows", 8192), ("two_pass", 1 << 15),
@@ -631,6 +706,13 @@ def test_huge_and_stage_wrappers_refuse():
     y = torch.zeros(2, 3 * 128, device="cuda")
     with pytest.raises(ValueError, match="pow2 r"):
         stage_fused.fused_stage(y, y, 3)
+    z = torch.zeros(3, 2 * 128, device="cuda")
+    with pytest.raises(ValueError, match="multiple of pow2 F1"):
+        stage_fused.swap_stage(z, z, 2, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        stage_fused.stage_leaf(xt[:, : 1 << 10], xt[:, : 1 << 10], 128)
+    with pytest.raises(ValueError, match="leaf in"):
+        stage_fused.stage_leaf(z, z, 64)
 
 
 # ------------- the register engine (fft_reg.cuh) at every length and geometry

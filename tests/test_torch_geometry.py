@@ -95,7 +95,7 @@ def _slots(L, T, R, g, threads):
     return hi & ((1 << log_j) - 1), ((hi >> log_j) << g) | (s & ((1 << g) - 1))
 
 
-@pytest.mark.parametrize("L", [64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384])
+@pytest.mark.parametrize("L", [32, 64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384])
 @pytest.mark.parametrize("direction", [-1, 1])
 def test_engine_schedule_computes_the_dft(L, direction):
     """The passes of fft_reg.cuh `fft_tile` in float64 numpy, on T = 2
@@ -127,12 +127,37 @@ def test_engine_schedule_computes_the_dft(L, direction):
     assert np.max(np.abs(cur - want)) <= 1e-10 * np.max(np.abs(want))
 
 
+@pytest.mark.parametrize("L", [2, 4, 8, 16])
+@pytest.mark.parametrize("direction", [-1, 1])
+def test_engine_short_lengths_compute_the_dft(L, direction):
+    """fft_reg.cuh `run_short`, the stages of length 2..16: one pass, no
+    twiddle table, thread s holding the 16/L transforms s + i*threads of a
+    stage's tile, each transform held by one thread once, its DFT in
+    natural order."""
+    geo = fourstep_vmem.stage_geometry(L)
+    assert geo.schedule == (L,) and geo.smem == 0 and len(_common.pass_twiddle_np(L, direction)) == 0
+    rng = np.random.default_rng(L)
+    x = rng.standard_normal((geo.T, L)) + 1j * rng.standard_normal((geo.T, L))
+    t = np.arange(geo.threads)[:, None] + np.arange(16 // L)[None, :] * geo.threads
+    assert np.array_equal(np.sort(t.ravel()), np.arange(geo.T))
+    F = np.exp(2j * np.pi * direction * np.outer(np.arange(L), np.arange(L)) / L)
+    got = np.empty_like(x)
+    got[t] = x[t] @ F.T
+    want = np.fft.fft(x) if direction == -1 else np.fft.ifft(x) * L
+    assert np.max(np.abs(got - want)) <= 1e-12 * np.max(np.abs(want))
+
+
 # (role, L, T, slot mapping of the first pass, of the later passes):
-# every exchange the kernels run (fft_rows.cu, fourstep.cu)
+# every exchange the kernels run (fft_rows.cu, fourstep.cu): rows, the
+# pair's columns and rows, a stage of the stage pipeline (16 columns of
+# 256/L rows, slot mapping 4, from L = 32; the shorter stages have no
+# exchange) and its leaf (32 rows at 128)
 EXCHANGES = ([("row", 1 << e, 1, 0, 0) for e in range(9, 15)]
              + [("columns", 1 << e, T, 3, 3) for e in range(7, 11) for T in (8, 16)]
              + [("rows", 1 << e, T, 0, 3) for e in range(7, 12) for T in (8, 16)
-                if T << e <= 16384])
+                if T << e <= 16384]
+             + [("stage", 1 << e, 4096 >> e, 4, 4) for e in range(1, 8)]
+             + [("leaf", 128, 32, 0, 3)])
 
 
 def _wavefronts(addr):
@@ -240,7 +265,11 @@ def test_stft_layout_struct(fft_size, hop, T):
 @pytest.mark.parametrize("role,L,T,g_first,g", EXCHANGES,
                          ids=[f"{r}-L{L}-T{T}" for r, L, T, _, _ in EXCHANGES])
 def test_exchange_layout_bank_conflicts(role, L, T, g_first, g):
-    geo = _common.tile_geometry(L, T)
+    geo = fourstep_vmem.stage_geometry(L) if role == "stage" else _common.tile_geometry(L, T)
+    assert geo.T == T
+    if L <= 16:  # one pass in registers: no exchange, no shared memory
+        assert len(geo.schedule) == 1 and geo.smem == 0
+        return
     threads = geo.threads
     worst = 0
     ns = 1
@@ -254,7 +283,7 @@ def test_exchange_layout_bank_conflicts(role, L, T, g_first, g):
                 a = _at(geo, t, e)
                 worst = max(worst, int(_wavefronts(a.T.reshape(-1, 32)).max()))
         ns *= R
-    assert worst <= (1 if T == 1 or L >= 512 else 2)
+    assert worst <= (1 if T == 1 or L >= 512 or role == "stage" else 2)
 
 
 # ------------------------------------------------- the filter sandwiches

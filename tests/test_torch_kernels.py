@@ -235,7 +235,7 @@ def test_ctypes_signatures_match_sources():
         "fftlab_fourstep_pass1_packed", "fftlab_fourstep_pass2_interleaved",
         "fftlab_pack_real", "fftlab_interleave", "fftlab_herm_unpack",
         "fftlab_herm_repack", "fftlab_stft_frames", "fftlab_fourstep_pass1_swap",
-        "fftlab_fused_stage"}
+        "fftlab_fused_stage", "fftlab_stage_leaf"}
     for args in _build.SIGNATURES.values():
         assert args[-1] is ctypes.c_void_p  # the stream
 
