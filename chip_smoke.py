@@ -49,7 +49,16 @@ Phases, in order; any failure raises and the exit code is non-zero:
    4 x 2^22 and 1 x 2^26, the r2c/c2r plans at 4 x 2^23 (half size on
    three passes), plan_from_jax("pallas_pipeline", 2^20) at 16 x 2^20
    and run_route("stage_pipeline") at 2 x 2^15 (each K - 1 stage launches
-   and one leaf launch).
+   and one leaf launch); (e) the complex API (`complex_api_phase`):
+   fft/ifft at 16 x 2^20 complex64 on ESTIMATE's stockham_mxu (>= 120 dB)
+   timed beside torch.fft.fft and the split route, fft(algorithm=
+   "pallas_vmem") at 256 x 16384 with exactly one `fft_rows` launch a call
+   (>= 120 dB vs float64 and vs the plain version), every registry
+   algorithm at 64 rows (>= 110 dB), rfft/irfft at 8 x 2^21 and
+   fft2/ifft2 at 2048 x 2048 (>= 110 dB), MEASURE of plan_dft_1d(2^16)
+   and of plan_dft_1d_split(2^20, batch=16) (a kernel route must win,
+   >= 120 dB) and of the split routes at 256 x 8192 and 4 x 2^21, each
+   candidate's ms printed, the wisdom in a temporary file.
    Every output of a main path is held against the plain versions on
    the same inputs (>= 110 dB, over every sample) and against an oracle;
 5. timing: CUDA events around 10 back-to-back calls, median of 25 such
@@ -160,35 +169,29 @@ PEAK_FLOP_PER_S = 67e12
 def time_ms(fn, graph: bool = False, iters: int = 25, inner: int = 10,
             warmup: int = 10) -> float:
     """Median over `iters` runs of `inner` calls of `fn`, per call, timed
-    between two CUDA events. The calls run back to back, so the host's
-    enqueue of one call hides behind the previous one's kernels, unless
-    the host takes longer per call than the card. With `graph`, the
-    `inner` calls are captured once in a CUDA graph (after the warm-up,
-    which builds the tables they use) and each run replays it: the
-    device time alone. Both sides of a comparison are timed the same
+    between two CUDA events by the package's own protocol
+    (fftlab_torch/bench/timing.py). The calls run back to back, so the
+    host's enqueue of one call hides behind the previous one's kernels,
+    unless the host takes longer per call than the card. With `graph`,
+    the `inner` calls are captured once in a CUDA graph (after the
+    warm-up, which builds the tables they use) and each run replays it:
+    the device time alone. Both sides of a comparison are timed the same
     way."""
     import torch
 
+    from fftlab_torch.bench import timing
+
+    if not graph:
+        return timing.time_ms(fn, "cuda", iters=iters, inner=inner, warmup=warmup)
     for _ in range(warmup):
         fn()
-    run = lambda: [fn() for _ in range(inner)]
-    if graph:
-        torch.cuda.synchronize()
-        captured = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(captured):
-            run()
-        run = captured.replay
-        run()
-    runs = []
-    for _ in range(iters):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        run()
-        end.record()
-        end.synchronize()
-        runs.append(start.elapsed_time(end) / inner)
-    return statistics.median(runs)
+    torch.cuda.synchronize()
+    captured = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(captured):
+        for _ in range(inner):
+            fn()
+    captured.replay()
+    return timing.event_ms(captured.replay, iters, 1) / inner
 
 
 class SmokeFailure(RuntimeError):
@@ -198,6 +201,180 @@ class SmokeFailure(RuntimeError):
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise SmokeFailure(what)
+
+
+# the complex API: the registry's sizes at 64 rows (pow2 entries at 4096,
+# the educational ones at their JAX test caps, tests/test_properties.py:41)
+REGISTRY_ROWS = 64
+REGISTRY_SIZES = {"mixed_radix": 3000, "four_step": 3000, "bluestein": 4099,
+                  "recursive": 256, "iterative": 1024}
+MEASURE_N = 1 << 16  # split_radix's eager recursion at 2^20 is tens of thousands of launches
+SPLIT_TUNE_SMALL = (256, 8192)
+# the window edge where two_pass and three_pass both take n (the static
+# rule keeps two passes)
+SPLIT_TUNE_EDGE = (4, 1 << 21)
+FFT2_SHAPE = (2048, 2048)
+
+
+def complex_api_phase(dev, gen, card: str, reset_counts, read_counts) -> None:
+    """Phase 4e: the complex-dtype API on the card (see the module
+    docstring). `reset_counts()` sets every kernel's launch count to 0
+    and `read_counts()` reads them all. Every gate raises SmokeFailure."""
+    import tempfile
+
+    import torch
+
+    from fftlab_torch import (fft, fft2, fft_split_auto, from_split, ifft, ifft2, irfft,
+                              plan_dft_1d, plan_dft_1d_split, rfft, to_split)
+    from fftlab_torch.algos import build_registry
+    from fftlab_torch.kernels import fft_vmem
+    from fftlab_torch.plan import split_tuning, wisdom
+    from fftlab_torch.plan.flags import Flags
+
+    t_phase = time.perf_counter()
+
+    def cplx(B, n):
+        return torch.complex(torch.randn(B, n, generator=gen, device=dev),
+                             torch.randn(B, n, generator=gen, device=dev))
+
+    def snr(got, want) -> float:
+        got, want = got.to(torch.complex128), want.to(torch.complex128)
+        err = (got - want).abs().square().sum().clamp_min(1e-300)
+        return float(10 * torch.log10(want.abs().square().sum() / err))
+
+    def f64(x):
+        return x.to(torch.complex128)
+
+    def gate(what, value, limit):
+        print(f"complex API {what}: {value:.1f} dB (gate {limit:.0f})")
+        require(value >= limit, f"complex API {what}: {value:.1f} dB < {limit}")
+
+    # fft and ifft at the headline shape, on ESTIMATE's algorithm
+    B, n = MAIN_SHAPE
+    x = cplx(B, n)
+    plan = plan_dft_1d(n, device=dev)
+    require(plan.algorithm == "stockham_mxu", f"ESTIMATE at 2^20: {plan.describe()}")
+    y = fft(x)
+    gate("fft 16 x 2^20 (stockham_mxu) vs float64", snr(y, torch.fft.fft(f64(x))), 120.0)
+    gate("ifft(fft(x)) 16 x 2^20", snr(ifft(y), x), 120.0)
+    split = lambda: from_split(*fft_split_auto(*to_split(x)))
+    gate("from_split(fft_split_auto(to_split(x))) 16 x 2^20 vs float64",
+         snr(split(), torch.fft.fft(f64(x))), 120.0)
+    t_api, t_split, t_lib = (time_ms(lambda: fft(x)), time_ms(split),
+                             time_ms(lambda: torch.fft.fft(x)))
+    print(f"time complex fft 16x2^20: fft (stockham_mxu) {t_api:.4f} ms, "
+          f"from_split(fft_split_auto(to_split)) {t_split:.4f} ms, "
+          f"torch.fft.fft {t_lib:.4f} ms [{card}]")
+    del x, y
+
+    # the registry's row-kernel entry: one fft_rows launch a call
+    B2, n2 = ROWS_MAIN_SHAPE
+    u = cplx(B2, n2)
+    calls = 3
+    reset_counts()
+    for _ in range(calls):
+        v = fft(u, algorithm="pallas_vmem")
+    torch.cuda.synchronize()
+    launched = {k: c for k, c in read_counts().items() if c}
+    print(f"complex API fft(algorithm='pallas_vmem') 256 x 16384, {calls} calls, "
+          f"launches: {launched}")
+    require(launched == {"fft_rows": calls},
+            f"pallas_vmem launched {launched} in {calls} calls, want fft_rows {calls} times")
+    gate("pallas_vmem 256 x 16384 vs float64", snr(v, torch.fft.fft(f64(u))), 120.0)
+    plain = torch.complex(*fft_vmem.fft_rows_plain(u.real.contiguous(), u.imag.contiguous()))
+    gate("pallas_vmem 256 x 16384 vs fft_rows_plain", snr(v, plain), 120.0)
+    print(f"time complex pallas_vmem 256x16384: {time_ms(lambda: fft(u, algorithm='pallas_vmem')):.4f}"
+          f" ms, torch.fft.fft {time_ms(lambda: torch.fft.fft(u)):.4f} ms [{card}]")
+    del u, v, plain
+
+    # every registry algorithm at a size it takes
+    for name, spec in build_registry().items():
+        m = REGISTRY_SIZES.get(name, 4096)
+        require(spec.supports(m), f"{name} does not take n={m}")
+        a = cplx(REGISTRY_ROWS, m)
+        b = spec.fn(a)
+        t = time_ms(lambda: spec.fn(a), iters=5, inner=2, warmup=1)
+        s_db = snr(b, torch.fft.fft(f64(a)))
+        print(f"complex API registry {name} {REGISTRY_ROWS} x {m}: {s_db:.1f} dB, {t:.4f} ms "
+              f"[{card}]")
+        require(b.shape == a.shape and s_db >= 110.0, f"registry {name}: {s_db:.1f} dB")
+
+    # the real and 2-D transforms
+    Br, nr = RFFT_SHAPE
+    xr = torch.randn(Br, nr, generator=gen, device=dev)
+    X = rfft(xr)
+    gate("rfft 8 x 2^21 vs float64", snr(X, torch.fft.rfft(xr.double())), 110.0)
+    gate("irfft 8 x 2^21 vs float64", snr(irfft(X, nr), torch.fft.irfft(f64(X), nr)), 110.0)
+    print(f"time complex rfft 8x2^21: {time_ms(lambda: rfft(xr)):.4f} ms, torch.fft.rfft "
+          f"{time_ms(lambda: torch.fft.rfft(xr)):.4f} ms; irfft {time_ms(lambda: irfft(X, nr)):.4f}"
+          f" ms, torch.fft.irfft {time_ms(lambda: torch.fft.irfft(X, nr)):.4f} ms [{card}]")
+    del xr, X
+    z = cplx(*FFT2_SHAPE)
+    Z = fft2(z)
+    gate("fft2 2048 x 2048 vs float64", snr(Z, torch.fft.fft2(f64(z))), 110.0)
+    gate("ifft2 2048 x 2048 vs float64", snr(ifft2(Z), torch.fft.ifft2(f64(Z))), 110.0)
+    print(f"time complex fft2 2048x2048: {time_ms(lambda: fft2(z)):.4f} ms, torch.fft.fft2 "
+          f"{time_ms(lambda: torch.fft.fft2(z)):.4f} ms; ifft2 {time_ms(lambda: ifft2(Z)):.4f} ms,"
+          f" torch.fft.ifft2 {time_ms(lambda: torch.fft.ifft2(Z)):.4f} ms [{card}]")
+    del z, Z
+
+    # MEASURE, with the wisdom in a temporary file
+    saved = os.environ.get("FFTLAB_WISDOM_PATH")
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["FFTLAB_WISDOM_PATH"] = os.path.join(tmp, "wisdom.json")
+        try:
+            wisdom.forget()
+            t0 = time.perf_counter()
+            p = plan_dft_1d(MEASURE_N, flags=Flags.MEASURE, device=dev)
+            rec = wisdom.lookup(MEASURE_N, "f32")
+            print(f"complex API MEASURE plan_dft_1d(2^16) in {time.perf_counter() - t0:.1f} s: "
+                  + ", ".join(f"{k} {v:.4f} ms" for k, v in rec["timings_ms"].items())
+                  + f"; winner {p.algorithm} [{card}]")
+            require(rec["algorithm"] == p.algorithm == min(rec["timings_ms"], key=rec["timings_ms"].get),
+                    f"MEASURE winner {p.algorithm}, record {rec}")
+            require(rec["platform"] == "gpu" and rec["device_name"] == torch.cuda.get_device_name(0),
+                    f"MEASURE record {rec}")
+            xm = cplx(8, MEASURE_N)
+            gate(f"MEASURE winner {p.algorithm} 8 x 2^16 vs float64",
+                 snr(p.execute(xm), torch.fft.fft(f64(xm))), 110.0)
+            q = plan_dft_1d(MEASURE_N, flags=Flags.WISDOM_ONLY, device=dev)
+            require(q.algorithm == p.algorithm and wisdom.lookup(MEASURE_N, "f32") == rec,
+                    f"WISDOM_ONLY gave {q.algorithm}, measured again or lost {rec}")
+            print(f"complex API WISDOM_ONLY plan_dft_1d(2^16): {q.algorithm}, not measured again")
+
+            B, n = MAIN_SHAPE
+            sp = plan_dft_1d_split(n, flags=Flags.MEASURE, batch=B, device=dev)
+            rec = wisdom.lookup(n, "f32", kind="route")
+            print(f"complex API MEASURE plan_dft_1d_split(2^20, batch=16): "
+                  + ", ".join(f"{k} {v:.4f} ms" for k, v in rec["timings_ms"].items())
+                  + f"; winner {sp.algorithm} [{card}]")
+            require(sp.algorithm in ("smem_rows", "two_pass", "three_pass"),
+                    f"split MEASURE at 2^20 chose {sp.algorithm}")
+            require(rec["platform"] == "gpu", f"split MEASURE record {rec}")
+            pr = torch.randn(B, n, generator=gen, device=dev)
+            pi = torch.randn(B, n, generator=gen, device=dev)
+            got = torch.complex(*sp.execute((pr, pi)))
+            gate(f"split MEASURE winner {sp.algorithm} 16 x 2^20 vs float64",
+                 snr(got, torch.fft.fft(torch.complex(pr.double(), pi.double()))), 120.0)
+            Bs, ns = SPLIT_TUNE_SMALL
+            small = split_tuning.tune_split_route(ns, batch=Bs, device=dev)
+            rec = wisdom.lookup(ns, "f32", kind="route")
+            print(f"complex API MEASURE split routes 256 x 8192: "
+                  + ", ".join(f"{k} {v:.4f} ms" for k, v in rec["timings_ms"].items())
+                  + f"; winner {small} (static rule: smem_rows) [{card}]")
+            Be, ne = SPLIT_TUNE_EDGE
+            edge = split_tuning.tune_split_route(ne, batch=Be, device=dev)
+            rec = wisdom.lookup(ne, "f32", kind="route")
+            print(f"complex API MEASURE split routes 4 x 2^21: "
+                  + ", ".join(f"{k} {v:.4f} ms" for k, v in rec["timings_ms"].items())
+                  + f"; winner {edge} (static rule: two_pass) [{card}]")
+        finally:
+            wisdom.forget()
+            if saved is None:
+                os.environ.pop("FFTLAB_WISDOM_PATH", None)
+            else:
+                os.environ["FFTLAB_WISDOM_PATH"] = saved
+    print(f"complex API phase: {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -972,6 +1149,9 @@ def main() -> int:
             f"the two pipelines launched {huge_launches['fused_stage']} stages and "
             f"{huge_launches['stage_leaf']} leaves, want {stages} and 2")
     del pr, pi, qr, qi, sr, si, tr, ti
+
+    # phase 4e: the complex API, through the public entry points
+    complex_api_phase(dev, gen, card, reset_counts, read_counts)
 
     # phase 5: timing with CUDA events (time_ms)
     ms = {}

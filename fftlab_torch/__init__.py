@@ -1,24 +1,40 @@
-"""fftlab_torch: the PyTorch/CUDA port of fftlab's split-plane FFT (up to
-2^26 points), spectral-filter and real-signal paths.
+"""fftlab_torch: the PyTorch/CUDA port of fftlab.
 
 Imports torch and never jax; the JAX package `fftlab` is the reference
-the port is tested against. Split re/im float32 planes [..., n],
-batch-first; forward unscaled, inverse 1/n, natural-order output. On a
+the port is tested against. Two APIs, as in the JAX package:
+
+- the complex-dtype API (`fft`, `ifft`, `plan_dft_1d`, `rfft`, `fft2`,
+  ...): complex64/complex128 tensors [..., n], the algorithm registry
+  (`algos.build_registry`) and the planner with ESTIMATE, MEASURE,
+  PATIENT, EXHAUSTIVE, WISDOM_ONLY and wisdom;
+- the split-plane API (`fft_split`, `plan_dft_1d_split`, ...): float32
+  (re, im) planes [..., n] up to 2^26 points, the spectral filter and the
+  real-signal path.
+
+Batch-first; forward unscaled, inverse 1/n, natural-order output. On a
 CUDA tensor the kernel routes launch hand-written Hopper (sm_90a) CUDA
 kernels, built from `fftlab_torch/csrc` at first use; on a CPU tensor
-they run each kernel's plain tensor-op version.
+they run each kernel's plain tensor-op version. Input that is not a
+tensor goes to the card unless the caller passes `device="cpu"`.
 """
 
 from fftlab_torch.algos.bluestein import bluestein_fft_split
-from fftlab_torch.algos.split_stockham import (fft_split, ifft_split, irfft_split,
-                                               rfft_split)
+from fftlab_torch.algos.fft2d import fft2, fftshift, ifft2, ifftshift
+from fftlab_torch.algos.real_fft import irfft, rfft
+from fftlab_torch.algos.split_stockham import (fft2_split, fft_split, from_split,
+                                               ifft_split, irfft_split, rfft_split,
+                                               spectral_filter_split, to_split)
 from fftlab_torch.core.types import FORWARD, INVERSE, Direction
 from fftlab_torch.dsp.filtering import FilterParams, FilterType, fft_filter_split
 from fftlab_torch.dsp.spectrum import coherence_split, welch_psd_split
 from fftlab_torch.dsp.stft import istft_split, stft_split
+from fftlab_torch.kernels.fourstep_vmem import (fft_split_large, irfft_split_large,
+                                                rfft_split_large, spectral_filter_large)
 from fftlab_torch.kernels.threestep_vmem import fft_split_huge
-from fftlab_torch.plan.api import (plan_c2r_1d_split, plan_dft_1d_split,
-                                   plan_from_jax, plan_r2c_1d_split)
+from fftlab_torch.plan.api import (execute, fft, fft_auto, ifft, plan_c2r_1d,
+                                   plan_c2r_1d_split, plan_dft_1d, plan_dft_1d_split,
+                                   plan_dft_2d, plan_from_jax, plan_r2c_1d,
+                                   plan_r2c_1d_split)
 from fftlab_torch.plan.dispatch import (
     fft_split_auto,
     select_filter_impl,
@@ -28,28 +44,52 @@ from fftlab_torch.plan.dispatch import (
 from fftlab_torch.plan.filter_plan import FilterPlan
 
 __all__ = [
+    # fftlab.__all__, in its order
     "Direction",
     "FORWARD",
-    "FilterParams",
-    "FilterPlan",
-    "FilterType",
     "INVERSE",
+    "fft",
+    "ifft",
+    "fft_auto",
+    "plan_dft_1d",
+    "plan_dft_1d_split",
+    "plan_r2c_1d",
+    "plan_c2r_1d",
+    "plan_r2c_1d_split",
+    "plan_c2r_1d_split",
+    "plan_dft_2d",
+    "execute",
+    "rfft",
+    "irfft",
+    "fft2",
+    "ifft2",
+    "fftshift",
+    "ifftshift",
+    "fft_split",
+    "ifft_split",
+    "rfft_split",
+    "irfft_split",
+    "spectral_filter_split",
+    "to_split",
+    "from_split",
+    "FilterPlan",
+    "fft_split_auto",
+    "select_split_impl",
+    "fft_split_large",
+    "rfft_split_large",
+    "irfft_split_large",
+    "spectral_filter_large",
+    "fft_split_huge",
+    # the port's own
+    "FilterParams",
+    "FilterType",
     "bluestein_fft_split",
     "coherence_split",
+    "fft2_split",
     "fft_filter_split",
-    "fft_split",
-    "fft_split_auto",
-    "fft_split_huge",
-    "ifft_split",
-    "irfft_split",
     "istft_split",
-    "plan_c2r_1d_split",
-    "plan_dft_1d_split",
     "plan_from_jax",
-    "plan_r2c_1d_split",
-    "rfft_split",
     "select_filter_impl",
-    "select_split_impl",
     "spectral_filter_auto",
     "stft_split",
     "welch_psd_split",

@@ -1,5 +1,5 @@
-"""Bluestein / chirp-z FFT for any n on split planes (counterpart of
-fftlab/algos/bluestein.py:67-139).
+"""Bluestein / chirp-z FFT for any n, on complex tensors and on split
+planes (counterpart of fftlab/algos/bluestein.py:30-66 and :67-139).
 
 With c[k] = exp(i*pi*dir*k^2/n),
     X[k] = c[k] * sum_j (x[j]*c[j]) * conj(c[k-j]),
@@ -12,6 +12,10 @@ for m up to 16K, the four-launch two-pass sandwich for m in 2^15..2^21
 
 The chirp and B are float64 plan-time constants, cached per
 (n, direction): each call costs one sandwich and two modulations.
+
+`bluestein_fft` takes a complex tensor and runs the convolution as two
+power-of-two transforms, `pow2_fft(x, direction)` unscaled (the radix-2
+algorithm unless the caller passes another), as the JAX function does.
 """
 
 from __future__ import annotations
@@ -22,10 +26,29 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from fftlab_torch.algos._common import inverse_scale, prepare, table
 from fftlab_torch.algos.split_stockham import _twiddle_split, permute_response
 from fftlab_torch.core.hostfft import bluestein_kernel_spectrum_np
 from fftlab_torch.core.twiddle import chirp_np
 from fftlab_torch.core.types import FORWARD, Direction, next_power_of_two
+
+
+def bluestein_fft(x, direction=FORWARD, pow2_fft=None):
+    """Chirp-z FFT of any length n on a complex tensor [..., n]. Forward
+    unscaled, inverse 1/n. `pow2_fft(x, direction)` is the unscaled
+    power-of-two transform of the convolution (default: radix-2)."""
+    x, n, direction = prepare(x, direction)
+    if n == 1:
+        return x
+    if pow2_fft is None:
+        from fftlab_torch.algos.radix2 import radix2_dit_unscaled as pow2_fft
+    m = next_power_of_two(2 * n - 1)
+    c = table(chirp_np, n, direction, like=x)
+    B = table(bluestein_kernel_spectrum_np, n, m, int(direction), like=x)
+    a = F.pad(x * c, (0, m - n))  # a[j] = x[j] * c[j], zero-padded to m
+    A = pow2_fft(a, Direction.FORWARD)
+    conv = pow2_fft(A * B, Direction.INVERSE) * (1.0 / m)
+    return inverse_scale(conv[..., :n] * c, n, direction)
 
 
 @functools.lru_cache(maxsize=64)

@@ -1,6 +1,7 @@
 """Split re/im Stockham FFT in tensor ops: the `einsum` route, the real
-transforms built on a half-size complex FFT, and the FFT -> H -> IFFT
-sandwich in tensor ops (counterpart of fftlab/algos/split_stockham.py).
+transforms built on a half-size complex FFT, the FFT -> H -> IFFT
+sandwich in tensor ops, the 2-D transform and the complex <-> planes
+helpers (counterpart of fftlab/algos/split_stockham.py).
 
 Same algorithm as the JAX package: n is factored into radices of at
 most `leaf`, each stage contracts one digit axis with that radix's DFT
@@ -29,9 +30,23 @@ import torch
 from fftlab_torch.algos.stockham import max_prime_factor, plan_factors
 from fftlab_torch.core.precision import full_float32
 from fftlab_torch.core.twiddle import dft_matrix_np, stage_twiddle_np
-from fftlab_torch.core.types import FORWARD, Direction
+from fftlab_torch.core.types import FORWARD, Direction, as_tensor
 
 DEFAULT_LEAF_SPLIT = 128
+
+
+def to_split(x, device="cuda"):
+    """complex [..., n] -> contiguous (re, im) real planes. A tensor stays
+    on its device; other input goes to `device` (`core.types.as_tensor`)."""
+    x = as_tensor(x, device)
+    if not x.is_complex():
+        return x.contiguous(), torch.zeros_like(x)
+    return x.real.contiguous(), x.imag.contiguous()
+
+
+def from_split(xr, xi, device="cuda"):
+    """(re, im) planes -> one complex tensor on the planes' device."""
+    return torch.complex(as_tensor(xr, device), as_tensor(xi, device))
 
 
 def _planes(a: np.ndarray, like: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -400,3 +415,37 @@ def spectral_filter_split_fused(xr: torch.Tensor, xi: torch.Tensor, hr, hi,
     Gr, Gi = _twiddle_split(Yr, Yi, _as_planes(hr_p, xr), _as_planes(hi_p, xr))
     zr, zi = _ifft_split_from_digitrev(Gr, Gi, FORWARD, factors)
     return zr * (1.0 / n), zi * (1.0 / n)
+
+
+def fft2_split(xr: torch.Tensor, xi: torch.Tensor, direction=FORWARD,
+               leaf: int = DEFAULT_LEAF_SPLIT, route: bool | None = None):
+    """2-D FFT on split planes over the last two axes (row-column, the
+    semantics of algos/fft2d.py without complex dtypes).
+
+    `route=True` sends each axis's batched 1-D transforms through
+    `plan.dispatch.fft_split_auto`, so image sides in a kernel window run
+    the kernels on the card (their plain versions on the CPU). The
+    default takes it wherever the leaf is the default, as the dispatch
+    uses the default leaf; the JAX package's default also asks for a TPU,
+    but the port's routes follow n alone. Every route is forward
+    unscaled / inverse 1/n, so the per-axis scalings compose to
+    1/(rows*cols)."""
+    direction = Direction(int(direction))
+    rows, cols = int(xr.shape[-2]), int(xr.shape[-1])
+    if route is None:
+        route = leaf == DEFAULT_LEAF_SPLIT
+    if route:
+        from fftlab_torch.plan.dispatch import fft_split_auto
+
+        yr, yi = fft_split_auto(xr.contiguous(), xi.contiguous(), direction)
+        yr, yi = fft_split_auto(yr.transpose(-1, -2).contiguous(),
+                                yi.transpose(-1, -2).contiguous(), direction)
+        return yr.transpose(-1, -2), yi.transpose(-1, -2)
+    yr, yi = stockham_fft_split_unscaled(xr, xi, direction, leaf)
+    yr, yi = stockham_fft_split_unscaled(yr.transpose(-1, -2), yi.transpose(-1, -2),
+                                         direction, leaf)
+    yr, yi = yr.transpose(-1, -2), yi.transpose(-1, -2)
+    if direction == Direction.INVERSE:
+        s = 1.0 / (rows * cols)
+        return yr * s, yi * s
+    return yr, yi

@@ -1,7 +1,7 @@
-"""Bit-reversal permutation table (counterpart of fftlab/core/bitrev.py).
-
-A host-built index table, used by the plan-time float64 FFT
-(`core/hostfft.py`); no device code reads it.
+"""Bit- and digit-reversal permutation tables (counterpart of
+fftlab/core/bitrev.py): host-built index tables, used by the plan-time
+float64 FFT (`core/hostfft.py`) and as the gathers of the radix-2 and
+radix-4 algorithms (`algos/radix2.py`, `algos/radix4.py`).
 """
 
 from __future__ import annotations
@@ -23,4 +23,23 @@ def bit_reverse_indices(n: int) -> np.ndarray:
     rev = np.zeros(n, dtype=np.uint32)
     for b in range(bits):
         rev |= ((idx >> b) & 1) << (bits - 1 - b)
+    return rev.astype(np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def digit_reverse_indices(n: int, radix: int) -> np.ndarray:
+    """Permutation reversing the base-`radix` digits of each index (int32)."""
+    digits = 0
+    m = n
+    while m > 1:
+        if m % radix != 0:
+            raise ValueError(f"{n} is not a power of {radix}")
+        m //= radix
+        digits += 1
+    idx = np.arange(n, dtype=np.int64)
+    rev = np.zeros(n, dtype=np.int64)
+    tmp = idx.copy()
+    for _ in range(digits):
+        rev = rev * radix + (tmp % radix)
+        tmp //= radix
     return rev.astype(np.int32)

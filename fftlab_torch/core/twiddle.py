@@ -15,6 +15,13 @@ from fftlab_torch.core.types import Direction
 
 
 @functools.lru_cache(maxsize=None)
+def twiddle_np(n: int, direction: int = Direction.FORWARD) -> np.ndarray:
+    """w[k] = exp(2*pi*i*direction*k/n), k = 0..n-1, complex128."""
+    k = np.arange(n, dtype=np.float64)
+    return np.exp(2j * np.pi * float(int(direction)) * k / n)
+
+
+@functools.lru_cache(maxsize=None)
 def dft_matrix_np(n: int, direction: int = Direction.FORWARD) -> np.ndarray:
     """Full n x n DFT matrix F[j,k] = exp(2*pi*i*direction*j*k/n), complex128.
 
@@ -33,6 +40,13 @@ def stage_twiddle_np(r: int, m: int, direction: int = Direction.FORWARD) -> np.n
     b = np.arange(m, dtype=np.int64)
     ab = np.mod(np.outer(a, b), n).astype(np.float64)
     return np.exp(2j * np.pi * float(int(direction)) * ab / n)
+
+
+@functools.lru_cache(maxsize=None)
+def butterfly_twiddle_np(m: int, direction: int = Direction.FORWARD) -> np.ndarray:
+    """Radix-2 butterfly twiddles for a stage of span m: w[j] = W_m^j, j < m/2."""
+    j = np.arange(m // 2, dtype=np.float64)
+    return np.exp(2j * np.pi * float(int(direction)) * j / m)
 
 
 @functools.lru_cache(maxsize=None)

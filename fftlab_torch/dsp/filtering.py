@@ -6,7 +6,8 @@ code: ideal brick-wall responses with negative frequencies mirrored,
 raised-cosine transition bands, and FIR design by frequency sampling.
 The hot path is the FFT -> H -> IFFT sandwich of
 `plan.dispatch.spectral_filter_auto`. The complex-dtype `fft_filter` and
-`fft_filter_custom` are not ported yet (ROADMAP Queue 1 item 11).
+`fft_filter_custom` are not ported yet (ROADMAP Queue 1 items 8-9, on
+the complex registry of `algos`).
 """
 
 from __future__ import annotations

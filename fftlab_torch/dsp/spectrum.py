@@ -4,8 +4,8 @@
 Both average windowed periodograms of segments taken by `stft_split`,
 so the default segmenting (window 256, 50% overlap: hop 128) runs the
 `stft_frames` kernel on a CUDA tensor. The complex-dtype periodogram,
-welch_psd, coherence and the correlations take a complex FFT and wait
-for the complex registry (ROADMAP Queue 1 items 9 and 11).
+welch_psd, coherence and the correlations take a complex FFT and are
+not ported yet (ROADMAP Queue 1 items 8-9).
 """
 
 from __future__ import annotations

@@ -9,7 +9,7 @@ dropped. Where (fft_size, hop) is in the kernel window
 kernel on a CUDA tensor and its plain version on a CPU tensor; other
 sizes frame the signal and run the einsum route. The complex-dtype
 `stft`, `istft`, `stft_complex` and `spectrogram` take a complex `rfft`
-and wait for the complex registry (ROADMAP Queue 1 item 11).
+and are not ported yet (ROADMAP Queue 1 items 8-9).
 """
 
 from __future__ import annotations

@@ -38,7 +38,8 @@ import torch
 
 from fftlab_torch.core.precision import full_float32
 from fftlab_torch.core.twiddle import dft_matrix_np, stage_twiddle_np
-from fftlab_torch.core.types import FORWARD, Direction, is_power_of_two, log2_int
+from fftlab_torch.core.types import (FORWARD, Direction, as_complex_array,
+                                     is_power_of_two, log2_int)
 from fftlab_torch.kernels import _build
 from fftlab_torch.kernels._ad import make_differentiable
 from fftlab_torch.kernels._common import (
@@ -169,6 +170,18 @@ def fft_split_rows(xr: torch.Tensor, xi: torch.Tensor, direction=FORWARD,
 
 
 pallas_fft_split_ad = make_differentiable(fft_split_rows)
+
+
+def pallas_fft(x, direction=FORWARD):
+    """The complex entry to `fft_split_rows` (fftlab/kernels/fft_vmem.py:223):
+    a complex tensor [..., n] as float32 planes through the row kernel (one
+    `fft_rows` launch on a CUDA tensor, the plain version on a CPU one),
+    complex64 out, as the JAX function computes in float32 whatever it is
+    given. Non-tensors are placed as `core.types.as_tensor` places them."""
+    x = as_complex_array(x)
+    yr, yi = fft_split_rows(x.real.float().contiguous(), x.imag.float().contiguous(),
+                            direction)
+    return torch.complex(yr, yi)
 
 
 def spectral_filter_rows_plain(xr: torch.Tensor, xi: torch.Tensor,

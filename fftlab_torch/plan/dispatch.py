@@ -15,7 +15,8 @@ Routes (split re/im float32 planes, [..., n] batch-first):
                   or `plan_from_jax` of a JAX `pallas_pipeline` plan):
                   fused radix stages (kernels/stage_fused.py) with
                   `pipeline_factors(n)`
-  einsum          every other size: tensor-op Stockham
+  einsum          every other size: tensor-op Stockham, at the leaf
+                  recorded for n (`split_tuning.best_leaf`)
 
 Sandwich routes (`spectral_filter_auto`, ifft(fft(x) * H), 1/n scaled):
 
@@ -99,8 +100,10 @@ def run_route(route: str, xr: torch.Tensor, xi: torch.Tensor, direction,
                                     pipeline_factors(n), scale=scale)
         return yr.reshape(xr.shape), yi.reshape(xi.shape)
     from fftlab_torch.algos.split_stockham import fft_split
+    from fftlab_torch.plan.split_tuning import best_leaf
 
-    yr, yi = fft_split(xr, xi, direction)
+    # the leaf `tune_split_leaf` measured for n here, else the default
+    yr, yi = fft_split(xr, xi, direction, best_leaf(int(xr.shape[-1]), xr.device))
     if scale is None:
         return yr, yi
     return yr * scale, yi * scale

@@ -1,14 +1,18 @@
 """Planner flags and configuration (counterpart of fftlab/plan/flags.py).
 
-The split-plane plans of this package honour ESTIMATE only: the route
-is picked from n by `plan.dispatch.select_split_impl`. The measuring
-flags are ROADMAP Queue 1 item 11.
+ESTIMATE picks without measuring; MEASURE, PATIENT and EXHAUSTIVE time
+the candidates on the device the plan is for and keep the winner as
+wisdom (EXHAUSTIVE also times the O(n^2) and educational algorithms);
+WISDOM_ONLY takes a measured choice or raises. The other bits keep the
+JAX package's values and are not read here.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import enum
+
+import torch
 
 
 class Flags(enum.IntFlag):
@@ -27,8 +31,20 @@ class Flags(enum.IntFlag):
 
 @dataclasses.dataclass(frozen=True)
 class PlanConfig:
-    """Planner configuration, hashable. The JAX package's precision, leaf,
-    algorithm and interpret fields come with the planner they steer
-    (ROADMAP Queue 1 item 11)."""
+    """Planner configuration, hashable.
+
+    precision: 'f32' (complex64) or 'f64' (complex128).
+    leaf: the largest radix of the Stockham matmul FFT; ESTIMATE sends a
+      size with a larger prime factor to Bluestein.
+    algorithm: a registry algorithm to force, or None to select.
+    The JAX package's `interpret` (a Pallas switch) has no counterpart.
+    """
 
     flags: Flags = Flags.ESTIMATE
+    precision: str = "f32"
+    leaf: int = 1024
+    algorithm: str | None = None
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return torch.complex128 if self.precision == "f64" else torch.complex64

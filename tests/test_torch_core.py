@@ -4,6 +4,7 @@ planning, flags and the device report, held equal to the JAX package.
 Tables are compared with np.array_equal: both packages build them in
 float64 numpy with the same code, so they must agree bit for bit."""
 
+import math
 import re
 import shutil
 import subprocess
@@ -34,6 +35,9 @@ PKG = REPO / "fftlab_torch"
 
 def test_import_loads_no_jax_triton_or_cuda():
     code = ("import sys, fftlab_torch, fftlab_torch.plan.api, "
+            "fftlab_torch.plan.planner, fftlab_torch.plan.split_tuning, "
+            "fftlab_torch.plan.wisdom, fftlab_torch.bench.timing, "
+            "fftlab_torch.dist.four_step, fftlab_torch.algos.real_fft, "
             "fftlab_torch.kernels.fft_vmem, fftlab_torch.kernels.resident_vmem, "
             "fftlab_torch.kernels.os_filter_vmem, fftlab_torch.algos.bluestein, "
             "fftlab_torch.dsp.filtering, fftlab_torch.dsp.convolution, "
@@ -105,6 +109,11 @@ def test_stage_twiddle_equal(r, m, direction):
 def test_plan_factors_equal(n, leaf):
     assert stockham.plan_factors(n, leaf) == jx_stockham.plan_factors(n, leaf)
     assert stockham.max_prime_factor(n) == jx_stockham.max_prime_factor(n)
+    # the complex transform's stages: capped at STAGE_RADIX unless a
+    # prime factor needs more, the same product
+    stages = stockham.stage_factors(n, leaf)
+    assert math.prod(stages) == n
+    assert max(stages) <= max(stockham.STAGE_RADIX, stockham.max_prime_factor(n))
 
 
 def test_plan_factors_refuses_large_prime():
@@ -145,6 +154,29 @@ def test_chirp_equal(n, direction):
 def test_bit_reverse_equal(n):
     assert np.array_equal(bitrev.bit_reverse_indices(n),
                           jx_bitrev.bit_reverse_indices(n))
+
+
+@pytest.mark.parametrize("n", [1, 2, 8, 1000, 4096])
+@pytest.mark.parametrize("direction", [-1, 1])
+def test_twiddle_equal(n, direction):
+    assert np.array_equal(twiddle.twiddle_np(n, direction),
+                          jx_twiddle.twiddle_np(n, direction))
+    assert np.array_equal(twiddle.butterfly_twiddle_np(n, direction),
+                          jx_twiddle.butterfly_twiddle_np(n, direction))
+
+
+@pytest.mark.parametrize("n,radix", [(1, 4), (4, 4), (64, 4), (4096, 4), (1024, 2),
+                                     (729, 3), (1000, 10)])
+def test_digit_reverse_equal(n, radix):
+    assert np.array_equal(bitrev.digit_reverse_indices(n, radix),
+                          jx_bitrev.digit_reverse_indices(n, radix))
+
+
+def test_digit_reverse_refuses_other_sizes():
+    with pytest.raises(ValueError, match="not a power of 4"):
+        bitrev.digit_reverse_indices(32, 4)
+    with pytest.raises(ValueError):
+        jx_bitrev.digit_reverse_indices(32, 4)
 
 
 def test_bit_reverse_refuses_other_sizes():

@@ -798,3 +798,132 @@ def test_engine_three_pass_sides(no_tf32, n, direction, scale):
     c = threestep_vmem.threestep_pass_c(*b, direction, eff)
     assert snr_db(cplx(*c), cplx(*threestep_vmem.threestep_pass_c_plain(*b, direction, eff))) >= 110.0
     assert snr_db(cplx(*c), _card_oracle(xr, xi, direction, eff)) >= 120.0
+
+
+# ---------------------------------------------------------------- the complex API
+
+REGISTRY_SIZES = {"mixed_radix": 3000, "four_step": 3000, "bluestein": 4099,
+                  "recursive": 256, "iterative": 1024}
+REGISTRY_NAMES = ["naive_dft", "optimized_dft", "radix2_dit", "radix2_dif", "radix4",
+                  "split_radix", "bluestein", "mixed_radix", "recursive", "iterative",
+                  "stockham_mxu", "pallas_vmem", "four_step"]
+
+
+@pytest.fixture
+def wisdom_file(monkeypatch, tmp_path):
+    """A wisdom file of the test's own, an empty table and no cached plan."""
+    from fftlab_torch.plan import api, wisdom
+
+    monkeypatch.setenv("FFTLAB_WISDOM_PATH", str(tmp_path / "wisdom.json"))
+    monkeypatch.delenv("FFTLAB_FORCE_IMPL", raising=False)
+    wisdom.forget()
+    api._cached_plan.cache_clear()
+    yield wisdom
+    wisdom.forget()
+    api._cached_plan.cache_clear()
+
+
+def _cuda_complex(seed, shape):
+    xr, xi = planes(seed, shape)
+    return torch.complex(tt(xr, "cuda"), tt(xi, "cuda")), xr + 1j * xi.astype(np.float64)
+
+
+@pytest.mark.parametrize("direction", [-1, 1])
+@pytest.mark.parametrize("name", REGISTRY_NAMES)
+def test_registry_on_the_card(no_tf32, name, direction):
+    from fftlab_torch.algos import build_registry
+
+    assert list(build_registry()) == REGISTRY_NAMES
+    n = REGISTRY_SIZES.get(name, 4096)
+    x, z = _cuda_complex(n, (8, n))
+    y = build_registry()[name].fn(x, direction)
+    assert y.is_cuda and y.dtype == torch.complex64 and y.shape == x.shape
+    want = np.fft.fft(z) if direction == -1 else np.fft.ifft(z)
+    assert snr_db(y.cpu().numpy(), want) >= 110.0
+
+
+def test_pallas_vmem_launches_fft_rows(no_tf32):
+    x, z = _cuda_complex(3, (64, 8192))
+    before = fft_vmem.LAUNCHES["fft_rows"]
+    y = fftlab_torch.fft(x, algorithm="pallas_vmem")
+    assert fft_vmem.LAUNCHES["fft_rows"] == before + 1
+    plain = torch.complex(*fft_vmem.fft_rows_plain(x.real.contiguous(), x.imag.contiguous()))
+    assert snr_db(y.cpu().numpy(), plain.cpu().numpy()) >= 110.0
+    assert snr_db(y.cpu().numpy(), np.fft.fft(z)) >= 120.0
+
+
+def test_complex_api_at_high_precision():
+    """"high" turns TF32 on, for CGEMM too; the complex API's contractions
+    pin full float32 and keep 120 dB, and the caller's setting is back."""
+    torch.set_float32_matmul_precision("high")
+    try:
+        x, z = _cuda_complex(4, (4, 1 << 20))
+        y = fftlab_torch.fft(x)
+        assert torch.get_float32_matmul_precision() == "high"
+        assert snr_db(y.cpu().numpy(), np.fft.fft(z)) >= 120.0
+        assert snr_db(fftlab_torch.ifft(y).cpu().numpy(), z) >= 120.0
+        u, w = _cuda_complex(5, (8, 4096))
+        assert snr_db(fftlab_torch.fft(u, algorithm="naive_dft").cpu().numpy(),
+                      np.fft.fft(w)) >= 110.0
+    finally:
+        torch.set_float32_matmul_precision("highest")
+
+
+def test_numpy_input_goes_to_the_card():
+    x = planes(6, (2, 64))[0].astype(np.complex64)
+    y = fftlab_torch.fft(x)
+    assert y.is_cuda
+    assert fftlab_torch.fft(x, algorithm="radix2_dit").is_cuda
+    assert fftlab_torch.to_split(x)[0].is_cuda
+
+
+def test_measure_on_the_card_records_gpu(wisdom_file):
+    from fftlab_torch.plan.flags import Flags
+
+    plan = fftlab_torch.plan_dft_1d(1024, flags=Flags.MEASURE)
+    rec = wisdom_file.lookup(1024, "f32")
+    assert rec["algorithm"] == plan.algorithm
+    assert rec["platform"] == "gpu" and rec["protocol"] == "cuda_events"
+    assert rec["device_name"] == torch.cuda.get_device_name(0)
+    assert "pallas_vmem" in rec["timings_ms"]
+    split = fftlab_torch.plan_dft_1d_split(8192, flags=Flags.MEASURE, batch=64)
+    rec = wisdom_file.lookup(8192, "f32", kind="route")
+    assert split.algorithm == rec["algorithm"] and rec["platform"] == "gpu"
+    assert set(rec["timings_ms"]) == {"einsum", "smem_rows"}
+    assert fftlab_torch.plan_dft_1d_split(8192, flags=Flags.WISDOM_ONLY).algorithm == split.algorithm
+
+
+def test_failing_candidate_on_the_card_fails_the_measurement(wisdom_file, monkeypatch):
+    """A kernel route that raises on the card fails the measurement with
+    its name; it is neither skipped nor replaced by einsum."""
+    from fftlab_torch.plan import split_tuning
+    from fftlab_torch.plan.flags import Flags
+
+    def broken(*args, **kwargs):
+        raise RuntimeError("launch failed")
+
+    monkeypatch.setattr(fft_vmem, "fft_rows", broken)
+    with pytest.raises(RuntimeError, match="route 'smem_rows' at n=8192 failed on cuda"):
+        split_tuning.tune_split_route(8192, batch=8)
+    with pytest.raises(RuntimeError, match="candidate 'pallas_vmem' failed on cuda"):
+        fftlab_torch.plan_dft_1d(2048, flags=Flags.MEASURE)
+    assert wisdom_file.snapshot() == {}
+
+
+def test_measured_leaf_runs_on_the_card(wisdom_file):
+    """The leaf `tune_split_leaf` records on the card, under the card's
+    name, is the leaf the einsum route then runs there."""
+    from fftlab_torch.plan import split_tuning
+    from fftlab_torch.plan.dispatch import run_route
+
+    leaf = split_tuning.tune_split_leaf(4096, leaves=(64, 512), batch=8, iters=2)
+    rec = wisdom_file.lookup(4096, "f32", kind="split")
+    assert rec["algorithm"] == f"leaf={leaf}" and rec["platform"] == "gpu"
+    assert rec["device_name"] == torch.cuda.get_device_name(0)
+    assert split_tuning.best_leaf(4096, "cuda") == leaf
+    assert split_tuning.best_leaf(4096, "cpu") == 128  # not measured on the CPU
+    xr, xi = planes(11, (8, 4096))
+    want = np.fft.fft(xr.astype(np.complex128) + 1j * xi)
+    yr, yi = run_route("einsum", torch.from_numpy(xr).cuda(), torch.from_numpy(xi).cuda(), -1)
+    got = yr.cpu().numpy() + 1j * yi.cpu().numpy()
+    assert np.linalg.norm(got - want) <= 1e-5 * np.linalg.norm(want)

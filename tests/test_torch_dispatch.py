@@ -116,9 +116,26 @@ def test_plan_from_jax_carries_a_jax_plan(monkeypatch, jax_route, n):
 
 @pytest.mark.parametrize("flag", [Flags.MEASURE, Flags.PATIENT,
                                   Flags.EXHAUSTIVE, Flags.WISDOM_ONLY])
-def test_measuring_flags_not_ported(flag):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        fftlab_torch.plan_dft_1d_split(1 << 15, flags=flag)
+def test_measuring_flags_not_ported(flag, monkeypatch, tmp_path):
+    """The measuring flags are ported: on the card by default, so without
+    one they raise rather than measure the CPU; with device="cpu" the only
+    route there (einsum) is measured and recorded, and WISDOM_ONLY then
+    takes it."""
+    from fftlab_torch.plan import wisdom
+
+    monkeypatch.setenv("FFTLAB_WISDOM_PATH", str(tmp_path / "wisdom.json"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    wisdom.forget()
+    try:
+        with pytest.raises(RuntimeError, match="no CUDA device|WISDOM_ONLY"):
+            fftlab_torch.plan_dft_1d_split(1 << 15, flags=flag)
+        if flag == Flags.WISDOM_ONLY:
+            fftlab_torch.plan_dft_1d_split(1 << 15, flags=Flags.MEASURE, device="cpu")
+        plan = fftlab_torch.plan_dft_1d_split(1 << 15, flags=flag, device="cpu")
+        assert plan.algorithm == "einsum"
+        assert wisdom.lookup(1 << 15, "f32", kind="route")["platform"] == "cpu"
+    finally:
+        wisdom.forget()
 
 
 def test_force_impl_outranks_flags(monkeypatch):
@@ -168,4 +185,4 @@ def test_fft_split_auto_defaults_forward():
 def test_plan_describe():
     plan = fftlab_torch.plan_dft_1d_split(1 << 15, fftlab_torch.INVERSE)
     assert plan.describe() == ("Plan(kind=c2c_split, n=32768, dir=INVERSE, "
-                               "algorithm=two_pass)")
+                               "algorithm=two_pass, dtype=float32)")

@@ -138,3 +138,42 @@ def test_restored_after_an_error(medium):
         with full_float32():
             raise RuntimeError("inside")
     assert torch.get_float32_matmul_precision() == "medium"
+
+
+# the complex path: every registry algorithm that contracts with a DFT
+# matrix (the naive and optimized DFT, radix-4, the codelet matmul of mixed radix
+# at primes >= 7, Stockham, four-step), the public one-shot calls, the
+# real and 2-D transforms. This CPU has no bfloat16 path for a complex
+# matmul, so here these hold with or without full_float32; on the card
+# CGEMM takes TF32 (test_complex_api_at_high_precision in
+# tests/test_torch_cuda.py)
+COMPLEX = [("naive_dft", 256), ("optimized_dft", 256), ("radix4", 1024),
+           ("mixed_radix", 7 * 11 * 13), ("stockham_mxu", 1000), ("stockham_mxu", 4096),
+           ("four_step", 1000)]
+
+
+@pytest.mark.parametrize("name,n", COMPLEX, ids=[f"{a}-{n}" for a, n in COMPLEX])
+def test_complex_registry_at_medium(medium, name, n):
+    from fftlab_torch.algos import build_registry
+
+    xr, xi = planes(n, (4, n))
+    x = torch.complex(tt(xr), tt(xi))
+    got = build_registry()[name].fn(x).numpy()
+    assert torch.get_float32_matmul_precision() == "medium"
+    assert snr_db(got, oracle(xr, xi, -1)) >= 120.0
+
+
+def test_complex_api_at_medium(medium):
+    import fftlab_torch
+
+    xr, xi = planes(5, (4, 1000))
+    x = torch.complex(tt(xr), tt(xi))
+    y = fftlab_torch.fft(x)
+    assert snr_db(y.numpy(), oracle(xr, xi, -1)) >= 120.0
+    assert snr_db(fftlab_torch.ifft(y).numpy(), xr + 1j * xi.astype(np.float64)) >= 120.0
+    z = fftlab_torch.fft2(x)
+    assert snr_db(z.numpy(), np.fft.fft2(xr + 1j * xi.astype(np.float64))) >= 120.0
+    X = fftlab_torch.rfft(tt(xr))
+    assert snr_db(X.numpy(), np.fft.rfft(xr.astype(np.float64))) >= 120.0
+    assert snr_db(fftlab_torch.irfft(X, 1000).numpy(), xr.astype(np.float64)) >= 120.0
+    assert torch.get_float32_matmul_precision() == "medium"

@@ -344,10 +344,26 @@ def test_real_plans_match_jax(n):
 
 
 @pytest.mark.parametrize("flag", [Flags.MEASURE, Flags.WISDOM_ONLY])
-def test_real_plans_measuring_flags_not_ported(flag):
-    for make in (fftlab_torch.plan_r2c_1d_split, fftlab_torch.plan_c2r_1d_split):
-        with pytest.raises(NotImplementedError, match="half-size"):
-            make(1 << 16, flags=flag)
+def test_real_plans_measuring_flags_not_ported(flag, monkeypatch, tmp_path):
+    """The measuring flags are ported. In the fused window the fused
+    kernels come first, as in the JAX package; outside it the half-size
+    route is measured (einsum, the only route off a card), and WISDOM_ONLY
+    without a measurement of the half size raises, naming it."""
+    from fftlab_torch.plan import wisdom
+
+    monkeypatch.setenv("FFTLAB_WISDOM_PATH", str(tmp_path / "wisdom.json"))
+    wisdom.forget()
+    try:
+        for make, name in ((fftlab_torch.plan_r2c_1d_split, "rfft"),
+                           (fftlab_torch.plan_c2r_1d_split, "irfft")):
+            assert make(1 << 16, flags=flag).algorithm == f"{name}_resident"
+            if flag == Flags.WISDOM_ONLY:
+                with pytest.raises(RuntimeError, match="half-size"):
+                    make(1 << 23, flags=flag, device="cpu")
+            else:
+                assert make(1 << 23, flags=flag, device="cpu").algorithm == f"{name}_split[einsum]"
+    finally:
+        wisdom.forget()
 
 
 @pytest.mark.parametrize("kind,algorithm,n,want", [
@@ -388,7 +404,8 @@ def test_plan_from_jax_carries_real_plans(monkeypatch, jax_route, n):
     ("r2c_split", "irfft_resident", 1 << 16, "unknown JAX r2c_split"),
     ("c2r_split", "irfft_split[two_pass]", 1 << 16, "unknown JAX c2r_split"),
     ("r2c_split", "rfft_resident", 1 << 23, "2\\^15, 2\\^20"),
-    ("c2c_2d", "einsum", 64, "unknown JAX plan kind"),
+    ("c2c_2d", "einsum", 64, "unknown JAX c2c_2d algorithm"),
+    ("c2c_sharded", "einsum", 64, "unknown JAX plan kind"),
 ])
 def test_plan_from_jax_real_refuses(kind, algorithm, n, match):
     with pytest.raises(ValueError, match=match):
