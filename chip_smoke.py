@@ -80,7 +80,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
    A/B of `os_filter`'s frames per block at 1K frames (T in {2, 4, 8}, graph,
    in turns) and its frame-size sweep (1K..16K frames at the serving
    shape, each checked against the plain version first; no default
-   changes with it);
+   changes with it); and each DSP entry point of phase 4f beside the
+   PyTorch call that computes the same function (torch.fft, torch.stft,
+   torch.istft, conv1d), 5 calls between the events, median of 10, with
+   its bound (bytes in and out over 3.35 TB/s);
 6. result: one JSON line of kernels, each with its bound (the larger of
    its bytes in and out over 3.35 TB/s and its float32 operations over
    67 TFLOP/s, the H100 SXM's published peaks), then the device line
@@ -376,6 +379,441 @@ def complex_api_phase(dev, gen, card: str, reset_counts, read_counts) -> None:
                 os.environ["FFTLAB_WISDOM_PATH"] = saved
     print(f"complex API phase: {time.perf_counter() - t_phase:.1f} s")
 
+
+# the DSP path (phase 4f): the shapes users run the entry points at
+DSP_CONV_SHAPE, DSP_CONV_TAPS = (16, 1 << 20), 1025  # m = 2^21
+DSP_BLOCK_N, DSP_BLOCK_TAPS, DSP_BLOCK = 1 << 23, 129, 1024  # the serving shape
+DSP_DIRECT_N, DSP_DIRECT_TAPS = 1 << 16, 129
+DSP_IMAGE, DSP_KERNEL_2D = 2048, 33  # a 4096 x 4096 FFT
+DSP_ROWS = (16, 1 << 20)  # fft_filter, periodogram
+DSP_WELCH_WINDOW = 256
+DSP_CORR_SHAPE = (16, 1 << 19)  # m = 2^20: two_pass
+# the split correlations at each route's m: 8192 (smem_rows), 2^20
+# (two_pass) and 2^22 (three_pass)
+DSP_CORR_ROUTES = ((64, 4096), (16, 1 << 19), (2, 1 << 21))
+DSP_PITCH_SHAPE, DSP_FS = (1024, 4096), 44100.0
+DSP_ANALYZER_SECONDS, DSP_CHUNK = 10, 4096
+# the timing protocol of the DSP entry points: 5 calls between the
+# events, median of 10 (the slowest take tens of ms a call)
+DSP_TIMING = {"iters": 10, "inner": 5, "warmup": 3}
+
+
+def dsp_phase(dev, gen, card: str, reset_counts, read_counts) -> list:
+    """Phase 4f: the complex-dtype DSP on the card, through its public
+    entry points at the shapes users run them (see the module docstring).
+    Every output is held against a float64 computation of the same
+    function on the same float32 input (torch.fft and torch.stft in
+    float64 on the card, np.convolve, and a float64 sequential average
+    on the host), the pitch estimates against the port's own CPU path.
+    Returns the timing cases of phase 5: (name, shape, entry point,
+    library name, library call or None, bytes in and out)."""
+    import contextlib
+    import importlib
+    import io
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from fftlab_torch.core.window import get_window
+    from fftlab_torch.dsp import analyzer, image
+    from fftlab_torch.dsp.convolution import (circular_convolution, convolve2d,
+                                              direct_convolution, fft_convolution,
+                                              overlap_add, overlap_save)
+    from fftlab_torch.dsp.filtering import (FilterParams, FilterType, design_response,
+                                            fft_filter)
+    from fftlab_torch.dsp.pitch import (detect_pitch, harmonic_product_spectrum,
+                                        pitch_autocorrelation, pitch_spectral_peak)
+    from fftlab_torch.dsp.spectrum import (autocorrelation, autocorrelation_split, coherence,
+                                           cross_correlation, cross_correlation_split,
+                                           periodogram, welch_psd)
+    from fftlab_torch.dsp.stft import istft, spectrogram, stft, stft_complex
+    from fftlab_torch.plan.dispatch import select_split_impl
+
+    t_phase = time.perf_counter()
+    cases = []
+
+    def reals(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    def snr(got, want) -> float:
+        """dB of a float32/complex64 output against its float64 reference."""
+        err = (got.to(want.dtype) - want).abs().square().sum().clamp_min(1e-300)
+        return float(10 * torch.log10(want.abs().square().sum() / err))
+
+    def gate(what, got, want, limit):
+        require(tuple(got.shape) == tuple(want.shape), f"dsp {what}: shape "
+                f"{tuple(got.shape)}, want {tuple(want.shape)}")
+        require(bool(torch.isfinite(got).all()), f"dsp {what}: non-finite output")
+        s = snr(got, want)
+        print(f"dsp {what}: {s:.1f} dB vs float64 (gate {limit:.0f})")
+        require(s >= limit, f"dsp {what}: {s:.1f} dB < {limit}")
+
+    def window64(size):
+        return torch.from_numpy(get_window("hann", size)).to(dev)
+
+    def stft64(x, size, hop, onesided=True):
+        """float64 [frames, bins] of the whole frames (torch.stft)."""
+        return torch.stft(x.double(), size, hop, window=window64(size), center=False,
+                          onesided=onesided, return_complex=True).T
+
+    def ema64(mag):
+        """float64 sequential average c_t = 3/4 c_{t-1} + 1/4 m_t, c_-1 = m_0."""
+        m = mag.cpu().numpy()
+        out, c = np.empty_like(m), m[0]
+        for t in range(len(m)):
+            c = 0.75 * c + 0.25 * m[t]
+            out[t] = c
+        return torch.from_numpy(out).to(dev)
+
+    def launched(fn):
+        """fn() and the launches it made, by kernel."""
+        before = read_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        after = read_counts()
+        return out, {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+    def nbytes(a):
+        return a.element_size() * a.numel()
+
+    reset_counts()
+    # the FFT convolutions: 16 x 2^20 real, 1025 real taps, m = 2^21
+    B, n = DSP_CONV_SHAPE
+    nh = DSP_CONV_TAPS
+    x, h = reals(B, n), reals(nh) / math.sqrt(nh)
+    L, m = n + nh - 1, 1 << (n + nh - 2).bit_length()
+    want = torch.fft.irfft(torch.fft.rfft(x.double(), m) * torch.fft.rfft(h.double(), m),
+                           m)[:, :L]
+    gate("fft_convolution 16 x 2^20, 1025 taps", fft_convolution(x, h), want, 110.0)
+    xc, hc = F.pad(x, (0, m - n)), F.pad(h, (0, m - nh))
+    gate("circular_convolution 16 x 2^21", circular_convolution(xc, hc),
+         F.pad(want, (0, m - L)), 110.0)
+    del want
+    # (every closure binds what it reads: the names are reused below)
+    cases += [("fft_convolution", "16 x 2^20, 1025 taps", lambda x=x, h=h: fft_convolution(x, h),
+               "torch.fft.rfft/irfft", lambda x=x, h=h, m=m, L=L: torch.fft.irfft(
+                   torch.fft.rfft(x, m) * torch.fft.rfft(h, m), m)[:, :L],
+               nbytes(x) + nbytes(h) + 4 * B * L),
+              ("circular_convolution", "16 x 2^21", lambda: circular_convolution(xc, hc),
+               "torch.fft.rfft/irfft", lambda m=m: torch.fft.irfft(
+                   torch.fft.rfft(xc) * torch.fft.rfft(hc), m),
+               2 * nbytes(xc) + nbytes(hc))]
+
+    # the block convolutions at the serving shape, and the direct one
+    nb, nh = DSP_BLOCK_N, DSP_BLOCK_TAPS
+    s, g = reals(nb), reals(nh) / nh
+    L, m = nb + nh - 1, 1 << (nb + nh - 2).bit_length()
+    want = torch.fft.irfft(torch.fft.rfft(s.double(), m) * torch.fft.rfft(g.double(), m),
+                           m)[:L]
+    gate("overlap_save 2^23, 129 taps, block 1024", overlap_save(s, g, DSP_BLOCK), want, 110.0)
+    gate("overlap_add 2^23, 129 taps, block 1024", overlap_add(s, g, DSP_BLOCK), want, 110.0)
+    del want
+    g_flip = torch.flip(g, (0,)).view(1, 1, nh)
+    cases += [(name, "2^23, 129 taps, block 1024", lambda f=f: f(s, g, DSP_BLOCK),
+               "conv1d", lambda: F.conv1d(s.view(1, 1, -1), g_flip,
+                                          padding=DSP_BLOCK_TAPS - 1)[0, 0],
+               nbytes(s) + nbytes(g) + 4 * L)
+              for name, f in (("overlap_save", overlap_save), ("overlap_add", overlap_add))]
+    d, dh = reals(DSP_DIRECT_N), reals(DSP_DIRECT_TAPS) / DSP_DIRECT_TAPS
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default, outside the call
+    try:
+        y = direct_convolution(d, dh)
+        require(torch.backends.cudnn.allow_tf32, "direct_convolution left cuDNN TF32 off")
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    want = torch.from_numpy(np.convolve(d.double().cpu().numpy(),
+                                        dh.double().cpu().numpy())).to(dev)
+    gate("direct_convolution 2^16, 129 taps, cudnn.allow_tf32 True outside", y, want, 110.0)
+    dh_flip = torch.flip(dh, (0,)).view(1, 1, -1)
+    cases.append(("direct_convolution", "2^16, 129 taps", lambda: direct_convolution(d, dh),
+                  "conv1d", lambda: F.conv1d(d.view(1, 1, -1), dh_flip,
+                                             padding=DSP_DIRECT_TAPS - 1)[0, 0],
+                  nbytes(d) + nbytes(dh) + 4 * (DSP_DIRECT_N + DSP_DIRECT_TAPS - 1)))
+
+    # 2-D: 2048 x 2048 with a 33 x 33 kernel, a 4096 x 4096 FFT
+    img, k2 = reals(DSP_IMAGE, DSP_IMAGE), reals(DSP_KERNEL_2D, DSP_KERNEL_2D) / DSP_KERNEL_2D
+    r = DSP_IMAGE + DSP_KERNEL_2D - 1
+    sz = (1 << (r - 1).bit_length(),) * 2
+    want = torch.fft.irfft2(torch.fft.rfft2(img.double(), sz) * torch.fft.rfft2(k2.double(), sz),
+                            sz)[:r, :r]
+    gate("convolve2d 2048 x 2048, 33 x 33", convolve2d(img, k2), want, 110.0)
+    del want
+    cases.append(("convolve2d", "2048 x 2048, 33 x 33", lambda: convolve2d(img, k2),
+                  "torch.fft.fft2", lambda r=r: torch.fft.ifft2(
+                      torch.fft.fft2(img, sz) * torch.fft.fft2(k2, sz))[:r, :r].real,
+                  nbytes(img) + nbytes(k2) + 4 * r * r))
+
+    # the FFT filter and the periodogram, 16 x 2^20
+    B, n = DSP_ROWS
+    u = reals(B, n)
+    params = FilterParams(FilterType.LOWPASS, 0.1)
+    H = torch.from_numpy(design_response(n, params)).to(dev)
+    gate("fft_filter 16 x 2^20", fft_filter(u, params),
+         torch.fft.ifft(torch.fft.fft(u.double()) * H).real, 110.0)
+    H_half = H[: n // 2 + 1].float()
+    cases.append(("fft_filter", "16 x 2^20", lambda: fft_filter(u, params),
+                  "torch.fft.rfft/irfft", lambda n=n: torch.fft.irfft(torch.fft.rfft(u) * H_half, n),
+                  2 * nbytes(u)))
+    w = window64(n)
+    dbl = torch.full((n // 2 + 1,), 2.0, dtype=torch.float64, device=dev)
+    dbl[0] = dbl[-1] = 1.0
+    psd = torch.fft.rfft(u.double() * w).abs().square() / (n * w.square().mean()) * dbl
+    gate("periodogram 16 x 2^20", periodogram(u)[1], psd, 100.0)
+    del psd
+    w32 = w.float()
+    cases.append(("periodogram", "16 x 2^20", lambda: periodogram(u),
+                  "torch.fft.rfft", lambda: torch.fft.rfft(u * w32).abs().square(),
+                  nbytes(u) + 4 * B * (n // 2 + 1)))
+
+    # the STFT family, 2^22 samples at 2048/512 and 256/128
+    sig = reals(STFT_N)
+    for size, hop in STFT_CASES:
+        tag = f"{size}/{hop}"
+        frames = (STFT_N - size) // hop + 1
+        bins = size // 2 + 1
+        S = stft(sig, size, hop)
+        ref = stft64(sig, size, hop)
+        gate(f"stft 2^22 {tag}", S, ref, 110.0)
+        gate(f"stft_complex 2^22 {tag}", stft_complex(sig, size, hop),
+             stft64(sig, size, hop, onesided=False), 110.0)
+        back = istft(S, size, hop, length=STFT_N)
+        w2 = np.asarray(get_window("hann", size)) ** 2
+        energy = np.zeros((frames - 1) * hop + size)
+        for j in range(size // hop):  # hop divides the frame: q diagonal shifts
+            energy[j * hop:j * hop + frames * hop] += np.tile(w2[j * hop:(j + 1) * hop], frames)
+        keep = torch.from_numpy(energy[:STFT_N] >= 1e-3).to(dev)
+        gate(f"istft 2^22 {tag} where the window energy >= 1e-3", back[keep],
+             sig.double()[keep], 110.0)
+        avg = ema64(ref.abs())
+        gate(f"spectrogram(averaging=4) 2^22 {tag}", spectrogram(sig, size, hop, averaging=4),
+             avg, 110.0)
+        wt = window64(size).float()
+        S_lib = torch.stft(sig, size, hop, window=wt, center=True, return_complex=True)
+        out_c, out_r = 8 * frames * bins, 4 * frames * bins
+        cases += [("stft", f"2^22 {tag}", lambda size=size, hop=hop: stft(sig, size, hop),
+                   "torch.stft", lambda size=size, hop=hop, wt=wt: torch.stft(
+                       sig, size, hop, window=wt, center=False, return_complex=True),
+                   nbytes(sig) + out_c),
+                  ("stft_complex", f"2^22 {tag}",
+                   lambda size=size, hop=hop: stft_complex(sig, size, hop), "torch.stft",
+                   lambda size=size, hop=hop, wt=wt: torch.stft(
+                       sig, size, hop, window=wt, center=False, onesided=False,
+                       return_complex=True), nbytes(sig) + 2 * out_c),
+                  ("istft", f"2^22 {tag}",
+                   lambda S=S, size=size, hop=hop: istft(S, size, hop, length=STFT_N),
+                   "torch.istft (center=True)", lambda size=size, hop=hop, wt=wt, S_lib=S_lib:
+                   torch.istft(S_lib, size, hop, window=wt, center=True, length=STFT_N),
+                   out_c + nbytes(sig)),
+                  ("spectrogram(averaging=4)", f"2^22 {tag}",
+                   lambda size=size, hop=hop: spectrogram(sig, size, hop, averaging=4),
+                   "torch.stft().abs()", lambda size=size, hop=hop, wt=wt: torch.stft(
+                       sig, size, hop, window=wt, center=False, return_complex=True).abs(),
+                   nbytes(sig) + out_r)]
+        if (size, hop) == STFT_CASES[0]:
+            avg_main = avg
+        del S, ref, back, keep, avg, S_lib
+
+    # Welch and coherence, 2^22 samples, window 256
+    ws = DSP_WELCH_WINDOW
+    sig2 = 0.6 * sig + 0.4 * reals(STFT_N)
+    X64, Y64 = stft64(sig, ws, ws // 2), stft64(sig2, ws, ws // 2)
+    dbl = torch.full((ws // 2 + 1,), 2.0, dtype=torch.float64, device=dev)
+    dbl[0] = dbl[-1] = 1.0
+    psd = X64.abs().square().mean(0) / (ws * window64(ws).square().mean()) * dbl
+    gate("welch_psd 2^22, window 256", welch_psd(sig, window_size=ws)[1], psd, 100.0)
+    coh_want = ((X64.conj() * Y64).mean(0).abs().square()
+                / (X64.abs().square().mean(0) * Y64.abs().square().mean(0)))
+    coh = coherence(sig, sig2, window_size=ws)[1]
+    diff = float((coh.double() - coh_want).abs().max())
+    print(f"dsp coherence 2^22, window 256: max |error| {diff:.3g} vs float64 (gate 1e-4)")
+    require(diff <= 1e-4, f"dsp coherence: max error {diff:.3g} > 1e-4")
+    del X64, Y64
+    w256 = window64(ws).float()
+    lib_seg = lambda v: torch.stft(v, ws, ws // 2, window=w256, center=False,
+                                   return_complex=True)
+    cases += [("welch_psd", "2^22, window 256", lambda: welch_psd(sig, window_size=ws),
+               "torch.stft", lambda: lib_seg(sig).abs().square().mean(-1), nbytes(sig) + 4 * 129),
+              ("coherence", "2^22, window 256", lambda: coherence(sig, sig2, window_size=ws),
+               "torch.stft", lambda: (lib_seg(sig).conj() * lib_seg(sig2)).mean(-1).abs(),
+               2 * nbytes(sig) + 4 * 129)]
+
+    # the correlations, 16 x 2^19 (m = 2^20), the complex ones and the
+    # split pair; the split pair also at the other routes' m
+    for Bc, nc in DSP_CORR_ROUTES:
+        a, b = reals(Bc, nc), reals(Bc, nc)
+        mc = 2 * nc
+        route = select_split_impl(mc, Bc)
+        X, Y = torch.fft.rfft(a.double(), mc), torch.fft.rfft(b.double(), mc)
+        r = torch.fft.irfft(X.abs().square(), mc)[:, :nc]
+        auto64 = r / r[:, :1]
+        rc = torch.fft.irfft(X.conj() * Y, mc)
+        cross64 = torch.cat([rc[:, mc - (nc - 1):], rc[:, :nc]], dim=-1)
+        del X, Y, r, rc
+        label = f"{Bc} x 2^{nc.bit_length() - 1}"
+        for name, fn, want in (("autocorrelation_split", lambda: autocorrelation_split(a),
+                                auto64),
+                               ("cross_correlation_split",
+                                lambda: cross_correlation_split(a, b), cross64)):
+            got, counts = launched(fn)
+            print(f"dsp {name} {label} (m = 2^{mc.bit_length() - 1}, route {route}) "
+                  f"launches: {counts}")
+            kernels = {"smem_rows": ("fft_rows",),
+                       "two_pass": ("fourstep_pass1", "fourstep_pass2"),
+                       "three_pass": ("threestep_pass_a", "threestep_pass_b",
+                                      "threestep_pass_c")}[route]
+            require(counts == dict.fromkeys(kernels, 2),
+                    f"{name} at m = {mc} launched {counts}, want two of each of {kernels}")
+            gate(f"{name} {label}", got, want, 100.0)
+        if (Bc, nc) == DSP_CORR_SHAPE:
+            gate(f"autocorrelation {label}", autocorrelation(a), auto64, 100.0)
+            gate(f"cross_correlation {label}", cross_correlation(a, b), cross64, 100.0)
+            lib_auto = lambda a=a, nc=nc, mc=mc: torch.fft.irfft(
+                torch.fft.rfft(a, mc).abs().square(), mc)[:, :nc]
+            lib_cross = lambda a=a, b=b, mc=mc: torch.fft.irfft(
+                torch.fft.rfft(a, mc).conj() * torch.fft.rfft(b, mc), mc)
+            out_x = 4 * Bc * (2 * nc - 1)
+            cases += [("autocorrelation", label, lambda a=a: autocorrelation(a),
+                       "torch.fft.rfft/irfft", lib_auto, 2 * nbytes(a)),
+                      ("autocorrelation_split", label, lambda a=a: autocorrelation_split(a),
+                       "torch.fft.rfft/irfft", lib_auto, 2 * nbytes(a)),
+                      ("cross_correlation", label, lambda a=a, b=b: cross_correlation(a, b),
+                       "torch.fft.rfft/irfft", lib_cross, 2 * nbytes(a) + out_x),
+                      ("cross_correlation_split", label,
+                       lambda a=a, b=b: cross_correlation_split(a, b),
+                       "torch.fft.rfft/irfft", lib_cross, 2 * nbytes(a) + out_x)]
+        del auto64, cross64
+
+    # pitch: 1024 frames of 4096 at 44.1 kHz, against the port's CPU path
+    Bp, n_p = DSP_PITCH_SHAPE
+    t = torch.arange(n_p, dtype=torch.float64, device=dev) / DSP_FS
+    f0 = torch.linspace(100.0, 1000.0, Bp, dtype=torch.float64, device=dev)[:, None]
+    frames = (torch.sin(2 * math.pi * f0 * t) + 0.5 * torch.sin(4 * math.pi * f0 * t)
+              + 0.25 * torch.sin(6 * math.pi * f0 * t)
+              + 0.01 * reals(Bp, n_p).double()).float()
+    frames_host = frames.cpu()
+    for name, fn in (("pitch_spectral_peak", pitch_spectral_peak),
+                     ("harmonic_product_spectrum", harmonic_product_spectrum),
+                     ("pitch_autocorrelation", pitch_autocorrelation)):
+        got, want = fn(frames, DSP_FS).cpu(), fn(frames_host, DSP_FS)
+        rel = float(((got - want).abs() / want.abs().clamp_min(1e-30)).max())
+        print(f"dsp {name} 1024 x 4096: max relative difference from the CPU path "
+              f"{rel:.3g} (gate 1e-3)")
+        require(got.shape == (Bp,) and rel <= 1e-3, f"dsp {name}: {rel:.3g} from CPU")
+        cases.append((name, "1024 x 4096", lambda fn=fn: fn(frames, DSP_FS), None, None,
+                      nbytes(frames) + 4 * Bp))
+    one = frames[Bp // 3]
+    got, want = detect_pitch(one, DSP_FS), detect_pitch(frames_host[Bp // 3], DSP_FS)
+    print(f"dsp detect_pitch one frame: {got['pitch']:.4f} Hz {got['note']} "
+          f"(CPU {want['pitch']:.4f} Hz {want['note']})")
+    require(got["note"] == want["note"]
+            and abs(got["pitch"] - want["pitch"]) <= 1e-3 * want["pitch"],
+            f"dsp detect_pitch {got} vs CPU {want}")
+    cases.append(("detect_pitch", "one frame of 4096", lambda: detect_pitch(one, DSP_FS),
+                  None, None, nbytes(one)))
+
+    # the analyzer: 10 s of 44.1 kHz in 4096-sample chunks, on the card and
+    # on the CPU; spectrogram_batch on 2^22 samples
+    total = int(DSP_ANALYZER_SECONDS * DSP_FS)
+    tt_ = np.arange(total) / DSP_FS
+    phase = 2 * np.pi * np.cumsum(440.0 + 400.0 * np.sin(2 * np.pi * 0.5 * tt_)) / DSP_FS
+    stream = (np.sin(phase) + 0.5 * np.sin(2 * phase) + 0.25 * np.sin(3 * phase)).astype(
+        np.float32)
+    cfg = analyzer.AnalyzerConfig()
+    on_card, on_host = analyzer.RealtimeAnalyzer(cfg), analyzer.RealtimeAnalyzer(cfg, device="cpu")
+
+    def feed():
+        calls = 0
+        for i in range(0, total, DSP_CHUNK):
+            chunk = stream[i:i + DSP_CHUNK]
+            calls += on_card.process(chunk) is not None
+            on_host.process(chunk)
+            require(np.array_equal(on_card._tail, on_host._tail), "analyzer tail differs")
+        return calls
+
+    calls, counts = launched(feed)
+    print(f"dsp RealtimeAnalyzer 10 s in {-(-total // DSP_CHUNK)} chunks of 4096: "
+          f"{calls} spectra, launches: {counts}")
+    require(counts == {"stft_frames": calls}, f"analyzer launched {counts} in {calls} calls")
+    # the stream's frames are the whole signal's: its average is the last
+    # of the float64 average over them
+    ref = ema64(stft64(torch.from_numpy(stream).to(dev), cfg.fft_size, cfg.hop).abs())
+    require(len(ref) == (total - cfg.fft_size) // cfg.hop + 1, f"{len(ref)} frames")
+    gate("RealtimeAnalyzer average after 10 s", torch.from_numpy(on_card._avg).to(dev),
+         ref[-1], 110.0)
+    require([round(p.bin) for p in on_card.peaks()] == [round(p.bin) for p in on_host.peaks()],
+            "analyzer peaks differ from the CPU path")
+    del ref
+    chunk = torch.from_numpy(stream[:DSP_CHUNK]).to(dev)
+    cases.append(("RealtimeAnalyzer.process", "4096-sample chunk",
+                  lambda chunk=chunk: on_card.process(chunk), None, None,
+                  4 * DSP_CHUNK + 4 * 1025))
+    batch, counts = launched(lambda: on_card.spectrogram_batch(sig))
+    print(f"dsp spectrogram_batch 2^22: launches {counts}")
+    require(counts == {"stft_frames": 1}, f"spectrogram_batch launched {counts}")
+    gate("spectrogram_batch 2^22 2048/512", batch, avg_main, 110.0)
+    wt = window64(cfg.fft_size).float()
+    cases.append(("spectrogram_batch", "2^22 2048/512", lambda: on_card.spectrogram_batch(sig),
+                  "torch.stft().abs()", lambda wt=wt: torch.stft(
+                      sig, 2048, 512, window=wt, center=False, return_complex=True).abs(),
+                  nbytes(sig) + nbytes(batch)))
+    del batch, avg_main
+
+    # images: 2048 x 2048 low- and high-pass, ideal and gaussian, edges and
+    # the log-magnitude spectrum
+    F64 = torch.fft.fft2(img.double())
+    side = DSP_IMAGE
+    for name, kind, cutoff, build in (
+            ("lowpass_filter_image", "ideal", side / 10, image.ideal_lowpass_mask),
+            ("lowpass_filter_image", "gaussian", side / 10, image.gaussian_lowpass_mask),
+            ("highpass_filter_image", "ideal", side / 8, image.ideal_highpass_mask),
+            ("highpass_filter_image", "gaussian", side / 8, image.gaussian_highpass_mask)):
+        fn = getattr(image, name)
+        M = torch.from_numpy(build(side, side, cutoff)).to(dev)
+        gate(f"{name} {kind} 2048 x 2048", fn(img, cutoff, kind),
+             torch.fft.ifft2(F64 * M).real, 110.0)
+        M32 = M.to(torch.complex64)
+        cases.append((f"{name}({kind})", "2048 x 2048",
+                      lambda fn=fn, kind=kind, cutoff=cutoff: fn(img, cutoff, kind),
+                      "torch.fft.fft2", lambda M32=M32: torch.fft.ifft2(
+                          torch.fft.fft2(img) * M32).real, 2 * nbytes(img)))
+    M = torch.from_numpy(image.ideal_highpass_mask(side, side, side / 8)).to(dev)
+    gate("detect_edges 2048 x 2048", image.detect_edges(img),
+         torch.fft.ifft2(F64 * M).real.abs(), 110.0)
+    gate("log_magnitude_spectrum 2048 x 2048", image.log_magnitude_spectrum(img),
+         torch.log1p(torch.fft.fftshift(F64).abs()), 110.0)
+    del F64
+    M32 = M.to(torch.complex64)
+    cases += [("detect_edges", "2048 x 2048", lambda: image.detect_edges(img),
+               "torch.fft.fft2", lambda: torch.fft.ifft2(torch.fft.fft2(img) * M32).real.abs(),
+               2 * nbytes(img)),
+              ("log_magnitude_spectrum", "2048 x 2048", lambda: image.log_magnitude_spectrum(img),
+               "torch.fft.fft2", lambda: torch.log1p(torch.fft.fftshift(
+                   torch.fft.fft2(img)).abs()), 2 * nbytes(img))]
+
+    torch.cuda.synchronize()
+    path = {k: c for k, c in read_counts().items() if c}
+    print(f"DSP path launches: {path}")
+    for k in ("stft_frames", "fft_rows", "fourstep_pass1", "fourstep_pass2",
+              "threestep_pass_a", "threestep_pass_b", "threestep_pass_c"):
+        require(path.get(k, 0) > 0, f"kernel {k} was not launched on the DSP path")
+
+    # the six demos, each once on the card with its default arguments
+    for demo in ("spectrum", "convolution", "filter", "image", "pitch", "analyzer"):
+        saved, sys.argv = sys.argv, ["prog"]
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out):
+                importlib.import_module(f"fftlab_torch.cli.{demo}").main()
+        finally:
+            sys.argv = saved
+        lines = out.getvalue().splitlines()
+        print(f"dsp demo {demo} on the card: {len(lines)} lines in "
+              f"{time.perf_counter() - t0:.1f} s; last: {lines[-1].strip() if lines else ''}")
+        require(len(lines) > 2, f"demo {demo} printed {len(lines)} lines")
+    print(f"DSP phase: {time.perf_counter() - t_phase:.1f} s")
+    return cases
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1153,6 +1591,9 @@ def main() -> int:
     # phase 4e: the complex API, through the public entry points
     complex_api_phase(dev, gen, card, reset_counts, read_counts)
 
+    # phase 4f: the DSP, through the public entry points
+    dsp_cases = dsp_phase(dev, gen, card, reset_counts, read_counts)
+
     # phase 5: timing with CUDA events (time_ms)
     ms = {}
     B, n = MAIN_SHAPE
@@ -1535,6 +1976,18 @@ def main() -> int:
         gsps = shape[0] * shape[1] / (t * 1e6)
         print(f"time {name} {shape[0]}x{shape[1]}: {t:.4f} ms "
               f"({gsps:.2f} GS/s) [{card}]")
+    # the DSP entry points of phase 4f, each beside the PyTorch call that
+    # computes the same function, both timed alike; the bound is the
+    # entry point's bytes in and out over 3.35 TB/s
+    t_dsp = time.perf_counter()
+    for name, shape, fn, lib_name, lib_fn, nbytes in dsp_cases:
+        t_fn = time_ms(fn, **DSP_TIMING)
+        lib = (f"{lib_name} {time_ms(lib_fn, **DSP_TIMING):.4f} ms" if lib_fn
+               else "no PyTorch call computes it")
+        print(f"time dsp {name} {shape}: {t_fn:.4f} ms; {lib}; bound "
+              f"{nbytes / PEAK_BYTES_PER_S * 1e3:.4f} ms (bytes) [{card}]")
+    print(f"DSP timing: {time.perf_counter() - t_dsp:.1f} s")
+    del dsp_cases
 
     # phase 6: the result. Each kernel's bound at its timed shape: the
     # larger of its bytes in and out (each input read once, each output

@@ -42,6 +42,12 @@ def table(build, *args, like: torch.Tensor) -> torch.Tensor:
     return _table(build, args, like.dtype, like.device)
 
 
+def table_on(build, *args, dtype: torch.dtype, device) -> torch.Tensor:
+    """`build(*args)` as a tensor of `dtype` on `device`, built once per
+    (build, args, dtype, device), as `table`; the args must hash."""
+    return _table(build, args, dtype, torch.device(device))
+
+
 @functools.lru_cache(maxsize=64)
 def _index_table(build, args: tuple, device: torch.device):
     return torch.from_numpy(np.asarray(build(*args), np.int64)).to(device)

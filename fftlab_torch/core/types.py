@@ -120,3 +120,11 @@ def as_complex_array(x, device="cuda") -> torch.Tensor:
 def transform_size(x, axis: int = -1) -> int:
     """Transform length along `axis`."""
     return int(x.shape[axis])
+
+
+def to_host(x) -> np.ndarray:
+    """A tensor on any device, or anything numpy takes, as a numpy array
+    (the host epilogues' input)."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)

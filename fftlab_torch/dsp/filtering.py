@@ -1,13 +1,14 @@
-"""Frequency-domain FFT filtering, split-plane path (counterpart of
+"""Frequency-domain FFT filtering (counterpart of
 fftlab/dsp/filtering.py:26-171).
 
 Responses are designed on the host in float64 with the JAX package's
 code: ideal brick-wall responses with negative frequencies mirrored,
 raised-cosine transition bands, and FIR design by frequency sampling.
-The hot path is the FFT -> H -> IFFT sandwich of
-`plan.dispatch.spectral_filter_auto`. The complex-dtype `fft_filter` and
-`fft_filter_custom` are not ported yet (ROADMAP Queue 1 items 8-9, on
-the complex registry of `algos`).
+`fft_filter` and `fft_filter_custom` run IFFT(H .* FFT(x)) on complex
+tensors through `cfft` (the tensor-op Stockham by default, any registry
+transform on request); the split-plane `fft_filter_split` runs the
+sandwich of `plan.dispatch.spectral_filter_auto`. Input that is not a
+tensor goes to the card unless the caller passes `device="cpu"`.
 """
 
 from __future__ import annotations
@@ -18,8 +19,10 @@ import enum
 import numpy as np
 import torch
 
+from fftlab_torch.algos._common import table_on
 from fftlab_torch.core.hostfft import host_fft_pow2
-from fftlab_torch.core.types import Direction, next_power_of_two
+from fftlab_torch.core.types import (Direction, as_tensor, complex_dtype_for,
+                                     next_power_of_two)
 from fftlab_torch.core.window import hamming
 from fftlab_torch.plan.dispatch import spectral_filter_auto
 
@@ -90,10 +93,35 @@ def design_response(n: int, params: FilterParams) -> np.ndarray:
     return apply_transition_band(ideal_response(n, params), n, params)
 
 
-def design_fir(num_taps: int, params: FilterParams) -> np.ndarray:
+def fft_filter(x, params: FilterParams, cfft=None, device="cuda"):
+    """Filter a block: IFFT(H .* FFT(x)) with the response of `params` on
+    x's n-point grid, designed on the host once per (n, params, dtype,
+    device). x: real or complex [..., n]; returns the input's domain."""
+    x = as_tensor(x, device)
+    H = table_on(design_response, int(x.shape[-1]), params,
+                 dtype=complex_dtype_for(x.dtype), device=x.device)
+    return fft_filter_custom(x, H, cfft)
+
+
+def fft_filter_custom(x, h, cfft=None, device="cuda"):
+    """Filter with an arbitrary n-bin frequency response H[k] (numpy or a
+    tensor; the CUSTOM type), cast to x's complex dtype on x's device."""
+    if cfft is None:
+        from fftlab_torch.algos.stockham import stockham_fft as cfft
+    x = as_tensor(x, device)
+    was_real = not x.is_complex()
+    cdtype = complex_dtype_for(x.dtype)
+    X = cfft(x.to(cdtype), Direction.FORWARD)
+    H = as_tensor(h, x.device).to(device=x.device, dtype=cdtype)
+    y = cfft(X * H, Direction.INVERSE)
+    return y.real if was_real else y
+
+
+def design_fir(num_taps: int, params: FilterParams, cfft=None) -> np.ndarray:
     """FIR design by frequency sampling on the host in float64: sample H
     on a num_taps grid, inverse DFT, centre (circular shift), Hamming
-    window. Returns the real taps."""
+    window. Returns the real taps. `cfft` is the JAX signature's and
+    unused there too: the design runs on the host."""
     n = num_taps
     h_mag = design_response(n, params)
     if n == next_power_of_two(n):

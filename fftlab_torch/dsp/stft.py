@@ -1,15 +1,16 @@
-"""Short-time Fourier transform and its inverse on split planes
-(counterpart of fftlab/dsp/stft.py:23-34, :54-80, :99-136 and
-:160-205).
+"""Short-time Fourier transform, its inverse and the spectrogram
+(counterpart of fftlab/dsp/stft.py).
 
 Frames start at k*hop over the zero-extended signal with ceil framing,
 n_frames = ceil((n - fft_size)/hop) + 1, so the tail is kept rather than
-dropped. Where (fft_size, hop) is in the kernel window
-(kernels/stft_vmem.kernel_supported) the STFT runs the `stft_frames`
-kernel on a CUDA tensor and its plain version on a CPU tensor; other
-sizes frame the signal and run the einsum route. The complex-dtype
-`stft`, `istft`, `stft_complex` and `spectrogram` take a complex `rfft`
-and are not ported yet (ROADMAP Queue 1 items 8-9).
+dropped. The complex-dtype `stft`, `stft_complex`, `istft` and
+`spectrogram` frame the signal as one strided view and transform the
+frames as a batch through `rfft`/`irfft` or `cfft` (the tensor-op
+Stockham by default); input that is not a tensor goes to the card unless
+the caller passes `device="cpu"`. On split planes, where (fft_size, hop)
+is in the kernel window (kernels/stft_vmem.kernel_supported) `stft_split`
+runs the `stft_frames` kernel on a CUDA tensor and its plain version on
+a CPU tensor; other sizes frame the signal and run the einsum route.
 """
 
 from __future__ import annotations
@@ -18,9 +19,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from fftlab_torch.algos._common import table_on
+from fftlab_torch.algos.real_fft import irfft, rfft
 from fftlab_torch.algos.split_stockham import fft_split, stockham_fft_split_unscaled
 from fftlab_torch.core.framing import frame_signal_strided
-from fftlab_torch.core.types import FORWARD, INVERSE
+from fftlab_torch.core.types import (FORWARD, INVERSE, as_tensor, complex_dtype_for,
+                                     real_dtype_for)
 from fftlab_torch.core.window import get_window
 from fftlab_torch.kernels._common import check_planes, check_real
 from fftlab_torch.kernels.stft_vmem import (kernel_supported, stft_frames_auto,
@@ -40,6 +44,77 @@ def frame_signal(x: torch.Tensor, frame_size: int, hop: int, pad: bool = True):
     return frame_signal_strided(x, frame_size, hop, n_frames)
 
 
+def window_tensor(window, n: int, like: torch.Tensor) -> torch.Tensor:
+    """`get_window(window, n)` as a tensor of `like`'s real dtype on its
+    device; a named window is built once per (name, n, dtype, device), as
+    the JAX package embeds it as a constant when it traces."""
+    dtype = real_dtype_for(like.dtype)
+    if isinstance(window, str):
+        return table_on(get_window, window, n, dtype=dtype, device=like.device)
+    return torch.from_numpy(np.asarray(get_window(window, n))).to(device=like.device,
+                                                                  dtype=dtype)
+
+
+def stft(x, fft_size: int = 2048, hop: int = 512, window="hann", cfft=None,
+         device="cuda"):
+    """Real-input STFT: [..., n] -> complex [..., n_frames, fft_size//2+1],
+    the windowed frames through `rfft`."""
+    frames = frame_signal(as_tensor(x, device), fft_size, hop)
+    return rfft(frames * window_tensor(window, fft_size, frames), cfft)
+
+
+def stft_complex(x, fft_size: int = 2048, hop: int = 512, window="hann", cfft=None,
+                 device="cuda"):
+    """STFT returning the full fft_size spectrum of each frame: [..., n]
+    (real or complex) -> complex [..., n_frames, fft_size]."""
+    if cfft is None:
+        from fftlab_torch.algos.stockham import stockham_fft as cfft
+    frames = frame_signal(as_tensor(x, device), fft_size, hop)
+    w = window_tensor(window, fft_size, frames)
+    return cfft((frames * w).to(complex_dtype_for(frames.dtype)), FORWARD)
+
+
+def istft(S, fft_size: int = 2048, hop: int = 512, window="hann",
+          length: int | None = None, cfft=None, device="cuda"):
+    """Inverse STFT by windowed overlap-add with COLA normalization:
+    complex [..., n_frames, fft_size//2+1] -> real [..., length], the
+    frames through `irfft`. Where the summed window energy is about 0
+    (the first and last samples under a Hann window) the division by its
+    1e-10 floor does not give the signal back."""
+    S = as_tensor(S, device)
+    frames = irfft(S, n=fft_size, cfft=cfft)
+    frames = frames * window_tensor(window, fft_size, frames)
+    out = _cola_overlap_add(frames, np.asarray(get_window(window, fft_size)), fft_size, hop)
+    return out if length is None else out[..., :length]
+
+
+def ema_frames(mag: torch.Tensor, averaging: int) -> torch.Tensor:
+    """The exponential average over frames of [..., T, bins]:
+    c_t = (1 - a) c_{t-1} + a m_t with a = 1/averaging and c_{-1} = m_0,
+    all T outputs, as a doubling scan. With b_0 = m_0 and b_t = a m_t,
+    c_t = sum_s (1-a)^(t-s) b_s, and log2(T) steps y_t += (1-a)^k y_{t-k},
+    k = 1, 2, 4, ..., build it: a few whole-tensor operations a step,
+    where a loop over frames would launch per frame."""
+    if averaging <= 1:
+        return mag
+    alpha = 1.0 / averaging
+    y = mag * alpha
+    y[..., :1, :] = mag[..., :1, :]
+    T = int(mag.shape[-2])
+    k = 1
+    while k < T:
+        y[..., k:, :] = y[..., k:, :] + (1.0 - alpha) ** k * y[..., :-k, :]
+        k *= 2
+    return y
+
+
+def spectrogram(x, fft_size: int = 2048, hop: int = 512, window="hann",
+                averaging: int = 1, cfft=None, device="cuda"):
+    """Magnitude spectrogram [..., n_frames, fft_size//2+1], with the
+    exponential frame average of `ema_frames` when averaging > 1."""
+    return ema_frames(stft(x, fft_size, hop, window, cfft, device).abs(), averaging)
+
+
 def _cola_overlap_add(frames: torch.Tensor, w: np.ndarray, fft_size: int, hop: int):
     """Windowed overlap-add: [..., n_frames, fft_size] ->
     [..., (n_frames-1)*hop + fft_size], divided by the summed window
@@ -53,15 +128,18 @@ def _cola_overlap_add(frames: torch.Tensor, w: np.ndarray, fft_size: int, hop: i
     q = -(-fft_size // hop)
     f3 = F.pad(frames, (0, q * hop - fft_size)).reshape(*batch, n_frames, q, hop)
     out = frames.new_zeros(*batch, n_frames + q - 1, hop)
+    # the window energy in float64 on the frames' device, as the JAX
+    # package sums it in float64 on the host
     w2 = np.zeros(q * hop)
     w2[:fft_size] = w * w
-    norm = np.zeros((n_frames + q - 1, hop))
+    w2 = torch.from_numpy(w2.reshape(q, hop)).to(out.device)
+    norm = torch.zeros(n_frames + q - 1, hop, dtype=torch.float64, device=out.device)
     for j in range(q):
         out[..., j:j + n_frames, :] += f3[..., :, j, :]
-        norm[j:j + n_frames] += w2[j * hop:(j + 1) * hop]
+        norm[j:j + n_frames] += w2[j]
     out = out.reshape(*batch, -1)[..., :total]
-    norm = np.maximum(norm.reshape(-1)[:total], 1e-10)
-    return out / torch.from_numpy(norm).to(device=out.device, dtype=out.dtype)
+    norm = torch.clamp_min(norm.reshape(-1)[:total], 1e-10)
+    return out / norm.to(out.dtype)
 
 
 def stft_split(x: torch.Tensor, fft_size: int = 2048, hop: int = 512,

@@ -927,3 +927,195 @@ def test_measured_leaf_runs_on_the_card(wisdom_file):
     yr, yi = run_route("einsum", torch.from_numpy(xr).cuda(), torch.from_numpy(xi).cuda(), -1)
     got = yr.cpu().numpy() + 1j * yi.cpu().numpy()
     assert np.linalg.norm(got - want) <= 1e-5 * np.linalg.norm(want)
+
+
+# ------------------------------------------------- the complex-dtype DSP
+# Each entry point on the card against the same entry point on host
+# copies (the port's CPU path, which tests/test_torch_dsp*.py hold
+# against the JAX package): >= 110 dB for outputs linear in the signal,
+# >= 100 dB for products of two spectra, coherence within 1e-4, pitch
+# within 1e-3 relative. numpy input with no `device` runs on the card.
+
+from fftlab_torch.core.types import to_host  # noqa: E402
+from fftlab_torch.dsp import analyzer as dsp_analyzer  # noqa: E402
+from fftlab_torch.dsp import filtering as dsp_filtering  # noqa: E402
+from fftlab_torch.dsp import image as dsp_image  # noqa: E402
+from fftlab_torch.dsp import pitch as dsp_pitch  # noqa: E402
+from fftlab_torch.dsp import spectrum as dsp_spectrum  # noqa: E402
+from fftlab_torch.dsp.stft import istft, spectrogram, stft, stft_complex  # noqa: E402
+
+
+def _reals(seed, shape):
+    return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+
+
+_LOWPASS = dsp_filtering.FilterParams(dsp_filtering.FilterType.LOWPASS, 0.1, 0.0, 1.0, 0.01)
+DSP_CARD = {
+    "fft_convolution": (lambda x, d: convolution.fft_convolution(x, x[0, :257], device=d), 110),
+    "circular_convolution": (lambda x, d: convolution.circular_convolution(x, x[::-1].copy(),
+                                                                          device=d), 110),
+    "overlap_save": (lambda x, d: convolution.overlap_save(x, x[0, :129], device=d), 110),
+    "overlap_add": (lambda x, d: convolution.overlap_add(x, x[0, :129], device=d), 110),
+    "convolve2d": (lambda x, d: convolution.convolve2d(x[:, :1024].reshape(64, 64),
+                                                      x[0, :81].reshape(9, 9), device=d), 110),
+    "fft_filter": (lambda x, d: dsp_filtering.fft_filter(x, _LOWPASS, device=d), 110),
+    "periodogram": (lambda x, d: dsp_spectrum.periodogram(x, device=d)[1], 100),
+    "welch_psd": (lambda x, d: dsp_spectrum.welch_psd(x[0], device=d)[1], 100),
+    "autocorrelation": (lambda x, d: dsp_spectrum.autocorrelation(x, device=d), 100),
+    "cross_correlation": (lambda x, d: dsp_spectrum.cross_correlation(x, x[::-1].copy(),
+                                                                     device=d), 100),
+    "stft": (lambda x, d: stft(x[0], 2048, 512, device=d), 110),
+    "stft_complex": (lambda x, d: stft_complex(x[0], 256, 128, device=d), 110),
+    "spectrogram": (lambda x, d: spectrogram(x[0], 2048, 512, averaging=4, device=d), 100),
+    "analyze_spectrum": (lambda x, d: dsp_analyzer.analyze_spectrum(x, 44100.0,
+                                                                    device=d)[1], 110),
+    "lowpass_ideal": (lambda x, d: dsp_image.lowpass_filter_image(
+        x[0, :4096].reshape(64, 64), 8.0, device=d), 110),
+    "highpass_gaussian": (lambda x, d: dsp_image.highpass_filter_image(
+        x[0, :4096].reshape(64, 64), 6.0, "gaussian", device=d), 110),
+    "detect_edges": (lambda x, d: dsp_image.detect_edges(x[0, :4096].reshape(64, 64),
+                                                         device=d), 110),
+    "log_magnitude_spectrum": (lambda x, d: dsp_image.log_magnitude_spectrum(
+        x[0, :4096].reshape(64, 64), device=d), 110),
+}
+
+
+@pytest.mark.parametrize("name", list(DSP_CARD))
+def test_dsp_on_the_card_matches_cpu(no_tf32, name):
+    fn, gate = DSP_CARD[name]
+    x = _reals(len(name), (4, 1 << 16))
+    got = fn(x, "cuda")
+    assert got.device.type == "cuda"
+    want = fn(x, "cpu")
+    assert snr_db(to_host(got), to_host(want)) >= gate
+
+
+def test_dsp_default_device_is_the_card(no_tf32):
+    x = _reals(1, (2, 4096))
+    assert dsp_spectrum.periodogram(x)[1].device.type == "cuda"
+    assert stft(x[0], 256, 64).device.type == "cuda"
+    assert dsp_analyzer.RealtimeAnalyzer().device.type == "cuda"
+
+
+def test_istft_on_the_card_matches_cpu(no_tf32):
+    x = _reals(2, 1 << 18)
+    S = stft(x, 2048, 512, device="cpu").numpy()
+    got = to_host(istft(S, 2048, 512, length=x.size))
+    want = to_host(istft(S, 2048, 512, length=x.size, device="cpu"))
+    edge = 2048  # the summed window energy is under 1e-3 only in the first and last frame
+    assert snr_db(got[edge:-edge], want[edge:-edge]) >= 110.0
+    assert snr_db(got[edge:-edge], x[edge:-edge]) >= 110.0
+
+
+def test_coherence_on_the_card_matches_cpu(no_tf32):
+    x = _reals(3, 1 << 18)
+    y = (0.6 * x + 0.4 * _reals(4, 1 << 18)).astype(np.float32)
+    got = to_host(dsp_spectrum.coherence(x, y)[1])
+    want = to_host(dsp_spectrum.coherence(x, y, device="cpu")[1])
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("detector", ["pitch_spectral_peak", "harmonic_product_spectrum",
+                                      "pitch_autocorrelation"])
+def test_pitch_on_the_card_matches_cpu(no_tf32, detector):
+    t = np.arange(4096) / 44100.0
+    f0 = np.linspace(80.0, 1000.0, 64)[:, None]
+    x = (np.sin(2 * np.pi * f0 * t) + 0.5 * np.sin(4 * np.pi * f0 * t)).astype(np.float32)
+    got = to_host(getattr(dsp_pitch, detector)(x, 44100.0))
+    want = to_host(getattr(dsp_pitch, detector)(x, 44100.0, device="cpu"))
+    np.testing.assert_allclose(got, want, rtol=1e-3)
+    r = dsp_pitch.detect_pitch(x[10], 44100.0)
+    want = dsp_pitch.detect_pitch(x[10], 44100.0, device="cpu")
+    assert r["note"] == want["note"] and r["confidence"] == want["confidence"]
+    assert r["pitch"] == pytest.approx(want["pitch"], rel=1e-3)
+    np.testing.assert_allclose(r["estimates"], want["estimates"], rtol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.complex64])
+def test_direct_convolution_with_cudnn_tf32_on(dtype):
+    """cuDNN's TF32 on outside the call, PyTorch's default: the conv1d
+    inside runs at full float32 (core/precision.py full_float32), the
+    complex product as four real convs (no conjugation), and the flag is
+    on again after."""
+    from fftlab_torch.dsp.convolution import direct_convolution
+
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        _direct_convolution_check(direct_convolution, dtype)
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+def _direct_convolution_check(direct_convolution, dtype):
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((4, 1 << 16)).astype(np.float32)
+    h = rng.standard_normal(129).astype(np.float32)
+    if dtype is np.complex64:
+        x = (x + 1j * rng.standard_normal(x.shape)).astype(np.complex64)
+        h = (h + 1j * rng.standard_normal(129)).astype(np.complex64)
+    y = direct_convolution(x, h)
+    assert y.device.type == "cuda" and torch.backends.cudnn.allow_tf32
+    want = np.stack([np.convolve(r.astype(np.complex128), h.astype(np.complex128))
+                     for r in x])
+    assert snr_db(to_host(y), want) >= 110.0
+
+
+def test_spectrogram_batch_launches_stft_frames_once(no_tf32):
+    an = dsp_analyzer.RealtimeAnalyzer()
+    x = _reals(5, 1 << 20)
+    before = stft_vmem.LAUNCHES["stft_frames"]
+    got = an.spectrogram_batch(x)
+    assert stft_vmem.LAUNCHES["stft_frames"] == before + 1
+    want = dsp_analyzer.RealtimeAnalyzer(device="cpu").spectrogram_batch(x)
+    assert snr_db(to_host(got), to_host(want)) >= 100.0
+
+
+def test_realtime_analyzer_on_the_card_matches_cpu(no_tf32):
+    card, host = dsp_analyzer.RealtimeAnalyzer(), dsp_analyzer.RealtimeAnalyzer(device="cpu")
+    sig = _reals(6, 1 << 16)
+    before = stft_vmem.LAUNCHES["stft_frames"]
+    at, calls = 0, 0
+    for size in (1000, 4096, 4097, 300, 20000, 4096):
+        a, b = card.process(sig[at:at + size]), host.process(sig[at:at + size])
+        at += size
+        np.testing.assert_array_equal(card._tail, host._tail)
+        if b is not None:
+            calls += 1
+            assert snr_db(a, b) >= 100.0
+    assert stft_vmem.LAUNCHES["stft_frames"] == before + calls
+
+
+@pytest.mark.parametrize("n,route,kernels", [
+    (4096, "smem_rows", ("fft_rows",)),
+    (1 << 15, "two_pass", ("fourstep_pass1", "fourstep_pass2")),
+    (1 << 21, "three_pass", ("threestep_pass_a", "threestep_pass_b", "threestep_pass_c"))])
+def test_split_correlations_launch_their_route(no_tf32, n, route, kernels):
+    """At m = next_pow2(2n) the split correlations launch the kernels of
+    the route `select_split_impl(m)` names, two FFTs a call."""
+    from fftlab_torch.plan.dispatch import select_split_impl
+
+    m = 2 * n
+    assert select_split_impl(m) == route
+    x, y = _reals(n % 89, (2, n)), _reals(n % 83, (2, n))
+    for fn, args in ((dsp_spectrum.autocorrelation_split, (x,)),
+                     (dsp_spectrum.cross_correlation_split, (x, y))):
+        before = _launches()
+        got = fn(*args)
+        after = _launches()
+        assert {k: after[k] - before[k] for k in kernels} == dict.fromkeys(kernels, 2)
+        assert sum(after.values()) - sum(before.values()) == 2 * len(kernels)
+        want = fn(*args, device="cpu")
+        assert snr_db(to_host(got), to_host(want)) >= 100.0
+
+
+@pytest.mark.parametrize("demo,argv", [
+    ("spectrum", []), ("convolution", []), ("filter", []), ("image", []),
+    ("pitch", []), ("analyzer", ["--frames", "2"])])
+def test_dsp_demos_run_on_the_card(capsys, monkeypatch, demo, argv):
+    import importlib
+    import sys
+
+    monkeypatch.setattr(sys, "argv", ["prog"] + argv)
+    importlib.import_module(f"fftlab_torch.cli.{demo}").main()
+    assert len(capsys.readouterr().out) > 50

@@ -177,3 +177,112 @@ def test_complex_api_at_medium(medium):
     assert snr_db(X.numpy(), np.fft.rfft(xr.astype(np.float64))) >= 120.0
     assert snr_db(fftlab_torch.irfft(X, 1000).numpy(), xr.astype(np.float64)) >= 120.0
     assert torch.get_float32_matmul_precision() == "medium"
+
+
+# ------------------------------------------------------------ convolutions
+# cuDNN runs a float32 conv1d in TF32 while `torch.backends.cudnn.allow_tf32`
+# is True (PyTorch's default), and this CPU's oneDNN in bfloat16 after
+# `torch.backends.mkldnn.conv.fp32_precision = "bf16"`: there
+# direct_convolution read 52 dB against float64. full_float32 turns both
+# to full float32 for the block and gives the caller's settings back.
+
+def _conv_settings():
+    """Every conv setting a caller can see: the legacy cuDNN flag (None
+    where PyTorch refuses to read it) and the per-backend strings."""
+    try:
+        legacy = torch.backends.cudnn.allow_tf32
+    except RuntimeError:
+        legacy = None
+    return (legacy, torch.backends.cudnn.conv.fp32_precision,
+            torch.backends.cudnn.rnn.fp32_precision,
+            torch.backends.mkldnn.conv.fp32_precision)
+
+
+@pytest.fixture
+def conv_caller():
+    """The caller's conv settings at cuDNN TF32 on and oneDNN bf16;
+    PyTorch's defaults after the test."""
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.mkldnn.conv.fp32_precision = "bf16"
+    yield _conv_settings()
+    torch.backends.mkldnn.conv.fp32_precision = "none"
+    torch.backends.cudnn.allow_tf32 = True
+
+
+def test_full_float32_turns_conv_tf32_off(conv_caller):
+    with full_float32():
+        assert torch.backends.cudnn.allow_tf32 is False
+        assert torch.backends.cudnn.conv.fp32_precision == "ieee"
+        assert torch.backends.mkldnn.conv.fp32_precision == "ieee"
+    assert _conv_settings() == conv_caller
+
+
+def test_conv_settings_restored_after_an_error(conv_caller):
+    with pytest.raises(RuntimeError, match="inside"):
+        with full_float32():
+            raise RuntimeError("inside")
+    assert _conv_settings() == conv_caller
+
+
+@pytest.mark.parametrize("caller", ["legacy_off", "per_backend"])
+def test_conv_settings_restored_for_every_caller(caller):
+    """A caller with TF32 off through the legacy flag, and one who set the
+    per-backend strings (the legacy flag then refuses to be read)."""
+    try:
+        if caller == "legacy_off":
+            torch.backends.cudnn.allow_tf32 = False
+        else:
+            torch.backends.cudnn.conv.fp32_precision = "tf32"
+            torch.backends.cudnn.rnn.fp32_precision = "ieee"
+        before = _conv_settings()
+        with full_float32():
+            assert torch.backends.cudnn.conv.fp32_precision == "ieee"
+        assert _conv_settings() == before
+    finally:
+        torch.backends.cudnn.conv.fp32_precision = "tf32"
+        torch.backends.cudnn.rnn.fp32_precision = "tf32"
+        torch.backends.cudnn.allow_tf32 = True
+
+
+def _direct_snr(seed: int) -> float:
+    from fftlab_torch.dsp.convolution import direct_convolution
+
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((4, 4096)).astype(np.float32)
+    h = rng.standard_normal(129).astype(np.float32)
+    got = direct_convolution(x, h, device="cpu").numpy()
+    want = np.stack([np.convolve(r.astype(np.float64), h.astype(np.float64)) for r in x])
+    return snr_db(got, want)
+
+
+@pytest.mark.parametrize("setting", ["medium", "oneDNN bf16"])
+def test_direct_convolution_at_low_precision(medium, conv_caller, setting):
+    """direct_convolution (one conv1d) at "medium", and with the caller's
+    oneDNN conv in bfloat16, stays >= 110 dB against float64."""
+    if setting == "medium":
+        torch.backends.mkldnn.conv.fp32_precision = "none"
+    assert _direct_snr(0) >= 110.0
+    assert torch.get_float32_matmul_precision() == "medium"
+    assert torch.backends.mkldnn.conv.fp32_precision == (
+        "none" if setting == "medium" else "bf16")
+
+
+def test_conv_settings_restored_after_concurrent_calls(medium, conv_caller):
+    """Eight threads run direct_convolution at once, their blocks
+    interleaving: each holds the gate, and the caller's conv settings are
+    back when all have returned."""
+    threads, rounds = 8, 3
+    barrier = threading.Barrier(threads)
+
+    def worker(i):
+        worst = np.inf
+        for _ in range(rounds):
+            barrier.wait()
+            worst = min(worst, _direct_snr(20 + i))
+        return worst
+
+    with concurrent.futures.ThreadPoolExecutor(threads) as pool:
+        worst = list(pool.map(worker, range(threads)))
+    assert min(worst) >= 110.0
+    assert _conv_settings() == conv_caller
+    assert torch.get_float32_matmul_precision() == "medium"

@@ -12,6 +12,8 @@ STFT divides by the summed window energy, which is about 1e-10 at the
 signal's ends; there both packages divide rounding noise by nearly zero,
 so the inverse is compared where that energy is at least 1e-3."""
 
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -27,8 +29,10 @@ from fftlab.dsp.stft import istft_split as jx_istft_split
 from fftlab.dsp.stft import stft_split as jx_stft_split
 import fftlab_torch
 from fftlab_torch.core.window import get_window
-from fftlab_torch.dsp import stft as pt_stft
 from fftlab_torch.kernels import stft_vmem
+
+# the module: `fftlab_torch.dsp.stft` is the function, as `fftlab.dsp.stft` is
+pt_stft = importlib.import_module("fftlab_torch.dsp.stft")
 
 
 def real(seed: int, n: int) -> np.ndarray:
@@ -372,6 +376,6 @@ def test_framing_strategies_agree():
     """The port's one strided view equals every framing strategy of the
     JAX package (core/framing.py)."""
     x = real(5, 3000)
-    got = fftlab_torch.dsp.stft.frame_signal(tt(x), 256, 100).numpy()
+    got = pt_stft.frame_signal(tt(x), 256, 100).numpy()
     want = np.asarray(jx_framing.frame_signal_strided(x, 256, 100, got.shape[0]))
     assert np.array_equal(got, want)
