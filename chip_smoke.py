@@ -58,7 +58,19 @@ Phases, in order; any failure raises and the exit code is non-zero:
    fft2/ifft2 at 2048 x 2048 (>= 110 dB), MEASURE of plan_dft_1d(2^16)
    and of plan_dft_1d_split(2^20, batch=16) (a kernel route must win,
    >= 120 dB) and of the split routes at 256 x 8192 and 4 x 2^21, each
-   candidate's ms printed, the wisdom in a temporary file.
+   candidate's ms printed, the wisdom in a temporary file; (f) the DSP
+   (`dsp_phase`); (g) the single-card edges (`edges_phase`): the native
+   library built with g++ into fftlab_torch/_build/native/, cli/serve at
+   its defaults on a 2^23-sample 48 kHz WAV (257 taps, 64K chunks: one
+   `os_filter` launch a chunk; the stream >= 100 dB vs float64 np.convolve
+   on a 128K prefix, each tone's attenuation within 0.1 dB of the CPU run
+   on a 2^20 prefix; Msamples/s, the time split by trace spans, the
+   kernel's share), bigfft (`fft_split_large` at 1 x 2^20 in 2 launches,
+   >= 120 dB; the 16K x 257 split convolution within 1e-4 of
+   np.convolve), the lowprec modes at 16 x 2^20 (f32 >= 120 dB, f32 >=
+   f32x3 >= bf16 > 20 dB, each timed; the q15 row), the harness at 1024
+   and 16384 (every round trip ok) and a profiler trace under
+   chiprun_out/.
    Every output of a main path is held against the plain versions on
    the same inputs (>= 110 dB, over every sample) and against an oracle;
 5. timing: CUDA events around 10 back-to-back calls, median of 25 such
@@ -814,6 +826,194 @@ def dsp_phase(dev, gen, card: str, reset_counts, read_counts) -> list:
         require(len(lines) > 2, f"demo {demo} printed {len(lines)} lines")
     print(f"DSP phase: {time.perf_counter() - t_phase:.1f} s")
     return cases
+
+
+# the single-card edges (phase 4g): serving at bench.py serving_filter's
+# 2^23 samples, a 48 kHz mono PCM16 WAV, through cli/serve at its defaults
+# (lowpass at 2 kHz, 257 taps, 64K chunks); its np.convolve gate reads a
+# 128K prefix, and the CPU run of the same demo a 2^20 prefix
+SERVE_N, SERVE_FS = 1 << 23, 48000
+SERVE_GATE_PREFIX, SERVE_CPU_PREFIX = 1 << 17, 1 << 20
+SERVE_GATE_DB, SERVE_TONE_DB = 100.0, 0.1
+BIGFFT_N = 1 << 20
+LOWPREC_SHAPE = (16, 1 << 20)
+LOWPREC_F32_DB, LOWPREC_FLOOR_DB = 120.0, 20.0
+# the harness: every registry algorithm whose call is a few whole-array
+# ops; the eager recursions (radix4, split_radix, recursive, iterative)
+# take 0.1-0.5 s a call at 16384, hundreds of calls in the harness's
+# protocol, and are timed at 64 rows in phase 4e
+HARNESS_SIZES = (1024, 16384)
+HARNESS_ALGOS = ("radix2_dit", "radix2_dif", "bluestein", "mixed_radix", "stockham_mxu",
+                 "pallas_vmem", "four_step")
+TRACE_DIR = os.path.join("chiprun_out", "edges_trace")
+
+
+def edges_phase(dev, gen, card: str, reset_counts, read_counts) -> None:
+    """Phase 4g: the native runtime, the serving demo, bigfft, the
+    reduced-precision modes, the harness and the profiler trace, on the
+    card (see the module docstring). Every gate raises SmokeFailure."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from fftlab_torch.algos.lowprec import PRECISIONS, fft_split_lowprec, snr_vs_oracle
+    from fftlab_torch.bench.harness import benchmark_suite, print_table
+    from fftlab_torch.cli import bigfft, parse, serve
+    from fftlab_torch.kernels.os_filter_vmem import run_os_filter
+    from fftlab_torch.native import lib as native_lib
+    from fftlab_torch.native.wav import write_wav
+    from fftlab_torch.utils.trace import profiler_trace
+
+    t_phase = time.perf_counter()
+
+    # a. the native library, built with g++ from native/ into its own directory
+    so = native_lib.library_path()
+    fresh = not so.is_file()
+    t0 = time.perf_counter()
+    loaded = native_lib.load_native_lib()
+    dt = time.perf_counter() - t0
+    require(loaded._name == str(so), f"native library loaded from {loaded._name}, not {so}")
+    print(f"edges native: {'built with g++ in' if fresh else 'found, loaded in'} {dt:.2f} s; "
+          f"fftlab_torch.native loaded from {os.path.relpath(so)}")
+
+    # b. serving: two tones and noise at 48 kHz, from the seed, written by
+    # the port's writer, served by cli/serve at its defaults
+    rng = np.random.default_rng(int(gen.initial_seed()))
+    t = np.arange(SERVE_N) / SERVE_FS
+    sig = (0.4 * np.sin(2 * np.pi * 440 * t) + 0.3 * np.sin(2 * np.pi * 6000 * t)
+           + 0.05 * rng.standard_normal(SERVE_N)).astype(np.float32)
+    with tempfile.TemporaryDirectory() as tmp:
+        wav_in, wav_out = os.path.join(tmp, "in.wav"), os.path.join(tmp, "out.wav")
+        write_wav(wav_in, sig, SERVE_FS)
+        print(f"edges serve input: {SERVE_N} samples at {SERVE_FS} Hz "
+              f"({SERVE_N / SERVE_FS:.1f} s, {os.path.getsize(wav_in)} bytes)")
+        args = parse(serve.build_parser(), ["--in", wav_in, "--out", wav_out])
+        chunks = -(-SERVE_N // args.chunk)
+        reset_counts()
+        served = serve.run(args)
+        torch.cuda.synchronize()
+        path = {k: c for k, c in read_counts().items() if c}
+        print(f"edges serve path launches: {path} ({chunks} chunks)")
+        require(path == {"os_filter": chunks},
+                f"serve launched {path}, want os_filter once per chunk ({chunks})")
+        # the first run built the plan's tables and warmed the path: the
+        # rate is the second run's, the time split the third's
+        seconds = serve.run(args).seconds
+        timers = {}
+        t0 = time.perf_counter()
+        serve.run(args, timers)
+        wall_spans = time.perf_counter() - t0
+    plan, audio, out = served.plan, served.audio, served.filtered
+    require(out.shape == audio.shape and bool(np.isfinite(out).all()),
+            f"serve output shape {out.shape} or non-finite values")
+    rate = SERVE_N / seconds / 1e6
+    print(f"edges serve: {plan.describe()}; ring -> stream -> host {seconds * 1e3:.1f} ms "
+          f"(first run {served.seconds * 1e3:.1f} ms), "
+          f"{rate:.1f} Msamples/s, {rate * 1e6 / SERVE_FS:.0f}x realtime [{card}]")
+    split = ", ".join(f"{k} {v.total_s * 1e3:.1f} ms ({v.total_s / wall_spans:.1%})"
+                      for k, v in timers.items())
+    print(f"edges serve spans ({wall_spans * 1e3:.1f} ms with a sync after each span): "
+          f"{split} [{card}]")
+    keep = plan.nh - 1
+    buf = torch.zeros(args.chunk + keep, device=dev)
+    kernel_ms = time_ms(lambda: run_os_filter(buf, torch.zeros_like(buf), plan._Kr, plan._Ki,
+                                              plan.nh), graph=True)
+    share = chunks * kernel_ms / (seconds * 1e3)
+    print(f"edges serve kernel: os_filter {kernel_ms:.4f} ms a chunk (graph), {chunks} chunks, "
+          f"{share:.2%} of the loop's wall time [{card}]")
+    ref = np.convolve(audio[:SERVE_GATE_PREFIX].astype(np.float64),
+                      plan.h.astype(np.float64))[:SERVE_GATE_PREFIX]
+    got = out[:SERVE_GATE_PREFIX].astype(np.float64)
+    gate_db = float(10 * np.log10(np.sum(ref ** 2) / np.sum((got - ref) ** 2)))
+    print(f"edges serve stream vs float64 np.convolve on {SERVE_GATE_PREFIX} samples: "
+          f"{gate_db:.1f} dB (gate {SERVE_GATE_DB:.0f})")
+    require(gate_db >= SERVE_GATE_DB, f"serve stream {gate_db:.1f} dB < {SERVE_GATE_DB}")
+    cpu_args = parse(serve.build_parser(), ["--device", "cpu"])
+    cpu_out = serve.stream_through_ring(serve.make_plan(cpu_args, served.fs),
+                                        audio[:SERVE_CPU_PREFIX], cpu_args.chunk)
+    att_card = serve.tone_attenuations(audio, out, served.fs, dev)
+    att_cpu = serve.tone_attenuations(audio, cpu_out, served.fs, "cpu")
+    for tone in serve.TONES:
+        print(f"edges serve {tone:.0f} Hz: card {att_card[tone]:+.3f} dB, CPU "
+              f"{att_cpu[tone]:+.3f} dB")
+        require(abs(att_card[tone] - att_cpu[tone]) <= SERVE_TONE_DB,
+                f"serve {tone} Hz: card {att_card[tone]:.3f} dB vs CPU {att_cpu[tone]:.3f}")
+
+    # c. bigfft: the two-pass pair at 1 x 2^20, the split convolution
+    # (m = 32768: the two-pass sandwich), and the demo itself
+    xr = torch.randn(1, BIGFFT_N, generator=gen, device=dev)
+    xi = torch.randn(1, BIGFFT_N, generator=gen, device=dev)
+    reset_counts()
+    snr = bigfft.two_pass_snr(xr, xi)
+    path = {k: c for k, c in read_counts().items() if c}
+    print(f"edges bigfft two-pass 1 x 2^{BIGFFT_N.bit_length() - 1}: {snr:.1f} dB vs float64, "
+          f"launches {path}")
+    require(path == {"fourstep_pass1": 1, "fourstep_pass2": 1},
+            f"bigfft two-pass launched {path}")
+    require(snr >= GATE_ORACLE_DB["two_pass"], f"bigfft two-pass {snr:.1f} dB")
+    h = (torch.randn(bigfft.CONV_TAPS, generator=gen, device=dev) / bigfft.CONV_TAPS)
+    reset_counts()
+    err = bigfft.convolution_error(xr[0, : bigfft.CONV_N], h.cpu().numpy())
+    path = {k: c for k, c in read_counts().items() if c}
+    print(f"edges bigfft fft_convolution_split {bigfft.CONV_N} x {bigfft.CONV_TAPS}: max err "
+          f"{err:.2e} vs np.convolve, launches {path}")
+    require(err <= 1e-4, f"bigfft convolution max err {err:.2e}")
+    require(path.get("fourstep_pass2_filter", 0) == 1 and path.get("fourstep_pass1", 0) == 2,
+            f"bigfft convolution launched {path}")
+    saved, sys.argv = sys.argv, ["prog"]
+    text = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(text):
+            bigfft.main()
+    finally:
+        sys.argv = saved
+    lines = text.getvalue().splitlines()
+    print(f"edges bigfft demo on the card: {len(lines)} lines; "
+          + "; ".join(line.strip() for line in lines[-2:]))
+
+    # d. the reduced-precision modes at 16 x 2^20 through fft_split
+    B, n = LOWPREC_SHAPE
+    xr = torch.randn(B, n, generator=gen, device=dev)
+    xi = torch.randn(B, n, generator=gen, device=dev)
+    want = torch.fft.fft(torch.complex(xr.double(), xi.double()))
+    before = (torch.get_float32_matmul_precision(), torch.backends.cuda.matmul.allow_tf32)
+    snrs = {}
+    for mode in PRECISIONS:
+        yr, yi = fft_split_lowprec(xr, xi, mode=mode)
+        err = (torch.complex(yr.double(), yi.double()) - want).abs().square().sum()
+        snrs[mode] = float(10 * torch.log10(want.abs().square().sum() / err))
+        t_mode = time_ms(lambda: fft_split_lowprec(xr, xi, mode=mode), **DSP_TIMING)
+        print(f"edges lowprec {mode} ({PRECISIONS[mode]}) {B} x 2^{n.bit_length() - 1}: "
+              f"{snrs[mode]:.1f} dB vs float64, {t_mode:.4f} ms [{card}]")
+    after = (torch.get_float32_matmul_precision(), torch.backends.cuda.matmul.allow_tf32)
+    require(after == before, f"lowprec left the matmul setting at {after}, was {before}")
+    require(snrs["f32"] >= LOWPREC_F32_DB, f"lowprec f32 {snrs['f32']:.1f} dB")
+    require(snrs["f32"] >= snrs["f32x3"] >= snrs["bf16"] > LOWPREC_FLOOR_DB,
+            f"lowprec modes out of order: {snrs}")
+    rows = snr_vs_oracle(device=dev)
+    print("edges lowprec snr_vs_oracle 2 x 4096: "
+          + ", ".join(f"{k} {v:.1f} dB" for k, v in rows.items()))
+    require("q15" in rows, "snr_vs_oracle has no q15 row")
+
+    # e. the harness and a profiler trace
+    results = benchmark_suite(HARNESS_SIZES, HARNESS_ALGOS, device=dev)
+    print(print_table(results))
+    bad = [(r.algorithm, r.n) for r in results if not r.roundtrip_ok]
+    require(not bad, f"harness round trip failed for {bad}")
+    with profiler_trace(TRACE_DIR) as prof:
+        serve.stream_through_ring(plan, audio[: 4 * args.chunk], args.chunk)
+        torch.cuda.synchronize()
+    trace = os.path.join(TRACE_DIR, "trace.json")
+    size = os.path.getsize(trace) if os.path.isfile(trace) else 0
+    device_us = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages())
+    print(f"edges profiler trace: {trace}, {size} bytes; device time in it "
+          f"{device_us / 1e3:.4f} ms")
+    require(size > 0, f"profiler_trace wrote no trace at {trace}")
+    print(f"edges phase: {time.perf_counter() - t_phase:.1f} s")
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1593,6 +1793,9 @@ def main() -> int:
 
     # phase 4f: the DSP, through the public entry points
     dsp_cases = dsp_phase(dev, gen, card, reset_counts, read_counts)
+
+    # phase 4g: the single-card edges, through the public entry points
+    edges_phase(dev, gen, card, reset_counts, read_counts)
 
     # phase 5: timing with CUDA events (time_ms)
     ms = {}

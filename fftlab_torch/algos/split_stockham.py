@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from fftlab_torch.algos.stockham import max_prime_factor, plan_factors
-from fftlab_torch.core.precision import full_float32
+from fftlab_torch.core.precision import full_float32, matmul_precision
 from fftlab_torch.core.twiddle import dft_matrix_np, stage_twiddle_np
 from fftlab_torch.core.types import FORWARD, Direction, as_tensor
 
@@ -56,14 +56,16 @@ def _planes(a: np.ndarray, like: torch.Tensor) -> tuple[torch.Tensor, torch.Tens
     return as_t(a.real), as_t(a.imag)
 
 
-def _contract_split(xr, xi, Fr, Fi, axis_from_end: int):
-    """Complex contraction of one digit axis, expanded to real einsums."""
+def _contract_split(xr, xi, Fr, Fi, axis_from_end: int, precision=None):
+    """Complex contraction of one digit axis, expanded to real einsums, at
+    full float32, or at the matmul tier `precision` names
+    (`core.precision.matmul_precision`; algos/lowprec.py's modes)."""
     if axis_from_end == 0:
         eq = "...a,ba->...b"
     else:
         tail = string.ascii_lowercase[2 : 2 + axis_from_end]
         eq = f"...a{tail},ba->...b{tail}"
-    with full_float32():
+    with full_float32() if precision is None else matmul_precision(precision):
         yr = torch.einsum(eq, xr, Fr) - torch.einsum(eq, xi, Fi)
         yi = torch.einsum(eq, xr, Fi) + torch.einsum(eq, xi, Fr)
     return yr, yi
@@ -76,8 +78,10 @@ def _twiddle_split(xr, xi, twr, twi):
 
 def stockham_fft_split_unscaled(xr: torch.Tensor, xi: torch.Tensor,
                                 direction=FORWARD,
-                                leaf: int = DEFAULT_LEAF_SPLIT):
-    """Forward/backward transform on split planes, no inverse scaling."""
+                                leaf: int = DEFAULT_LEAF_SPLIT, precision=None):
+    """Forward/backward transform on split planes, no inverse scaling.
+    `precision`: None (full float32) or a matmul tier of
+    `core.precision.LEVELS` (see algos/lowprec.py)."""
     if xr.shape != xi.shape:
         raise ValueError(f"re/im shape mismatch: {tuple(xr.shape)} vs {tuple(xi.shape)}")
     direction = Direction(int(direction))
@@ -88,7 +92,7 @@ def stockham_fft_split_unscaled(xr: torch.Tensor, xi: torch.Tensor,
     K = len(factors)
     if K == 1:
         Fr, Fi = _planes(dft_matrix_np(n, direction), xr)
-        return _contract_split(xr, xi, Fr, Fi, 0)
+        return _contract_split(xr, xi, Fr, Fi, 0, precision)
 
     batch = tuple(xr.shape[:-1])
     bnd = len(batch)
@@ -97,7 +101,7 @@ def stockham_fft_split_unscaled(xr: torch.Tensor, xi: torch.Tensor,
     rem = n
     for i, r in enumerate(factors):
         Fr, Fi = _planes(dft_matrix_np(r, direction), xr)
-        xr, xi = _contract_split(xr, xi, Fr, Fi, K - 1 - i)
+        xr, xi = _contract_split(xr, xi, Fr, Fi, K - 1 - i, precision)
         if i < K - 1:
             m = rem // r
             tw = stage_twiddle_np(r, m, direction).reshape(r, *factors[i + 1 :])
@@ -110,10 +114,13 @@ def stockham_fft_split_unscaled(xr: torch.Tensor, xi: torch.Tensor,
 
 
 def fft_split(xr: torch.Tensor, xi: torch.Tensor, direction=FORWARD,
-              leaf: int = DEFAULT_LEAF_SPLIT):
+              leaf: int = DEFAULT_LEAF_SPLIT, precision=None):
     """Split-complex FFT over the last axis: (re, im) -> (re, im).
 
-    Forward unscaled; inverse scaled by 1/n."""
+    Forward unscaled; inverse scaled by 1/n. `precision`: None (full
+    float32) or a matmul tier of `core.precision.LEVELS` for the
+    Stockham stages (algos/lowprec.py's modes); the chirp-z route of
+    sizes with a prime factor above the leaf runs at full float32."""
     direction = Direction(int(direction))
     n = int(xr.shape[-1])
     if n > 1 and max_prime_factor(n) > leaf:
@@ -122,7 +129,7 @@ def fft_split(xr: torch.Tensor, xi: torch.Tensor, direction=FORWARD,
         from fftlab_torch.algos.bluestein import bluestein_fft_split
 
         return bluestein_fft_split(xr, xi, direction)
-    yr, yi = stockham_fft_split_unscaled(xr, xi, direction, leaf)
+    yr, yi = stockham_fft_split_unscaled(xr, xi, direction, leaf, precision)
     if direction == Direction.INVERSE:
         return yr * (1.0 / n), yi * (1.0 / n)
     return yr, yi

@@ -1,18 +1,19 @@
-"""Streaming spectrum analyzer demo: a frequency sweep with harmonics
-fed through the analyzer in chunks of four hops, one ASCII spectrum and
-its three strongest peaks per chunk. `--frames N` limits the output;
+"""Streaming spectrum analyzer demo: a frequency sweep with harmonics (or
+a WAV file, `--wav`, read by the native reader and mixed to mono) fed
+through the analyzer in chunks of four hops, one ASCII spectrum and its
+three strongest peaks per chunk. `--frames N` limits the output;
 `--live` clears the screen between frames."""
 
 from __future__ import annotations
 
 import argparse
-import sys
 
 import numpy as np
 
 from fftlab_torch.algos.real_fft import rfftfreq
 from fftlab_torch.cli import parse
 from fftlab_torch.dsp.analyzer import AnalyzerConfig, RealtimeAnalyzer
+from fftlab_torch.native.wav import read_wav
 from fftlab_torch.utils.plotting import ansi_clear, ascii_spectrum
 
 
@@ -23,22 +24,28 @@ def main() -> None:
     ap.add_argument("--fft-size", type=int, default=2048)
     ap.add_argument("--hop", type=int, default=512)
     ap.add_argument("--wav", default=None,
-                    help="analyze a WAV file instead of the synthetic sweep (not "
-                         "ported yet: exits non-zero)")
+                    help="analyze a WAV file (native reader) instead of the "
+                         "synthetic sweep")
     args = parse(ap)
 
     if args.wav:
-        sys.exit("analyzer --wav: the WAV reader (fftlab.native.wav) is not ported "
-                 "yet (ROADMAP Queue 1 item 13)")
-    cfg = AnalyzerConfig(fft_size=args.fft_size, hop=args.hop)
-    # a time-varying signal: a sweeping fundamental and fixed harmonics
-    total = args.frames * cfg.hop * 4
-    fs = cfg.sample_rate
-    t = np.arange(total) / fs
-    f0 = 440.0 + 400.0 * np.sin(2 * np.pi * 0.5 * t)
-    phase = 2 * np.pi * np.cumsum(f0) / fs
-    sig = (np.sin(phase) + 0.5 * np.sin(2 * phase)
-           + 0.25 * np.sin(3 * phase)).astype(np.float32)
+        sig, fs = read_wav(args.wav)
+        if sig.ndim == 2:
+            sig = sig.mean(axis=1)  # mix to mono
+        sig = sig.astype(np.float32)
+        cfg = AnalyzerConfig(fft_size=args.fft_size, hop=args.hop,
+                             sample_rate=float(fs))
+        total = len(sig)
+    else:
+        cfg = AnalyzerConfig(fft_size=args.fft_size, hop=args.hop)
+        # a time-varying signal: a sweeping fundamental and fixed harmonics
+        total = args.frames * cfg.hop * 4
+        fs = cfg.sample_rate
+        t = np.arange(total) / fs
+        f0 = 440.0 + 400.0 * np.sin(2 * np.pi * 0.5 * t)
+        phase = 2 * np.pi * np.cumsum(f0) / fs
+        sig = (np.sin(phase) + 0.5 * np.sin(2 * phase)
+               + 0.25 * np.sin(3 * phase)).astype(np.float32)
 
     an = RealtimeAnalyzer(cfg, device=args.device)
     freqs = rfftfreq(cfg.fft_size, 1.0 / cfg.sample_rate)

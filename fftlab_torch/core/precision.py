@@ -14,25 +14,38 @@ matmuls and convolutions alike, and gives the caller's settings back
 when the block ends, so the settings outside the port's calls are
 untouched.
 
+`matmul_precision(level)` is its sibling for the one place that lowers
+precision on purpose, `algos/lowprec.py`'s modes: the block's float32
+matmuls run at PyTorch's tier `level` ("highest", "high": TF32 tensor
+cores on the card, "medium": bfloat16 where PyTorch has such a kernel),
+convolutions at full float32 as in `full_float32`.
+
 The setting is process-wide, so the blocks of all threads share one
 save and one restore: under a lock, the first block to enter saves the
-caller's setting and sets full precision, and the last to leave
-restores it (a depth count), however the threads' blocks interleave.
-While any block is open, every thread's matmuls run at "highest", and a
-setting another thread makes then is replaced by the saved one when the
-last block leaves.
+caller's setting, and the last to leave restores it (a depth count),
+however the threads' blocks interleave. While blocks are open, the
+matmuls run at the highest level any of them asks for, so a reduced
+block never lowers the precision of a `full_float32` block of another
+thread (it runs at full precision while one is open); a setting another
+thread makes then is replaced by the saved one when the last block
+leaves.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import threading
 
 import torch
 
+# PyTorch's float32 matmul tiers, lowest first
+LEVELS = ("medium", "high", "highest")
+
 _lock = threading.Lock()
-_depth = 0  # blocks open, over all threads
+_open = collections.Counter()  # blocks open by level, over all threads
 _saved = None  # the caller's settings, saved by the first block to enter
+_applied = None  # the level set while blocks are open
 
 
 def _backends():
@@ -100,12 +113,12 @@ def _restore_conv(saved) -> None:
             b.fp32_precision = value
 
 
-def _set_full(conv_legacy: bool) -> None:
-    """Full float32 for matmuls and convs; `conv_legacy`: the caller's
-    `cudnn.allow_tf32` reads, so it is set through the legacy flag too
-    and stays readable."""
-    torch.set_float32_matmul_precision("highest")
-    if torch.backends.cuda.matmul.allow_tf32:
+def _set(level: str, conv_legacy: bool) -> None:
+    """Matmuls at `level`, convs at full float32; `conv_legacy`: the
+    caller's `cudnn.allow_tf32` reads, so it is set through the legacy
+    flag too and stays readable."""
+    torch.set_float32_matmul_precision(level)
+    if level == "highest" and torch.backends.cuda.matmul.allow_tf32:
         torch.backends.cuda.matmul.allow_tf32 = False
     if conv_legacy:
         torch.backends.cudnn.allow_tf32 = False
@@ -113,7 +126,39 @@ def _set_full(conv_legacy: bool) -> None:
         b.fp32_precision = "ieee"
 
 
+def _apply_top() -> None:
+    """Set the highest level of the open blocks, if it is not set already."""
+    global _applied
+    top = max(_open, key=LEVELS.index)
+    if top != _applied:
+        _set(top, _saved[1][0] is not None)
+        _applied = top
+
+
 @contextlib.contextmanager
+def _block(level: str):
+    """Open a block at `level` (see the module docstring)."""
+    global _saved, _applied
+    with _lock:
+        if not _open:
+            _saved = (_save_matmul(), _save_conv())
+        _open[level] += 1
+        _apply_top()
+    try:
+        yield
+    finally:
+        with _lock:
+            _open[level] -= 1
+            if not _open[level]:
+                del _open[level]
+            if _open:
+                _apply_top()
+            else:
+                _restore_matmul(_saved[0])
+                _restore_conv(_saved[1])
+                _saved = _applied = None
+
+
 def full_float32():
     """Run the block with float32 matmuls and convolutions at full
     precision: matmul precision "highest",
@@ -122,18 +167,14 @@ def full_float32():
     settings (`torch.backends.cudnn.conv`, `torch.backends.mkldnn.conv`)
     at "ieee"; the caller's settings are restored in a `finally` when the
     last open block (of any thread) leaves."""
-    global _depth, _saved
-    with _lock:
-        if _depth == 0:
-            _saved = (_save_matmul(), _save_conv())
-            _set_full(_saved[1][0] is not None)
-        _depth += 1
-    try:
-        yield
-    finally:
-        with _lock:
-            _depth -= 1
-            if _depth == 0:
-                _restore_matmul(_saved[0])
-                _restore_conv(_saved[1])
-                _saved = None
+    return _block("highest")
+
+
+def matmul_precision(level: str):
+    """Run the block with float32 matmuls at PyTorch's tier `level`, one of
+    `LEVELS`, and convolutions at full float32; the caller's settings are
+    restored as by `full_float32`. While a block of a higher level is
+    open in any thread, the matmuls run at that level."""
+    if level not in LEVELS:
+        raise ValueError(f"matmul precision must be one of {LEVELS}; got {level!r}")
+    return _block(level)

@@ -461,7 +461,7 @@ def _launch_pass2(name: str, mr, mi, h, direction, scale: float,
     return out
 
 
-def fft_split_large(xr: torch.Tensor, xi: torch.Tensor, direction=FORWARD,
+def fft_split_large(xr: torch.Tensor, xi: torch.Tensor, direction=FORWARD, *,
                     scale: float | None = None):
     """Batched FFT on split planes [..., n], pow2 n in 2^15..2^21: the two
     CUDA kernels for a CUDA tensor, the plain version for a CPU tensor.

@@ -32,7 +32,7 @@ def supported_resident(n: int) -> bool:
     return is_power_of_two(n) and MIN_N <= n <= MAX_N
 
 
-def fft_split_resident(xr: torch.Tensor, xi: torch.Tensor, direction=FORWARD,
+def fft_split_resident(xr: torch.Tensor, xi: torch.Tensor, direction=FORWARD, *,
                        scale: float | None = None):
     """Batched FFT on split planes [..., n], pow2 n in 2^15..2^20, through
     the two-pass kernels. Forward unscaled / inverse 1/n, natural order;
@@ -41,7 +41,7 @@ def fft_split_resident(xr: torch.Tensor, xi: torch.Tensor, direction=FORWARD,
     if not supported_resident(n):
         raise ValueError(
             f"fft_split_resident supports pow2 n in [{MIN_N}, {MAX_N}]; got {n}")
-    return fft_split_large(xr, xi, direction, scale)
+    return fft_split_large(xr, xi, direction, scale=scale)
 
 
 def _filter(name: str, xr, xi, hr, hi):

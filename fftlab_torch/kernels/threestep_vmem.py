@@ -145,7 +145,7 @@ def _launches(xr, xi, direction, scale: float):
     return threestep_pass_c(*mid, direction, scale)
 
 
-def fft_split_huge(xr: torch.Tensor, xi: torch.Tensor, direction=FORWARD,
+def fft_split_huge(xr: torch.Tensor, xi: torch.Tensor, direction=FORWARD, *,
                    scale: float | None = None):
     """Batched FFT on split planes [..., n], pow2 n in 2^21..2^26: the
     three CUDA launches for a CUDA tensor, the plain version for a CPU

@@ -320,6 +320,31 @@ def plan_c2r_1d_split(n: int, flags: Flags = Flags.ESTIMATE,
     return _real_plan("c2r_split", n, _real_route(n, flags, batch, device), flags)
 
 
+def plan_dft_1d_native(n: int, direction=FORWARD) -> Plan:
+    """A plan on the host's native float64 FFT (native/fft64.cpp through
+    `fftlab_torch.native.fft64`): complex128 numpy [..., n] in and out (a
+    tensor is read on the host), the direction honoured, the inverse 1/n
+    scaled; no card. Raises ValueError for non-pow2 n, and RuntimeError
+    at plan time if the native library cannot be built."""
+    from fftlab_torch.core.types import is_power_of_two
+    from fftlab_torch.native.fft64 import fft64
+    from fftlab_torch.native.lib import load_native_lib
+
+    n = int(n)
+    if not is_power_of_two(n):
+        raise ValueError(f"native backend supports pow2 n; got {n}")
+    load_native_lib()  # fail at plan time, not at execute time
+    direction = Direction(int(direction))
+    inv = direction == INVERSE
+
+    def fn(x):
+        if int(x.shape[-1]) != n:
+            raise ValueError(f"plan is for n={n}; got {x.shape[-1]}")
+        return fft64(x, inverse=inv)
+
+    return Plan("c2c_native", n, direction, "complex128", "native_fft64", PlanConfig(), fn)
+
+
 # JAX route name -> this package's route.
 _FROM_JAX = {
     "pallas_vmem": "smem_rows",

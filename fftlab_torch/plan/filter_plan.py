@@ -51,11 +51,13 @@ class FilterPlan:
     (default max(next_pow2(4*nh), 256)); the overlap-save kernel runs at
     the nearest frame size it takes (`kernel_fft_size`). Results are
     float32 tensors on `device`: the card by default, the CPU only when
-    asked for with `device="cpu"`.
+    asked for with `device="cpu"`. `time_axis` names the mesh axis a
+    sharded plan splits time over, in the JAX package's position; it is
+    kept and unused until the sharded plan is ported.
     """
 
     def __init__(self, h, fft_size: int | None = None, mesh=None,
-                 num_taps: int = 129, device="cuda"):
+                 time_axis: str = "sp", num_taps: int = 129, device="cuda"):
         if mesh is not None:
             raise NotImplementedError(
                 "FilterPlan(mesh=...): the sharded overlap-save is not ported "
@@ -71,6 +73,7 @@ class FilterPlan:
         if fft_size < next_power_of_two(2 * self.nh):
             raise ValueError(f"fft_size {fft_size} too small for {self.nh} taps")
         self.fft_size = int(fft_size)
+        self.time_axis = time_axis
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(

@@ -6,6 +6,8 @@ both packages as numpy arrays; results come back as complex128 numpy.
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -70,3 +72,21 @@ def oracle(xr, xi, direction: int, scale: float = 1.0) -> np.ndarray:
     n = z.shape[-1]
     y = np.fft.fft(z) if int(direction) == -1 else np.fft.ifft(z) * n
     return y * scale
+
+
+def jax_native():
+    """fftlab's native library, loaded with retries. The JAX loader runs
+    `make` into native/ on first use in each process, and another test
+    process may be running the same build at that moment: a half-written
+    library fails to load, and the JAX loader keeps that failure. A retry
+    after the other build has finished loads the finished file."""
+    from fftlab.native import lib as jx_lib
+
+    for attempt in range(5):
+        try:
+            return jx_lib.load_native_lib()
+        except RuntimeError:
+            if attempt == 4:
+                raise
+            jx_lib._ERR = None
+            time.sleep(2)

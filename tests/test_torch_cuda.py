@@ -1119,3 +1119,128 @@ def test_dsp_demos_run_on_the_card(capsys, monkeypatch, demo, argv):
     monkeypatch.setattr(sys, "argv", ["prog"] + argv)
     importlib.import_module(f"fftlab_torch.cli.{demo}").main()
     assert len(capsys.readouterr().out) > 50
+
+
+# -- the single-card edges: serving, lowprec, trace, the harness, the demos ---
+
+def _two_tones(n: int, fs: int, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / fs
+    return (0.4 * np.sin(2 * np.pi * 440 * t) + 0.3 * np.sin(2 * np.pi * 6000 * t)
+            + 0.05 * rng.standard_normal(n)).astype(np.float32)
+
+
+def test_native_builds_on_the_card_host():
+    from fftlab_torch.native import lib
+    from fftlab_torch.native.fft64 import fft64
+
+    assert lib.load_native_lib()._name == str(lib.library_path())
+    x = np.random.default_rng(0).standard_normal((2, 256)) + 0j
+    assert snr_db(fft64(x), np.fft.fft(x)) > 250.0
+
+
+def test_serve_stream_on_the_card(no_tf32, tmp_path):
+    """cli/serve's path at its defaults on a 2^20-sample 48 kHz WAV: one
+    `os_filter` launch a chunk, the stream >= 100 dB against float64
+    np.convolve of the samples as read."""
+    from fftlab_torch.cli import parse, serve
+    from fftlab_torch.native.wav import write_wav
+
+    n, fs = 1 << 20, 48000
+    write_wav(str(tmp_path / "in.wav"), _two_tones(n, fs, 1), fs)
+    args = parse(serve.build_parser(),
+                 ["--in", str(tmp_path / "in.wav"), "--out", str(tmp_path / "out.wav")])
+    before = os_filter_vmem.LAUNCHES["os_filter"]
+    r = serve.run(args)
+    assert os_filter_vmem.LAUNCHES["os_filter"] - before == -(-n // args.chunk)
+    assert r.plan.device.type == "cuda" and r.plan.uses_kernel()
+    want = np.convolve(r.audio.astype(np.float64), r.plan.h.astype(np.float64))[:n]
+    assert r.filtered.shape == (n,)
+    assert snr_db(r.filtered, want) >= 100.0
+
+
+def test_lowprec_gates_on_the_card(no_tf32):
+    from fftlab_torch.algos.lowprec import PRECISIONS, fft_split_lowprec
+
+    xr, xi = _cuda_pair(12, (4, 1 << 16))
+    want = oracle(xr.cpu().numpy(), xi.cpu().numpy(), -1)
+    before = (torch.get_float32_matmul_precision(), torch.backends.cuda.matmul.allow_tf32)
+    snr = {m: snr_db(cplx(*fft_split_lowprec(xr, xi, mode=m)), want) for m in PRECISIONS}
+    assert (torch.get_float32_matmul_precision(),
+            torch.backends.cuda.matmul.allow_tf32) == before
+    assert snr["f32"] >= 120.0
+    assert snr["f32"] >= snr["f32x3"] >= snr["bf16"] > 20.0
+
+
+def test_span_waits_for_the_card():
+    from fftlab_torch.bench import timing
+    from fftlab_torch.utils.trace import span
+
+    x = torch.randn(4096, 4096, device="cuda")
+    work = lambda: [x @ x for _ in range(8)]  # noqa: E731
+    work()
+    device_ms = timing.event_ms(work, 3, 1)
+    timers = {}
+    torch.cuda.synchronize()
+    with span("work", timers):
+        work()
+    assert timers["work"].total_s * 1e3 >= 0.9 * device_ms
+
+
+def test_time_fn_on_cuda_events():
+    from fftlab_torch.bench import harness, timing
+
+    x = torch.randn(16, 1 << 16, dtype=torch.complex64, device="cuda")
+    sec = harness.time_fn(torch.fft.fft, (x,), iters=20)
+    ms = timing.time_ms(lambda: torch.fft.fft(x), "cuda", iters=3, inner=20)
+    assert 0 < sec * 1e3 < 3 * ms and ms < 3 * sec * 1e3
+
+
+def test_benchmark_suite_on_the_card():
+    from fftlab_torch.bench.harness import benchmark_suite
+
+    rows = benchmark_suite((1024,), ["stockham_mxu", "pallas_vmem", "radix2_dit"])
+    assert [r.algorithm for r in rows] == ["stockham_mxu", "pallas_vmem", "radix2_dit"]
+    assert all(r.roundtrip_ok and r.ms > 0 for r in rows)
+
+
+def test_profiler_trace_on_the_card(tmp_path):
+    from fftlab_torch.utils.trace import TRACE_FILE, profiler_trace
+
+    x = torch.randn(16, 1 << 16, dtype=torch.complex64, device="cuda")
+    with profiler_trace(str(tmp_path)):
+        torch.fft.fft(x)
+        torch.cuda.synchronize()
+    assert (tmp_path / TRACE_FILE).stat().st_size > 0
+
+
+def test_bigfft_kernels_on_the_card(no_tf32):
+    from fftlab_torch.cli import bigfft
+
+    xr, xi = _cuda_pair(13, (1, 1 << 20))
+    before = {k: fourstep_vmem.LAUNCHES[k] for k in ("fourstep_pass1", "fourstep_pass2")}
+    assert bigfft.two_pass_snr(xr, xi) >= 120.0
+    assert {k: fourstep_vmem.LAUNCHES[k] - v for k, v in before.items()} == \
+        {"fourstep_pass1": 1, "fourstep_pass2": 1}
+    h = np.random.default_rng(3).standard_normal(257).astype(np.float32) / 257
+    assert bigfft.convolution_error(xr[0, : 1 << 14], h) <= 1e-4
+
+
+@pytest.mark.parametrize("demo,argv", [
+    ("serve", ["--taps", "65", "--chunk", "16384"]), ("bigfft", []), ("features", []),
+    ("benchmark", ["--sizes", "64,1024", "--algos", "radix2_dit,stockham_mxu"]),
+    ("analyzer", ["--frames", "2", "--wav"])])
+def test_edge_demos_run_on_the_card(capsys, monkeypatch, tmp_path, demo, argv):
+    import importlib
+    import sys
+
+    from fftlab_torch.native.wav import write_wav
+
+    if demo == "analyzer":
+        write_wav(str(tmp_path / "a.wav"), _two_tones(1 << 15, 16000, 2), 16000)
+        argv = argv + [str(tmp_path / "a.wav")]
+    if demo == "serve":
+        argv = argv + ["--out", str(tmp_path / "out.wav")]
+    monkeypatch.setattr(sys, "argv", ["prog"] + argv)
+    importlib.import_module(f"fftlab_torch.cli.{demo}").main()
+    assert len(capsys.readouterr().out) > 50

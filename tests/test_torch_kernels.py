@@ -95,7 +95,7 @@ def test_rows_plain_matches_pallas(n, direction, scale):
 def test_resident_plain_matches_pallas_v6(direction, scale):
     n = 1 << 15
     xr, xi = planes(7, (2, n))
-    got = cplx(*resident_vmem.fft_split_resident(tt(xr), tt(xi), direction, scale))
+    got = cplx(*resident_vmem.fft_split_resident(tt(xr), tt(xi), direction, scale=scale))
     want = cplx(*jx_res.fft_split_resident(
         jnp.asarray(xr), jnp.asarray(xi), direction, interpret=True,
         scale=scale, layout="v6"))
@@ -108,7 +108,7 @@ def test_resident_plain_matches_pallas_v6(direction, scale):
 @pytest.mark.parametrize("direction,scale", CASES, ids=CASE_IDS)
 def test_two_pass_plain_matches_pallas(n, direction, scale):
     xr, xi = planes(n + 3, (2, n))
-    got = cplx(*fourstep_vmem.fft_split_large(tt(xr), tt(xi), direction, scale))
+    got = cplx(*fourstep_vmem.fft_split_large(tt(xr), tt(xi), direction, scale=scale))
     want = cplx(*jx_fs.fft_split_large(
         jnp.asarray(xr), jnp.asarray(xi), direction, interpret=True,
         scale=scale))
