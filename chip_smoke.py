@@ -70,7 +70,29 @@ Phases, in order; any failure raises and the exit code is non-zero:
    np.convolve), the lowprec modes at 16 x 2^20 (f32 >= 120 dB, f32 >=
    f32x3 >= bf16 > 20 dB, each timed; the q15 row), the harness at 1024
    and 16384 (every round trip ok) and a profiler trace under
-   chiprun_out/.
+   chiprun_out/; (h) the sharded paths (`dist_phase`), each call with
+   its own reset and read: (a) in this process, a world of one rank on
+   NCCL over a file store, `four_step_fft_sharded_split` at 1 x 2^24
+   (chunks 1 and 4, flatten=False, the inverse; 2 and 5 `fft_rows`
+   launches, >= 120 dB vs float64 and >= 110 dB vs `fft_split_auto`, the
+   chunked and block forms bit-identical), `plan_dft_1d_sharded(2^24)`,
+   `FilterPlan(h, mesh=)` on 2^23 samples x two planes with 129 taps (one
+   `os_filter` launch, >= 100 dB vs np.convolve on a 128K prefix),
+   `fft2_sharded_split` and `fft2_mesh2d_split` at 2048 x 2048,
+   `tp_spectral_filter_split` at 2^24, `pp_spectral_pipeline_split` on 64
+   blocks of 16384, `welch_psd_sharded` (256) and `stft_sharded`
+   (2048/512) on 2^22 samples and the dp x sp filterbank on 4 x 2^20,
+   each against float64 and the single-device entry point, the four-step
+   and `FilterPlan(mesh=)` timed beside `fft_split_auto`, cuFFT and
+   `FilterPlan`; (b) four gloo ranks spawned on the one card under a
+   deadline, the same calls on the same inputs, every result against
+   (a)'s and float64, the overlap-save seams (+-256 samples around every
+   shard boundary) against np.convolve, each rank's launches and
+   host-clock times (gloo through the host; not a scaling figure) and
+   the bytes gloo moved through the host; then every shape that (a) and
+   (b) gave `fft_rows` and `os_filter` (logged as each launch passes,
+   `kernel_shapes`) on fresh planes against the plain versions (>= 110
+   dB) and float64, into the kernels line's max_abs_err.
    Every output of a main path is held against the plain versions on
    the same inputs (>= 110 dB, over every sample) and against an oracle;
 5. timing: CUDA events around 10 back-to-back calls, median of 25 such
@@ -105,6 +127,7 @@ Phases, in order; any failure raises and the exit code is non-zero:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -1015,6 +1038,531 @@ def edges_phase(dev, gen, card: str, reset_counts, read_counts) -> None:
     print(f"edges phase: {time.perf_counter() - t_phase:.1f} s")
 
 
+# the sharded paths (phase 4h), at the main paths' sizes: one 2^24
+# transform (bench.py fft_16m_single; n1 = n2 = 4096, split over 4 ranks
+# as 1024 rows each), FilterPlan at the serving shape (2^23 samples, two
+# planes, 129 taps), 2048^2 for the 2-D transforms, 64 blocks of 16384
+# for PP, 2^22 samples for Welch (256-point segments) and the STFT
+# (2048/512), 4 channels of 2^20 samples for the dp x sp filterbank
+DIST_N = 1 << 24
+DIST_CHUNKS = 4
+DIST_FFT2 = (2048, 2048)
+DIST_PP = (64, 16384)
+DIST_SIGNAL_N = 1 << 22
+DIST_WELCH = 256
+DIST_STFT = (2048, 512)
+DIST_BANK = (4, 1 << 20)
+DIST_RANKS = 4
+DIST_SEAM = 256  # samples each side of a shard boundary the seam gates read
+DIST_TIMEOUT_S = 120  # the four gloo ranks of (b), CUDA start-up included
+DIST_C2C_DB, DIST_SPECTRUM_DB, DIST_FIR_DB, DIST_SAME_DB = 120.0, 110.0, 100.0, 110.0
+
+
+def reset_counts() -> None:
+    """Every kernel wrapper's launch count to 0."""
+    from fftlab_torch.kernels import (fft_vmem, fourstep_vmem, os_filter_vmem, rfft_vmem,
+                                      stage_fused, stft_vmem, threestep_vmem)
+
+    for counts in (fft_vmem.LAUNCHES, fourstep_vmem.LAUNCHES, os_filter_vmem.LAUNCHES,
+                   rfft_vmem.LAUNCHES, stft_vmem.LAUNCHES, threestep_vmem.LAUNCHES,
+                   stage_fused.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def read_counts() -> dict:
+    """Every kernel wrapper's launches since the last reset."""
+    from fftlab_torch.kernels import (fft_vmem, fourstep_vmem, os_filter_vmem, rfft_vmem,
+                                      stage_fused, stft_vmem, threestep_vmem)
+
+    return {**fft_vmem.LAUNCHES, **fourstep_vmem.LAUNCHES, **os_filter_vmem.LAUNCHES,
+            **rfft_vmem.LAUNCHES, **stft_vmem.LAUNCHES, **threestep_vmem.LAUNCHES,
+            **stage_fused.LAUNCHES}
+
+
+@contextlib.contextmanager
+def kernel_shapes(log: dict):
+    """While open, each `fft_rows` launch appends [B, n, direction, scale]
+    to log["fft_rows"] and each `os_filter` launch [C, n, fft_size, nh] to
+    log["os_filter"]: the shapes a path gives the kernels, which main
+    holds against the plain versions. The wrappers still launch and count
+    themselves; their callers reach them through their modules, so every
+    launch passes through here (dist_calls checks that)."""
+    from fftlab_torch.kernels import fft_vmem, os_filter_vmem
+
+    rows, frames = fft_vmem.fft_rows, os_filter_vmem.os_filter
+
+    def rows_logged(xr, xi, direction=1, scale=1.0):
+        log["fft_rows"].append([*xr.shape, int(direction), float(scale)])
+        return rows(xr, xi, direction, scale)
+
+    def frames_logged(xr, xi, hr, hi, nh):
+        log["os_filter"].append([*xr.shape, int(hr.shape[-1]), int(nh)])
+        return frames(xr, xi, hr, hi, nh)
+
+    fft_vmem.fft_rows, os_filter_vmem.os_filter = rows_logged, frames_logged
+    try:
+        yield log
+    finally:
+        fft_vmem.fft_rows, os_filter_vmem.os_filter = rows, frames
+
+
+def snr(got, want) -> float:
+    """SNR in dB of `got` against `want` (tensors or arrays, real or
+    complex, or (re, im) pairs of tensors), in float64."""
+    import numpy as np
+    import torch
+
+    def c128(a):
+        if isinstance(a, (tuple, list)):
+            return torch.complex(c128(a[0]).real, c128(a[1]).real)
+        a = torch.as_tensor(np.asarray(a) if not isinstance(a, torch.Tensor) else a)
+        return a.to(torch.complex128)
+
+    g, w = c128(got), c128(want)
+    w = w.to(g.device)
+    den = (g - w).abs().square().sum().clamp_min(1e-300)
+    return float(10 * torch.log10(w.abs().square().sum() / den))
+
+
+def dist_inputs(dev, seed: int) -> dict:
+    """The sharded paths' inputs, from the seed, the same on every rank."""
+    import numpy as np
+    import torch
+
+    from fftlab_torch.core.window import hann
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    r = lambda *shape: torch.randn(*shape, generator=g, device=dev)
+    rng = np.random.default_rng(seed)
+    B, nb = DIST_PP
+    return {
+        "xr": r(DIST_N), "xi": r(DIST_N), "hr": r(DIST_N), "hi": r(DIST_N),
+        "fa": r(SERVING_N), "fb": r(SERVING_N),
+        "h": (rng.standard_normal(SERVING_TAPS) / np.sqrt(SERVING_TAPS)).astype(np.float32),
+        "ar": r(*DIST_FFT2), "ai": r(*DIST_FFT2),
+        "br": r(B, nb), "bi": r(B, nb), "pr": r(nb), "pi": r(nb),
+        "w": torch.as_tensor(hann(nb), dtype=torch.float32, device=dev),
+        "s": r(DIST_SIGNAL_N),
+        "bank": r(*DIST_BANK),
+        "bank_h": (rng.standard_normal((DIST_BANK[0], SERVING_TAPS))
+                   / np.sqrt(SERVING_TAPS)).astype(np.float32),
+    }
+
+
+def sync(dev) -> None:
+    """Wait for the card (nothing to wait for on the CPU)."""
+    import torch
+
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def dist_meshes(world: int, backend: str, device_type: str) -> dict:
+    """The meshes of the sharded paths: 1-D over every rank, and 2-D
+    (2, world/2) or (1, 1)."""
+    from fftlab_torch.dist import make_mesh, make_mesh_1d
+
+    two = (2, world // 2) if world > 1 else (1, 1)
+    kw = dict(device_type=device_type, backend=backend)
+    return {"tp": make_mesh_1d("tp", **kw), "ab": make_mesh(two, ("a", "b"), **kw),
+            "dpsp": make_mesh({"dp": two[0], "sp": two[1]}, **kw),
+            "pp": make_mesh_1d("pp", **kw)}
+
+
+def dist_calls(inp: dict, meshes: dict):
+    """Each sharded entry point once on the inputs, with the launch counts
+    set to 0 just before it and read just after: (whole outputs, launches
+    by call, the shapes of every `fft_rows` and `os_filter` launch,
+    `kernel_shapes`)."""
+    import torch
+
+    from fftlab_torch.core.types import INVERSE
+    from fftlab_torch.dist import (fft2_sharded_split, four_step_fft_sharded_split, gather,
+                                   pp_spectral_pipeline_split, stft_sharded,
+                                   tp_spectral_filter_split, welch_psd_sharded)
+    from fftlab_torch.dist.fft2_mesh2d import fft2_mesh2d_split
+    from fftlab_torch.dist.overlap_save_split import overlap_save_filterbank_sharded_split
+    from fftlab_torch.plan.api import plan_dft_1d_sharded
+    from fftlab_torch.plan.filter_plan import FilterPlan
+
+    tp, ab, dpsp, pp = meshes["tp"], meshes["ab"], meshes["dpsp"], meshes["pp"]
+    x = (inp["xr"], inp["xi"])
+    out, launches = {}, {}
+
+    def call(name, fn):
+        sync(x[0].device)
+        reset_counts()
+        out[name] = fn()
+        sync(x[0].device)
+        launches[name] = {k: c for k, c in read_counts().items() if c}
+
+    whole = lambda pair, mesh, axis, dim: tuple(gather(t, mesh, axis, dim) for t in pair)
+    shapes = {"fft_rows": [], "os_filter": []}
+    with kernel_shapes(shapes):
+        call("four_step", lambda: four_step_fft_sharded_split(*x, tp, "tp"))
+        call("four_step_chunks", lambda: four_step_fft_sharded_split(*x, tp, "tp",
+                                                                     chunks=DIST_CHUNKS))
+        call("four_step_block", lambda: whole(four_step_fft_sharded_split(
+            *x, tp, "tp", flatten=False), tp, "tp", -1))
+        call("four_step_inverse", lambda: four_step_fft_sharded_split(
+            *out["four_step"], tp, "tp", direction=INVERSE))
+        call("plan", lambda: plan_dft_1d_sharded(DIST_N, tp, "tp").execute(torch.complex(*x)))
+        call("filter_plan", lambda: whole(FilterPlan(inp["h"], mesh=tp, time_axis="tp")(
+            inp["fa"], inp["fb"]), tp, "tp", -1))
+        call("fft2", lambda: whole(fft2_sharded_split(inp["ar"], inp["ai"], tp, "tp"),
+                                   tp, "tp", 0))
+        call("fft2_mesh2d", lambda: fft2_mesh2d_split(inp["ar"], inp["ai"], ab, "a", "b"))
+        call("tp", lambda: tp_spectral_filter_split(*x, inp["hr"], inp["hi"], tp, "tp",
+                                                    flatten=True))
+        call("pp", lambda: pp_spectral_pipeline_split(inp["br"], inp["bi"], inp["pr"],
+                                                      inp["pi"], pp, "pp", window=inp["w"]))
+        call("welch", lambda: welch_psd_sharded(inp["s"], tp, "tp",
+                                                window_size=DIST_WELCH)[1])
+        call("stft", lambda: gather(stft_sharded(inp["s"], tp, "tp", *DIST_STFT),
+                                    tp, "tp", -2))
+        call("filterbank", lambda: gather(gather(overlap_save_filterbank_sharded_split(
+            inp["bank"], inp["bank_h"], dpsp), dpsp, "sp", -1), dpsp, "dp", 0))
+    for kernel, logged in shapes.items():
+        n_launched = sum(got.get(kernel, 0) for got in launches.values())
+        require(len(logged) == n_launched,
+                f"{kernel}: {n_launched} launches, {len(logged)} of them logged")
+    return out, launches, shapes
+
+
+def dist_launches_wanted(p: int, rank: int) -> dict:
+    """The kernel launches each call makes on a rank of p: the row FFTs of
+    1024..16384 points are `fft_rows`, the overlap-save blocks
+    `os_filter`; the complex plan, the 2-D mesh's 32- and 64-point passes,
+    Welch and the STFT run tensor ops."""
+    B = DIST_PP[0]
+    pp = {"fft_rows": 2 * B} if p == 1 else (
+        {"fft_rows": B + p - 1} if rank in (1, p - 1) else {})
+    return {"four_step": {"fft_rows": 2}, "four_step_chunks": {"fft_rows": 1 + DIST_CHUNKS},
+            "four_step_block": {"fft_rows": 2}, "four_step_inverse": {"fft_rows": 2},
+            "plan": {}, "filter_plan": {"os_filter": 1}, "fft2": {"fft_rows": 2},
+            "fft2_mesh2d": {}, "tp": {"fft_rows": 4}, "pp": pp, "welch": {}, "stft": {},
+            "filterbank": {"os_filter": DIST_BANK[0] // (2 if p > 1 else 1)}}
+
+
+def fir_window(x, h, start: int, stop: int):
+    """float64 np.convolve(x, h)[start:stop], from the samples it reads."""
+    import numpy as np
+
+    lo = max(start - len(h) + 1, 0)
+    y = np.convolve(np.asarray(x[lo:stop], np.float64), np.asarray(h, np.float64))
+    return y[start - lo:stop - lo]
+
+
+def dist_oracles(inp: dict) -> dict:
+    """float64 references of the sharded calls, on the card (torch.fft on
+    complex128 and np.convolve, used as oracles only)."""
+    import numpy as np
+    import torch
+
+    from fftlab_torch.core.window import hann, power_gain
+
+    c = lambda re, im: torch.complex(re.double(), im.double())
+    X = torch.fft.fft(c(inp["xr"], inp["xi"]))
+    size, hop = DIST_STFT
+    s = inp["s"].double()
+    frames = torch.nn.functional.pad(s, (0, size)).unfold(0, size, hop)[:DIST_SIGNAL_N // hop]
+    hw = torch.as_tensor(hann(size), device=s.device)
+    ww = torch.as_tensor(hann(DIST_WELCH), device=s.device)
+    segs = s.unfold(0, DIST_WELCH, DIST_WELCH // 2) * ww
+    dbl = torch.full((DIST_WELCH // 2 + 1,), 2.0, dtype=torch.float64, device=s.device)
+    dbl[0] = dbl[-1] = 1.0
+    psd = (torch.fft.rfft(segs).abs().square().mean(0) * dbl
+           / (DIST_WELCH * power_gain(hann(DIST_WELCH))))
+    blocks = c(inp["br"], inp["bi"]) * inp["w"].double()
+    fa = inp["fa"][:PREFIX].cpu().numpy()
+    fb = inp["fb"][:PREFIX].cpu().numpy()
+    return {
+        "four_step": X,
+        "plan": X,
+        "filter_plan": np.convolve(fa.astype(np.float64), inp["h"].astype(np.float64))[:PREFIX]
+        + 1j * np.convolve(fb.astype(np.float64), inp["h"].astype(np.float64))[:PREFIX],
+        "fft2": torch.fft.fft2(c(inp["ar"], inp["ai"])),
+        "tp": torch.fft.ifft(X * c(inp["hr"], inp["hi"])),
+        "pp": torch.fft.ifft(torch.fft.fft(blocks) * c(inp["pr"], inp["pi"])),
+        "welch": psd,
+        "stft": torch.fft.fft(frames * hw)[:, :size // 2 + 1],
+    }
+
+
+def dist_check(out: dict, inp: dict, oracle: dict, tag: str) -> None:
+    """The gates of every sharded output against its float64 oracle
+    (c2c >= 120 dB, 2-D, PP, TP, Welch, STFT >= 110, FIR >= 100 on the
+    128K prefix and around every shard boundary), and the chunked and
+    block forms equal to the plain call, bit for bit."""
+    import numpy as np
+    import torch
+
+    def gate(what, value, limit):
+        print(f"{tag} {what}: {value:.1f} dB (gate {limit:.0f})")
+        require(value >= limit, f"{tag} {what}: {value:.1f} dB < {limit}")
+
+    fs = out["four_step"]
+    gate("four_step 1 x 2^24 vs float64", snr(fs, oracle["four_step"]), DIST_C2C_DB)
+    require(all(torch.equal(a, b) for a, b in zip(out["four_step_chunks"], fs)),
+            f"{tag} chunks={DIST_CHUNKS} differs from chunks=1")
+    require(all(torch.equal(a.reshape(-1), b) for a, b in zip(out["four_step_block"], fs)),
+            f"{tag} flatten=False, gathered, differs from flatten=True")
+    print(f"{tag} four_step chunks={DIST_CHUNKS} and flatten=False equal chunks=1 bit for bit")
+    gate("four_step inverse round trip", snr(out["four_step_inverse"], (inp["xr"], inp["xi"])),
+         DIST_C2C_DB)
+    gate("plan_dft_1d_sharded 2^24 vs float64", snr(out["plan"], oracle["plan"]), DIST_C2C_DB)
+    yr, yi = out["filter_plan"]
+    got = yr[:PREFIX].cpu().numpy() + 1j * yi[:PREFIX].cpu().numpy()
+    gate(f"FilterPlan(mesh=) vs np.convolve on {PREFIX}", snr(got, oracle["filter_plan"]),
+         DIST_FIR_DB)
+    gate("fft2_sharded_split 2048^2 vs float64", snr(out["fft2"], oracle["fft2"]),
+         DIST_SPECTRUM_DB)
+    gate("fft2_mesh2d_split 2048^2 vs float64", snr(out["fft2_mesh2d"], oracle["fft2"]),
+         DIST_SPECTRUM_DB)
+    gate("tp_spectral_filter_split 2^24 vs float64", snr(out["tp"], oracle["tp"]),
+         DIST_SPECTRUM_DB)
+    gate("pp_spectral_pipeline_split 64 x 16384 vs float64", snr(out["pp"], oracle["pp"]),
+         DIST_SPECTRUM_DB)
+    gate("welch_psd_sharded 2^22 at 256 vs float64", snr(out["welch"], oracle["welch"]),
+         DIST_SPECTRUM_DB)
+    gate("stft_sharded 2^22 at 2048/512 vs float64", snr(out["stft"], oracle["stft"]),
+         DIST_SPECTRUM_DB)
+    bank = out["filterbank"].cpu().numpy()
+    x = inp["bank"].cpu().numpy()
+    worst = min(snr(bank[c, :PREFIX], fir_window(x[c], inp["bank_h"][c], 0, PREFIX))
+                for c in range(bank.shape[0]))
+    gate(f"filterbank {DIST_BANK[0]} x 2^20 vs np.convolve on {PREFIX}", worst, DIST_FIR_DB)
+
+
+def dist_seams(out: dict, inp: dict, p: int, tag: str) -> None:
+    """The overlap-save outputs +-DIST_SEAM samples around every boundary
+    of p > 1 shards (the filterbank's 2 of time) against float64
+    np.convolve."""
+    import numpy as np
+
+    h = inp["h"]
+    fa, fb = inp["fa"].cpu().numpy(), inp["fb"].cpu().numpy()
+    yr, yi = (t.cpu().numpy() for t in out["filter_plan"])
+    x, bank = inp["bank"].cpu().numpy(), out["filterbank"].cpu().numpy()
+    worst = []
+    for k in range(1, p):
+        b = k * SERVING_N // p
+        lo, hi = b - DIST_SEAM, b + DIST_SEAM
+        want = fir_window(fa, h, lo, hi) + 1j * fir_window(fb, h, lo, hi)
+        worst.append(snr(yr[lo:hi] + 1j * yi[lo:hi], want))
+    b = DIST_BANK[1] // 2  # the filterbank's time axis: 2 shards
+    for c in range(DIST_BANK[0]):
+        worst.append(snr(bank[c, b - DIST_SEAM:b + DIST_SEAM],
+                         fir_window(x[c], inp["bank_h"][c], b - DIST_SEAM, b + DIST_SEAM)))
+    value = min(worst)
+    print(f"{tag} overlap-save seams, +-{DIST_SEAM} samples around {len(worst)} shard "
+          f"boundaries, vs float64 np.convolve: {value:.1f} dB (gate {DIST_FIR_DB:.0f})")
+    require(value >= DIST_FIR_DB, f"{tag} seams {value:.1f} dB")
+
+
+def _dist_rank(rank: int, world: int, tmp: str, seed: int, device_type: str) -> None:
+    """One of the gloo ranks of phase 4h (b), sharing the card: the calls
+    of (a) on the same inputs, its launches, the shapes they got and its
+    host-clock times written to tmp/rank<r>.json; rank 0 holds every output against (a)'s and the
+    oracles, and prints the verdicts and the bytes gloo moved through the
+    host."""
+    import statistics as stats
+
+    import torch
+    import torch.distributed as dist
+
+    from fftlab_torch.dist import comm, four_step_fft_sharded_split
+    from fftlab_torch.dist.mesh import mesh_device
+    from fftlab_torch.dist.multihost import ensure_initialized
+    from fftlab_torch.plan.filter_plan import FilterPlan
+
+    ensure_initialized(f"file://{tmp}/init", world, rank, backend="gloo",
+                       device_type=device_type, timeout_s=DIST_TIMEOUT_S)
+    meshes = dist_meshes(world, "gloo", device_type)
+    dev = mesh_device(meshes["tp"])
+    inp = dist_inputs(dev, seed)
+    comm.STAGED["bytes"] = 0
+    t0 = time.perf_counter()
+    out, launches, shapes = dist_calls(inp, meshes)
+    calls_s = time.perf_counter() - t0
+    staged = comm.STAGED["bytes"]
+    tp = meshes["tp"]
+    plan = FilterPlan(inp["h"], mesh=tp, time_axis="tp")
+
+    def host_ms(fn, reps=3):
+        runs = []
+        for _ in range(reps):
+            dist.barrier()
+            sync(dev)
+            t = time.perf_counter()
+            fn()
+            sync(dev)
+            dist.barrier()
+            runs.append((time.perf_counter() - t) * 1e3)
+        return stats.median(runs)
+
+    times = {"four_step": host_ms(lambda: four_step_fft_sharded_split(
+                 inp["xr"], inp["xi"], tp, "tp")),
+             "four_step_block": host_ms(lambda: four_step_fft_sharded_split(
+                 inp["xr"], inp["xi"], tp, "tp", flatten=False)),
+             "filter_plan": host_ms(lambda: plan(inp["fa"], inp["fb"]))}
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump({"launches": launches, "shapes": shapes, "staged": staged, "times": times,
+                   "calls_s": calls_s}, f)
+    if rank == 0:
+        tag = f"dist (b) {world} gloo ranks"
+        dist_check(out, inp, dist_oracles(inp), tag)
+        dist_seams(out, inp, world, tag)
+        ref = torch.load(os.path.join(tmp, "a.pt"))
+        for name, want in ref.items():
+            got = out[name]
+            value = snr(got, want)
+            print(f"{tag} {name} vs world 1 on NCCL: {value:.1f} dB (gate {DIST_SAME_DB:.0f})")
+            require(value >= DIST_SAME_DB, f"{tag} {name} vs (a) {value:.1f} dB")
+        print(f"{tag}: every gate held; gloo moved {staged} bytes of this rank's CUDA "
+              f"tensors through the host")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def dist_phase(dev, gen, card: str) -> dict:
+    """Phase 4h: the sharded paths on the card (see the module docstring).
+    Returns the kernel launches of (a), the main path's run, by kernel,
+    and the shapes that (a) and every rank of (b) gave `fft_rows` and
+    `os_filter` (`kernel_shapes`), each once."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from fftlab_torch.dist import four_step_fft_sharded_split
+    from fftlab_torch.dsp.spectrum import welch_psd
+    from fftlab_torch.dsp.stft import stft
+    from fftlab_torch.plan.dispatch import fft_split_auto, spectral_filter_auto
+    from fftlab_torch.plan.filter_plan import FilterPlan
+
+    t_phase = time.perf_counter()
+    seed = int(gen.initial_seed()) + 12
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) world size 1 on NCCL, in this process
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+        dist.init_process_group(backend, store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                rank=0, world_size=1)
+        try:
+            meshes = dist_meshes(1, backend, dev.type)
+            inp = dist_inputs(dev, seed)
+            out, launches, shapes = dist_calls(inp, meshes)
+            seen = {k: {tuple(v) for v in logged} for k, logged in shapes.items()}
+            want = dist_launches_wanted(1, 0)
+            for name, got in launches.items():
+                print(f"dist (a) {name} launches: {got}")
+                require(got == want[name], f"dist (a) {name} launched {got}, want {want[name]}")
+            dist_check(out, inp, dist_oracles(inp), f"dist (a) world 1 on {backend}")
+            xr, xi = inp["xr"], inp["xi"]
+            auto = fft_split_auto(xr[None], xi[None])
+            single = stft(inp["s"], *DIST_STFT)  # its ceil framing: the first frames
+            for name, value in (("four_step vs fft_split_auto (three passes)",
+                                 snr(out["four_step"], [t[0] for t in auto])),
+                                ("tp vs spectral_filter_auto", snr(out["tp"], spectral_filter_auto(
+                                    xr, xi, inp["hr"], inp["hi"]))),
+                                ("pp vs spectral_filter_auto", snr(out["pp"], spectral_filter_auto(
+                                    inp["br"] * inp["w"], inp["bi"] * inp["w"], inp["pr"],
+                                    inp["pi"]))),
+                                ("FilterPlan(mesh=) vs FilterPlan", snr(out["filter_plan"], FilterPlan(
+                                    inp["h"], device=dev)(inp["fa"], inp["fb"]))),
+                                ("welch vs welch_psd", snr(out["welch"], welch_psd(
+                                    inp["s"], window_size=DIST_WELCH)[1])),
+                                ("stft vs stft", snr(out["stft"][:len(single)], single))):
+                print(f"dist (a) {name}: {value:.1f} dB (gate {DIST_SAME_DB:.0f})")
+                require(value >= DIST_SAME_DB, f"dist (a) {name}: {value:.1f} dB")
+            del auto, single
+            tp = meshes["tp"]
+            xc = torch.complex(xr, xi)
+            plan_m = FilterPlan(inp["h"], mesh=tp, time_axis="tp")
+            plan_1 = FilterPlan(inp["h"], device=dev)
+            ms = {"four_step": time_ms(lambda: four_step_fft_sharded_split(xr, xi, tp, "tp")),
+                  "four_step_chunks": time_ms(lambda: four_step_fft_sharded_split(
+                      xr, xi, tp, "tp", chunks=DIST_CHUNKS)),
+                  "four_step_block": time_ms(lambda: four_step_fft_sharded_split(
+                      xr, xi, tp, "tp", flatten=False)),
+                  "three_pass": time_ms(lambda: fft_split_auto(xr[None], xi[None])),
+                  "cufft": time_ms(lambda: torch.fft.fft(xc)),
+                  "filter_plan_mesh": time_ms(lambda: plan_m(inp["fa"], inp["fb"])),
+                  "filter_plan": time_ms(lambda: plan_1(inp["fa"], inp["fb"]))}
+            print(f"time dist (a) 1 x 2^24: four_step_fft_sharded_split {ms['four_step']:.4f} ms "
+                  f"(chunks={DIST_CHUNKS} {ms['four_step_chunks']:.4f}, flatten=False "
+                  f"{ms['four_step_block']:.4f}); fft_split_auto (three passes) "
+                  f"{ms['three_pass']:.4f}; torch.fft.fft {ms['cufft']:.4f} [{card}]")
+            print(f"time dist (a) FilterPlan(mesh=) 2^23 x 2 planes, {SERVING_TAPS} taps: "
+                  f"{ms['filter_plan_mesh']:.4f} ms; FilterPlan {ms['filter_plan']:.4f} ms "
+                  f"[{card}]")
+            # where the four-step's time goes: device time by kernel, one call
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                four_step_fft_sharded_split(xr, xi, tp, "tp")
+                sync(dev)
+            rows = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)
+            spent = sum(e.self_device_time_total for e in rows) / 1e3
+            print(f"dist (a) four_step 1 x 2^24, one call, device time by kernel (profiler, "
+                  f"{spent:.4f} ms in all) [{card}]: "
+                  + "; ".join(f"{e.key[:48]} x{e.count} {e.self_device_time_total / 1e3:.4f} ms"
+                              for e in rows[:10]))
+            total = {}
+            for got in launches.values():
+                for k, c in got.items():
+                    total[k] = total.get(k, 0) + c
+            torch.save({k: (tuple(t.cpu() for t in out[k]) if isinstance(out[k], tuple)
+                            else out[k].cpu())
+                        for k in ("four_step", "plan", "filter_plan", "fft2", "fft2_mesh2d",
+                                  "tp", "pp", "welch", "stft", "filterbank")},
+                       os.path.join(tmp, "a.pt"))
+            del out, inp
+        finally:
+            dist.destroy_process_group()
+        t_a = time.perf_counter() - t_phase
+        print(f"dist (a) world 1 on {backend}: {t_a:.1f} s; launches of its calls {total}")
+
+        # (b) four ranks sharing the card over gloo, spawned, under a deadline
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=_dist_rank, args=(r, DIST_RANKS, tmp, seed, dev.type))
+                 for r in range(DIST_RANKS)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + DIST_TIMEOUT_S
+        for p in procs:
+            p.join(max(deadline - time.monotonic(), 0.0))
+        late = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+        require(not late, f"dist (b): ranks {late} outlasted {DIST_TIMEOUT_S} s, killed")
+        bad = [(r, p.exitcode) for r, p in enumerate(procs) if p.exitcode]
+        require(not bad, f"dist (b): ranks exited {bad}")
+        for r in range(DIST_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                rep = json.load(f)
+            want = dist_launches_wanted(DIST_RANKS, r)
+            for name, got in rep["launches"].items():
+                require(got == want[name], f"dist (b) rank {r} {name} launched {got}, "
+                                           f"want {want[name]}")
+            for k, logged in rep["shapes"].items():
+                seen[k].update(tuple(v) for v in logged)
+            t = rep["times"]
+            print(f"dist (b) rank {r}: launches {rep['launches']}; {rep['staged']} bytes through "
+                  f"the host (gloo); calls {rep['calls_s']:.1f} s")
+            print(f"time dist (b) rank {r} (gloo through the host, {DIST_RANKS} ranks on one "
+                  f"card, host clock, median of 3; not a scaling figure): four_step 2^24 "
+                  f"{t['four_step']:.1f} ms, flatten=False {t['four_step_block']:.1f} ms, "
+                  f"FilterPlan(mesh=) {t['filter_plan']:.1f} ms [{card}]")
+    print(f"dist phase: {time.perf_counter() - t_phase:.1f} s ((a) {t_a:.1f} s); the shapes "
+          f"the kernels got: " + "; ".join(f"{k} {sorted(v)}" for k, v in seen.items()))
+    return total, seen
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1036,7 +1584,7 @@ def main() -> int:
                               plan_from_jax, plan_r2c_1d_split, spectral_filter_auto,
                               stft_split, welch_psd_split)
     from fftlab_torch.algos.split_stockham import fft_split
-    from fftlab_torch.core.types import FORWARD
+    from fftlab_torch.core.types import FORWARD, Direction
     from fftlab_torch.dsp.filtering import design_response
     from fftlab_torch.kernels import (_build, fft_vmem, fourstep_vmem, os_filter_vmem,
                                       rfft_resident, rfft_vmem, stage_fused, stft_vmem,
@@ -1398,20 +1946,6 @@ def main() -> int:
             print(f"check stage_leaf B={B} n={n} leaf={leaf} dir={int(d)} scale={eff:.6g}: "
                   f"vs plain {s_plain:.1f} dB")
             check(f"stage_leaf vs plain at n={n}", s_plain, GATE_PLAIN_DB)
-
-    def reset_counts():
-        for counts in (fft_vmem.LAUNCHES, fourstep_vmem.LAUNCHES,
-                       os_filter_vmem.LAUNCHES, rfft_vmem.LAUNCHES,
-                       stft_vmem.LAUNCHES, threestep_vmem.LAUNCHES,
-                       stage_fused.LAUNCHES):
-            for k in counts:
-                counts[k] = 0
-
-    def read_counts():
-        return {**fft_vmem.LAUNCHES, **fourstep_vmem.LAUNCHES,
-                **os_filter_vmem.LAUNCHES, **rfft_vmem.LAUNCHES,
-                **stft_vmem.LAUNCHES, **threestep_vmem.LAUNCHES,
-                **stage_fused.LAUNCHES}
 
     # phase 4a: the FFT main path, through the public entry points
     reset_counts()
@@ -1796,6 +2330,45 @@ def main() -> int:
 
     # phase 4g: the single-card edges, through the public entry points
     edges_phase(dev, gen, card, reset_counts, read_counts)
+
+    # phase 4h: the sharded paths, through the public entry points
+    dist_launches, dist_shapes = dist_phase(dev, gen, card)
+
+    # every shape the sharded paths gave fft_rows and os_filter, on fresh
+    # planes, against the plain versions and float64 (these launches are
+    # not the path's)
+    for B, n, d, eff in sorted(dist_shapes["fft_rows"]):
+        d = Direction(d)
+        xr, xi = planes(B, n)
+        got = fft_vmem.fft_rows(xr, xi, d, eff)
+        plain = fft_vmem.fft_rows_plain(xr, xi, d, eff)
+        torch.cuda.synchronize()
+        s_plain = snr_db(got, plain)
+        s_oracle = snr_db(got, oracle(xr, xi, d, eff))
+        err["fft_rows"] = max(err["fft_rows"], max_abs(got, plain))
+        print(f"check fft_rows at the sharded paths' B={B} n={n} dir={int(d)} "
+              f"scale={eff:.6g}: vs plain {s_plain:.1f} dB, vs oracle {s_oracle:.1f} dB")
+        require(s_plain >= GATE_PLAIN_DB, f"fft_rows vs plain {s_plain:.1f} dB at B={B} n={n}")
+        require(s_oracle >= GATE_ORACLE_DB["rows"],
+                f"fft_rows vs oracle {s_oracle:.1f} dB at B={B} n={n}")
+    for C, n, fsz, nh in sorted(dist_shapes["os_filter"]):
+        h = rng.standard_normal(nh) / nh
+        hr, hi = os_filter_vmem._cached_response(np.asarray(h, np.float64).tobytes(), fsz, dev)
+        xr, xi = planes(C, n)
+        got = os_filter_vmem.os_filter(xr, xi, hr, hi, nh)
+        plain = os_filter_vmem.os_filter_plain(xr, xi, hr, hi, nh)
+        torch.cuda.synchronize()
+        m = min(n, PREFIX)
+        s_plain = snr_db(got, plain)
+        s_oracle = snr_db((got[0][:, :m], got[1][:, :m]),
+                          (conv_oracle(xr, h, m), conv_oracle(xi, h, m)))
+        err["os_filter"] = max(err["os_filter"], max_abs(got, plain))
+        print(f"check os_filter at the sharded paths' C={C} n={n} taps={nh} fft_size={fsz}: "
+              f"vs plain {s_plain:.1f} dB, vs np.convolve on {m} {s_oracle:.1f} dB")
+        require(s_plain >= GATE_PLAIN_DB, f"os_filter vs plain {s_plain:.1f} dB at n={n}")
+        require(s_oracle >= GATE_ORACLE_DB["os_filter"],
+                f"os_filter vs np.convolve {s_oracle:.1f} dB at n={n}")
+    del xr, xi, got, plain
 
     # phase 5: timing with CUDA events (time_ms)
     ms = {}
@@ -2279,7 +2852,9 @@ def main() -> int:
         if also:
             entry["also_replaces"] = also
         bound_ms, bound_by = bound(nbytes, flops)
-        entry.update({"launches": launches[name], "max_abs_err": err[name],
+        # the sharded paths (phase 4h) are a main path of their own
+        entry.update({"launches": launches[name] + dist_launches.get(name, 0),
+                      "max_abs_err": err[name],
                       "ms": ms[timed], "plain_ms": ms[timed.replace(name, name + "_plain")],
                       "bound_ms": bound_ms, "bound_by": bound_by,
                       "library_ms": ms[library] if library else None})

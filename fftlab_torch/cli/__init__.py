@@ -15,11 +15,12 @@
   pitch        the three pitch detectors and the tuner on test tones
   analyzer     the streaming spectrum analyzer on a frequency sweep or a
                WAV file
+  dist_demo    the sharded pipelines over a mesh of ranks (`--ranks`,
+               `--backend`; or under torchrun)
 
 Each takes its JAX demo's arguments and `--device` (default `cuda`): the
 demos run on the card and raise without one unless `--device cpu` is
-given; nothing falls back to the CPU. `dist_demo` of fftlab/cli is not
-ported yet (ROADMAP Queue 1 item 12).
+given; nothing falls back to the CPU.
 """
 
 import argparse

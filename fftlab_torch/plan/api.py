@@ -12,6 +12,8 @@ in, n//2+1 bins out), 'c2r' (n//2+1 bins in, real [..., n] out, 1/n
 scaled), 'c2c_2d' (complex [..., rows, cols]); each runs registry
 algorithms (`algos.build_registry`), named in `algorithm` as the JAX
 package names them: `radix4`, `rfft[stockham_mxu]`, `stockham_mxuxbluestein`.
+A 'c2c_sharded' plan (`plan_dft_1d_sharded`) splits one transform over a
+mesh axis of ranks, named `four_step[<axis>=<p>]`.
 
 Split kinds: a 'c2c_split' plan's `execute` takes and returns an (re, im)
 pair of float32 tensors [..., n]; an 'r2c_split' plan takes a real
@@ -43,7 +45,7 @@ def _dtype_name(dtype) -> str:
 class Plan:
     """An executable transform plan."""
 
-    kind: str  # 'c2c' | 'r2c' | 'c2r' | 'c2c_2d' | 'c2c_split' | 'r2c_split' | 'c2r_split'
+    kind: str  # 'c2c' | 'r2c' | 'c2r' | 'c2c_2d' | 'c2c_sharded' | 'c2c_split' | 'r2c_split' | 'c2r_split'
     n: Any  # int, or (rows, cols) for 'c2c_2d'
     direction: Direction
     dtype: Any
@@ -197,6 +199,28 @@ def fft(x, direction=FORWARD, algorithm: str | None = None,
 def ifft(x, algorithm: str | None = None, flags: Flags = Flags.ESTIMATE):
     """Inverse FFT with 1/n scaling."""
     return fft(x, INVERSE, algorithm, flags)
+
+
+def plan_dft_1d_sharded(n: int, mesh, axis_name: str = "tp",
+                        direction=FORWARD, n1: int | None = None) -> Plan:
+    """A plan whose execution splits ONE transform over `mesh[axis_name]`
+    by the four-step decomposition, its transpose an all_to_all between
+    the ranks (`dist.four_step.four_step_fft_sharded`; every rank executes
+    it on the same whole input and gets the whole spectrum)."""
+    from fftlab_torch.dist.four_step import four_step_fft_sharded, split_n
+
+    n = int(n)
+    n1_, n2_ = split_n(n, n1)
+    p = mesh[axis_name].size()
+    if n1_ % p or n2_ % p:
+        raise ValueError(
+            f"mesh axis {axis_name}={p} must divide both factors "
+            f"({n1_}, {n2_}) of n={n}"
+        )
+    fn = functools.partial(four_step_fft_sharded, mesh=mesh, axis_name=axis_name,
+                           direction=direction, n1=n1_)
+    return Plan("c2c_sharded", n, Direction(int(direction)), "complex64",
+                f"four_step[{axis_name}={p}]", PlanConfig(), fn)
 
 
 def _split_plan(n: int, direction, route: str, flags: Flags) -> Plan:

@@ -11,14 +11,20 @@ Build the plan once (taps, block size, device), then
                          the carried (nh-1)-sample tail makes
                          concat(stream(c) for c) equal plan(concat(c)).
 
+- a plan with a mesh (`mesh=`, a `dist` DeviceMesh) runs the sharded
+  overlap-save (`dist/overlap_save_split.filter_sharded`): every rank
+  passes the whole signal, filters its block of the `time_axis` after
+  its left neighbour's halo, and gets its block of the output back.
+
 Routing, by the taps alone: when the halo fits the overlap-save kernel's
 frame (`os_filter_vmem.taps_fit`, the JAX package's rule), the
 overlap-save route runs: the `os_filter` kernel on a CUDA plan, its plain
 version on a CPU plan. Longer taps take the tensor-op block path
-(`_filter_blocks`). A sharded plan (`mesh=`) is not ported yet.
+(`_filter_blocks`). A sharded plan takes the same route on each block.
 
-A plan runs on the card unless it is built with `device="cpu"`; without
-a CUDA device the default raises rather than falling back to the CPU.
+A plan runs on the card unless it is built with `device="cpu"` (a
+sharded plan: on its mesh's device); without a CUDA device the default
+raises rather than falling back to the CPU.
 """
 
 from __future__ import annotations
@@ -51,17 +57,13 @@ class FilterPlan:
     (default max(next_pow2(4*nh), 256)); the overlap-save kernel runs at
     the nearest frame size it takes (`kernel_fft_size`). Results are
     float32 tensors on `device`: the card by default, the CPU only when
-    asked for with `device="cpu"`. `time_axis` names the mesh axis a
-    sharded plan splits time over, in the JAX package's position; it is
-    kept and unused until the sharded plan is ported.
+    asked for with `device="cpu"`. `mesh`: a `dist` DeviceMesh whose
+    `time_axis` a sharded plan splits time over; the plan then runs on
+    the mesh's device and `device` is not read.
     """
 
     def __init__(self, h, fft_size: int | None = None, mesh=None,
                  time_axis: str = "sp", num_taps: int = 129, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "FilterPlan(mesh=...): the sharded overlap-save is not ported "
-                "yet (ROADMAP Queue 1 item 12)")
         if isinstance(h, FilterParams):
             h = design_fir(num_taps, h)
         self.h = np.asarray(h, dtype=np.float32)
@@ -73,7 +75,12 @@ class FilterPlan:
         if fft_size < next_power_of_two(2 * self.nh):
             raise ValueError(f"fft_size {fft_size} too small for {self.nh} taps")
         self.fft_size = int(fft_size)
+        self.mesh = mesh
         self.time_axis = time_axis
+        if mesh is not None:
+            from fftlab_torch.dist.mesh import mesh_device
+
+            device = mesh_device(mesh)
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -141,8 +148,9 @@ class FilterPlan:
         yi = (yi * s)[..., nh - 1:].reshape(shape)[..., :valid]
         return yr, yi
 
-    def _filter(self, xr: torch.Tensor, xi: torch.Tensor):
-        """The zero-history causal filter of [..., n] planes, by route."""
+    def causal(self, xr: torch.Tensor, xi: torch.Tensor):
+        """The zero-history causal filter of [..., n] planes on the plan's
+        device, by route (no mesh)."""
         if self.uses_kernel():
             return run_os_filter(xr, xi, self._Kr, self._Ki, self.nh)
         pad = (self.nh - 1, 0)
@@ -157,14 +165,21 @@ class FilterPlan:
     def __call__(self, x, x_imag=None):
         """Filter [..., n]: the causal output, same length. With `x_imag`,
         a second real channel (or the imaginary plane) is filtered too and
-        (yr, yi) comes back."""
+        (yr, yi) comes back. A sharded plan takes the whole signal on every
+        rank and returns this rank's block [..., n/p] of the output."""
         xr = self._plane(x)
+        if self.mesh is not None:
+            from fftlab_torch.dist.overlap_save_split import filter_sharded
+
+            xi = self._plane(x_imag) if x_imag is not None else torch.zeros_like(xr)
+            yr, yi = filter_sharded(self, xr, xi, self.mesh, self.time_axis)
+            return (yr, yi) if x_imag is not None else yr
         if x_imag is None and xr.ndim == 1:
             packed = self._call_packed_real(xr)
             if packed is not None:
                 return packed
         xi = self._plane(x_imag) if x_imag is not None else torch.zeros_like(xr)
-        yr, yi = self._filter(xr, xi)
+        yr, yi = self.causal(xr, xi)
         return (yr, yi) if x_imag is not None else yr
 
     def _call_packed_real(self, xr: torch.Tensor):
@@ -183,7 +198,7 @@ class FilterPlan:
         T = s + keep
         ar = F.pad(a, (0, T - s))
         ai = F.pad(torch.cat([a[s - keep:], b]), (0, T - keep - (n - s)))
-        yr, yi = self._filter(ar, ai)
+        yr, yi = self.causal(ar, ai)
         return torch.cat([yr[:s], yi[keep:keep + (n - s)]])
 
     # -- streaming --------------------------------------------------------
@@ -204,7 +219,7 @@ class FilterPlan:
         self._tail = buf[len(buf) - keep:].clone()
         # output i >= keep reads buf[i-keep..i] only, so the zero history
         # before buf never reaches what is returned
-        yr, _ = self._filter(buf, torch.zeros_like(buf))
+        yr, _ = self.causal(buf, torch.zeros_like(buf))
         return yr[keep:]
 
     def reset(self) -> None:
@@ -214,5 +229,7 @@ class FilterPlan:
     def describe(self) -> str:
         route = (f"os_filter[{self.kernel_fft_size()}]" if self.uses_kernel()
                  else "blocks")
+        if self.mesh is not None:
+            route += f", mesh[{self.time_axis}]={self.mesh[self.time_axis].size()}"
         return (f"FilterPlan(nh={self.nh}, fft_size={self.fft_size}, "
                 f"hop={self.fft_size - self.nh + 1}, {route}, {self.device})")

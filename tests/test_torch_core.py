@@ -43,7 +43,9 @@ def test_import_loads_no_jax_triton_or_cuda():
             "fftlab_torch.dsp.filtering, fftlab_torch.dsp.convolution, "
             "fftlab_torch.plan.filter_plan, fftlab_torch.core.hostfft, "
             "fftlab_torch.core.window, fftlab_torch.core.framing, "
-            "fftlab_torch.core.bitrev; "
+            "fftlab_torch.core.bitrev, fftlab_torch.dist, fftlab_torch.dist.comm, "
+            "fftlab_torch.dist.multihost, fftlab_torch.dist.fft2_mesh2d, "
+            "fftlab_torch.dist.overlap_save, fftlab_torch.cli.dist_demo; "
             "bad = [m for m in ('jax', 'triton', 'fftlab') if m in sys.modules]; "
             "assert not bad, bad")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -1244,3 +1244,95 @@ def test_edge_demos_run_on_the_card(capsys, monkeypatch, tmp_path, demo, argv):
     monkeypatch.setattr(sys, "argv", ["prog"] + argv)
     importlib.import_module(f"fftlab_torch.cli.{demo}").main()
     assert len(capsys.readouterr().out) > 50
+
+
+# -- the sharded paths (fftlab_torch.dist) at world size 1 on NCCL --------------
+
+
+@pytest.fixture
+def nccl_mesh(tmp_path):
+    """A one-rank NCCL world over a file store, and a 1-D mesh "tp" on it;
+    the group is destroyed after the test."""
+    import torch.distributed as dist
+
+    from fftlab_torch.dist import make_mesh_1d
+
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        yield make_mesh_1d("tp")
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("chunks", [1, 4])
+def test_sharded_four_step_on_the_card(no_tf32, nccl_mesh, chunks):
+    from fftlab_torch.dist import four_step_fft_sharded_split
+
+    xr, xi = _cuda_pair(21, (1 << 20,))
+    before = fft_vmem.LAUNCHES["fft_rows"]
+    yr, yi = four_step_fft_sharded_split(xr, xi, nccl_mesh, "tp", chunks=chunks)
+    torch.cuda.synchronize()
+    # n1 = n2 = 1024: the column FFTs in `chunks` launches, the row FFTs in one
+    assert fft_vmem.LAUNCHES["fft_rows"] - before == chunks + 1
+    assert yr.device.type == "cuda"
+    assert snr_db(cplx(yr, yi), oracle(xr.cpu().numpy(), xi.cpu().numpy(), -1)) >= 120.0
+    br, bi = four_step_fft_sharded_split(yr, yi, nccl_mesh, "tp", direction=1)
+    assert snr_db(cplx(br, bi), cplx(xr, xi)) >= 120.0
+    if chunks > 1:
+        one = four_step_fft_sharded_split(xr, xi, nccl_mesh, "tp")
+        assert torch.equal(one[0], yr) and torch.equal(one[1], yi)
+
+
+def test_filter_plan_mesh_on_the_card(no_tf32, nccl_mesh):
+    rng = np.random.default_rng(22)
+    h = (rng.standard_normal(129) / 129).astype(np.float32)
+    x = rng.standard_normal(1 << 20).astype(np.float32)
+    plan = fftlab_torch.FilterPlan(h, mesh=nccl_mesh, time_axis="tp")
+    assert "mesh[tp]=1" in plan.describe()
+    before = os_filter_vmem.LAUNCHES["os_filter"]
+    y = plan(x)
+    torch.cuda.synchronize()
+    assert os_filter_vmem.LAUNCHES["os_filter"] - before == 1
+    assert y.device.type == "cuda" and y.shape == (1 << 20,)
+    m = 1 << 17
+    want = np.convolve(x[:m].astype(np.float64), h.astype(np.float64))[:m]
+    assert snr_db(y[:m].cpu().numpy(), want) >= 100.0
+
+
+def test_shared_card_without_gloo_raises(monkeypatch):
+    """More ranks than cards and no backend=: NCCL would refuse two ranks
+    on one card, so the mesh raises before any process group starts, and
+    nothing switches to gloo."""
+    import torch.distributed as dist
+
+    from fftlab_torch.dist import make_mesh_1d
+
+    world = torch.cuda.device_count() + 1
+    monkeypatch.setenv("WORLD_SIZE", str(world))
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.setenv("MASTER_ADDR", "localhost")
+    monkeypatch.setenv("MASTER_PORT", "29511")
+    monkeypatch.delenv("LOCAL_WORLD_SIZE", raising=False)
+    with pytest.raises(RuntimeError, match="backend='gloo'"):
+        make_mesh_1d("x")
+    assert not dist.is_initialized()
+
+
+def test_dist_demo_on_the_card():
+    """The demo's four gloo ranks share the card, and refuse NCCL there."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    run = lambda *args: subprocess.run(
+        [sys.executable, "-m", "fftlab_torch.cli.dist_demo", *args], cwd=root,
+        capture_output=True, text=True, timeout=300)
+    proc = run("--ranks", "4", "--backend", "gloo")
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.strip().splitlines()
+    assert lines[0] == "4 device(s): cuda (gloo)" and len(lines) == 6
+    assert all(float(line.rsplit(" ", 1)[1]) < 1e-3 for line in lines[1:])
+    refused = run("--ranks", str(torch.cuda.device_count() + 1))
+    assert refused.returncode != 0 and "backend='gloo'" in refused.stderr

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 import fftlab.plan.filter_plan as jx_fp
+from _torch_parity import snr_db
 from fftlab.dsp.filtering import FilterParams as JxParams
 from fftlab.dsp.filtering import FilterType as JxType
 from fftlab_torch import FilterParams, FilterPlan, FilterType
@@ -160,8 +161,27 @@ def test_validation():
 
 
 def test_mesh_not_ported():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        FilterPlan(np.ones(5), mesh=object(), device="cpu")
+    """FilterPlan(mesh=) used to raise NotImplementedError; it now runs the
+    sharded overlap-save (tests/test_torch_dist_split.py holds it against
+    the JAX mesh plan over 8 ranks). On a world of one rank it equals the
+    single-device plan and float64 np.convolve (>= 110 and 100 dB)."""
+    import torch.distributed as dist
+
+    from fftlab_torch.dist import make_mesh_1d
+
+    mesh = make_mesh_1d("sp", device_type="cpu")
+    try:
+        h = np.random.default_rng(5).standard_normal(33).astype(np.float32)
+        x = np.random.default_rng(6).standard_normal(4096).astype(np.float32)
+        plan = FilterPlan(h, mesh=mesh, time_axis="sp")
+        assert "mesh[sp]=1" in plan.describe()
+        xt = torch.from_numpy(x)
+        want = FilterPlan(h, device="cpu").causal(xt, torch.zeros_like(xt))[0]
+        got = plan(x).numpy()
+        assert snr_db(got, want.numpy()) >= 110.0
+        assert snr_db(got, np.convolve(x.astype(np.float64), h)[:4096]) >= 100.0
+    finally:
+        dist.destroy_process_group()
 
 
 @pytest.mark.parametrize("nh,fft_size", [(9, None), (33, None), (129, None),
