@@ -92,7 +92,23 @@ Phases, in order; any failure raises and the exit code is non-zero:
    the bytes gloo moved through the host; then every shape that (a) and
    (b) gave `fft_rows` and `os_filter` (logged as each launch passes,
    `kernel_shapes`) on fresh planes against the plain versions (>= 110
-   dB) and float64, into the kernels line's max_abs_err.
+   dB) and float64, into the kernels line's max_abs_err; (i) the
+   public entries (`entries_phase`): (a) `fftlab_torch.kernels`'
+   `pallas_fft_split` and `pallas_spectral_filter` at 256 x 16384,
+   `fft_split_resident_cio` (inverse) at 16 x 2^20, `pallas_stft_split`
+   on 2^22 samples at 2048/512 and `fft_split_pipeline` (64, 128, 128)
+   at 16 x 2^20, one reset and read for the five calls (launches exact),
+   each against its plain version and float64 (>= 120 dB, 115 the
+   pipeline, 110 the STFT); (b) the JAX-order calls of F1 and F2 raise
+   TypeError, their keyword forms and F3 (`precision` 6th) clear the
+   gates; (c) the nine algorithm module demos as `python -m`
+   subprocesses, each exiting 0 with PASS; (d) `copy_bandwidth()` in GB/s
+   beside the published 3350, `quick_bandwidth()` beside the device
+   time of its chain's kernels (profiler), a reading above 105% of
+   3350 fails either, `chain_time` of `fft_split_auto` at 16 x 2^20
+   beside `time_ms`; (e) `entry()` >= 120 dB, `dryrun_multichip` at
+   world 1 on NCCL and in four gloo ranks sharing the card, and `python
+   -m fftlab_torch.examples.minimal`.
    Every output of a main path is held against the plain versions on
    the same inputs (>= 110 dB, over every sample) and against an oracle;
 5. timing: CUDA events around 10 back-to-back calls, median of 25 such
@@ -1563,6 +1579,265 @@ def dist_phase(dev, gen, card: str) -> dict:
     return total, seen
 
 
+# the public entries (phase 4i): fftlab_torch.kernels' exports and the
+# cio entry at the main paths' shapes, the argument-order repairs, the
+# module demos, the copy chain and the entry points
+ENTRY_ROWS_SHAPE = (256, 16384)
+ENTRY_CIO_SHAPE = (16, 1 << 20)
+ENTRY_STFT = (1 << 22, 2048, 512)
+ENTRY_PIPELINE = ((16, 1 << 20), (64, 128, 128))
+ENTRY_GATES_DB = {"c2c": 120.0, "pipeline": 115.0, "stft": 110.0}
+DEMO_MODULES = ("bluestein", "dft", "iterative", "mixed_radix", "radix2", "radix4",
+                "recursive", "split_radix", "stockham")
+PUBLISHED_GBPS = PEAK_BYTES_PER_S / 1e9
+QUICK_SHAPE, QUICK_STEPS = (16, 1 << 18), 64  # quick_bandwidth's planes and longest chain
+ENTRY_TIMEOUT_S = 180  # the demos' and the gloo ranks' processes, CUDA start-up included
+
+
+def _dryrun_rank(rank: int, world: int, init: str, device_type: str) -> None:
+    """One of phase 4i's gloo ranks sharing the card: `dryrun_multichip(world)`."""
+    import torch.distributed as dist
+
+    from fftlab_torch.dist.multihost import ensure_initialized
+    from fftlab_torch.entry import dryrun_multichip
+
+    ensure_initialized(init, world, rank, backend="gloo", device_type=device_type,
+                       timeout_s=ENTRY_TIMEOUT_S)
+    try:
+        dryrun_multichip(world, device_type=device_type, backend="gloo")
+    finally:
+        dist.destroy_process_group()
+
+
+def entries_phase(dev, gen, card: str, reset_counts, read_counts) -> dict:
+    """Phase 4i: the public entries on the card (see the module docstring).
+    Returns the kernel launches of (a), the phase's main path. Every gate
+    raises SmokeFailure."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from fftlab_torch import kernels
+    from fftlab_torch.algos.split_stockham import spectral_filter_split_fused
+    from fftlab_torch.bench.timing import chain_time, copy_bandwidth, quick_bandwidth
+    from fftlab_torch.core.types import FORWARD, INVERSE
+    from fftlab_torch.entry import dryrun_multichip, entry
+    from fftlab_torch.kernels import fft_vmem, fourstep_vmem, resident_vmem, stage_fused, stft_vmem
+    from fftlab_torch.plan.dispatch import fft_split_auto
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+
+    def planes(B, n):
+        return (torch.randn(B, n, generator=gen, device=dev),
+                torch.randn(B, n, generator=gen, device=dev))
+
+    def oracle(xr, xi, direction=FORWARD, scale=1.0):
+        z = torch.complex(xr.double(), xi.double())
+        y = torch.fft.fft(z) if direction == FORWARD else torch.fft.ifft(z) * z.shape[-1]
+        return (y * scale).real, (y * scale).imag
+
+    def sandwich_oracle(xr, xi, hr, hi):
+        y = torch.fft.ifft(torch.fft.fft(torch.complex(xr.double(), xi.double()))
+                           * torch.complex(hr.double(), hi.double()))
+        return y.real, y.imag
+
+    def hold(name, got, plain, want, gate):
+        torch.cuda.synchronize()
+        s_plain = snr(got, plain) if plain is not None else None
+        s_want = snr(got, want)
+        finite = all(bool(torch.isfinite(t).all()) for t in got)
+        print(f"entries {name}: "
+              + (f"vs plain {s_plain:.1f} dB, " if s_plain is not None else "")
+              + f"vs float64 {s_want:.1f} dB (gate {gate:.0f}) [{card}]")
+        require(finite, f"entries {name}: non-finite output")
+        require(s_plain is None or s_plain >= GATE_PLAIN_DB,
+                f"entries {name} vs plain {s_plain} dB")
+        require(s_want >= gate, f"entries {name} vs float64 {s_want:.1f} dB")
+
+    # (a) the exports of fftlab_torch.kernels and the cio entry, counts
+    # set to 0 just before and read just after
+    xr, xi = planes(*ENTRY_ROWS_SHAPE)
+    hr, hi = (t[0] for t in planes(1, ENTRY_ROWS_SHAPE[1]))
+    cr, ci = planes(*ENTRY_CIO_SHAPE)
+    sig = torch.randn(ENTRY_STFT[0], generator=gen, device=dev)
+    (pb, pn), factors = ENTRY_PIPELINE
+    pr, pi = planes(pb, pn)
+    reset_counts()
+    rows = kernels.pallas_fft_split(xr, xi)
+    cio = resident_vmem.fft_split_resident_cio(cr, ci, INVERSE)
+    filt = kernels.pallas_spectral_filter(xr, xi, hr, hi)
+    spec = kernels.pallas_stft_split(sig, *ENTRY_STFT[1:])
+    pipe = kernels.fft_split_pipeline(pr, pi, FORWARD, factors)
+    torch.cuda.synchronize()
+    launches = {k: c for k, c in read_counts().items() if c}
+    want = {"fft_rows": 1, "fourstep_pass1": 1, "fourstep_pass2": 1, "filter_rows": 1,
+            "stft_frames": 1, "fused_stage": len(factors) - 1, "stage_leaf": 1}
+    print(f"entries path launches: {launches}")
+    require(launches == want, f"the entries launched {launches}, want {want}")
+    n_cio = ENTRY_CIO_SHAPE[1]
+    hold(f"pallas_fft_split {ENTRY_ROWS_SHAPE}", rows,
+         fft_vmem.fft_rows_plain(xr, xi, FORWARD, 1.0), oracle(xr, xi), ENTRY_GATES_DB["c2c"])
+    hold(f"fft_split_resident_cio {ENTRY_CIO_SHAPE} inverse", cio,
+         fourstep_vmem.fourstep_pass2_plain(*fourstep_vmem.fourstep_pass1_plain(cr, ci, INVERSE),
+                                            INVERSE, 1.0 / n_cio),
+         oracle(cr, ci, INVERSE, 1.0 / n_cio), ENTRY_GATES_DB["c2c"])
+    hold(f"pallas_spectral_filter {ENTRY_ROWS_SHAPE}", filt,
+         fft_vmem.spectral_filter_rows_plain(xr, xi, hr, hi), sandwich_oracle(xr, xi, hr, hi),
+         ENTRY_GATES_DB["c2c"])
+    n_sig, fft_size, hop = ENTRY_STFT
+    frames = (n_sig - fft_size) // hop + 1
+    w = stft_vmem.window_table("hann", fft_size, dev).double()
+    framed = torch.fft.rfft(sig.double().unfold(-1, fft_size, hop)[:frames] * w)
+    hold(f"pallas_stft_split {n_sig} samples {fft_size}/{hop}", spec,
+         stft_vmem.stft_frames_plain(sig, fft_size, hop, w.float(), frames),
+         (framed.real, framed.imag), ENTRY_GATES_DB["stft"])
+    hold(f"fft_split_pipeline {ENTRY_PIPELINE[0]} {factors}", pipe,
+         stage_fused.fft_split_pipeline_plain(pr, pi, FORWARD, factors), oracle(pr, pi),
+         ENTRY_GATES_DB["pipeline"])
+    del rows, cio, filt, spec, pipe, cr, ci
+
+    # (b) the argument-order repairs: the keyword forms clear the gates,
+    # the JAX-order calls raise (F1, F2) or give JAX's result (F3)
+    for name, call in (("F1 fft_split_rows(xr, xi, FORWARD, False)",
+                        lambda: fft_vmem.fft_split_rows(xr, xi, FORWARD, False)),
+                       ("F2 fft_split_pipeline(xr, xi, FORWARD, factors, 8)",
+                        lambda: stage_fused.fft_split_pipeline(pr, pi, FORWARD, factors, 8))):
+        try:
+            call()
+        except TypeError as e:
+            print(f"entries {name} raises TypeError: {e}")
+        else:
+            raise SmokeFailure(f"entries {name} did not raise TypeError")
+    hold("F1 fft_split_rows(..., scale=0.5)", fft_vmem.fft_split_rows(xr, xi, FORWARD, scale=0.5),
+         fft_vmem.fft_rows_plain(xr, xi, FORWARD, 0.5), oracle(xr, xi, FORWARD, 0.5),
+         ENTRY_GATES_DB["c2c"])
+    hold("F2 fft_split_pipeline(..., scale=2.0)",
+         stage_fused.fft_split_pipeline(pr, pi, FORWARD, factors, scale=2.0),
+         stage_fused.fft_split_pipeline_plain(pr, pi, FORWARD, factors, scale=2.0),
+         oracle(pr, pi, FORWARD, 2.0), ENTRY_GATES_DB["pipeline"])
+    fr, fi = xr[:64], xi[:64]
+    hold("F3 spectral_filter_split_fused(xr, xi, hr, hi, 128, 'highest') 64 x 16384",
+         spectral_filter_split_fused(fr, fi, hr, hi, 128, "highest"), None,
+         sandwich_oracle(fr, fi, hr, hi), ENTRY_GATES_DB["c2c"])
+    del xr, xi, hr, hi, pr, pi, fr, fi
+
+    # (d) the copy chain beside the published bound; quick_bandwidth's
+    # short chain beside its kernels' device time, which says whether the
+    # host's launches set its pace; chain_time of the headline FFT beside
+    # time_ms of the same call
+    full, quick = copy_bandwidth(device=dev), quick_bandwidth(device=dev)
+    for name, gbps in (("copy_bandwidth()", full), ("quick_bandwidth()", quick)):
+        require(0 < gbps <= 1.05 * PUBLISHED_GBPS,
+                f"{name} read {gbps:.1f} GB/s: a timing fault")
+    print(f"entries copy_bandwidth(): {full:.1f} GB/s, {full / PUBLISHED_GBPS:.1%} of the "
+          f"published {PUBLISHED_GBPS:.0f} GB/s [{card}]")
+    qx = torch.ones(QUICK_SHAPE, device=dev)
+    qy = torch.ones(QUICK_SHAPE, device=dev)
+    kernel_s = 0.0
+    if dev.type == "cuda":  # the CPU rehearsal has no device time to read
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(QUICK_STEPS):
+                qx, qy = qx + 1.0, qy + 1.0
+            torch.cuda.synchronize()
+        kernel_s = sum(e.self_device_time_total for e in prof.key_averages()) / 1e6
+    kernel_gbps = (16.0 * QUICK_SHAPE[0] * QUICK_SHAPE[1] * QUICK_STEPS / kernel_s / 1e9
+                   if kernel_s > 0 else None)
+    print(f"entries quick_bandwidth(): {quick:.1f} GB/s on CUDA events (the timing-fault "
+          f"gate); its chain of {QUICK_STEPS} steps at {QUICK_SHAPE}, kernels alone (profiler "
+          f"device time): " + (f"{kernel_gbps:.1f} GB/s, so the events read "
+                               f"{1 - quick / kernel_gbps:.1%} launch gaps"
+                               if kernel_gbps else "not measured") + f" [{card}]")
+    del qx, qy
+    B, n = MAIN_SHAPE
+    ar, ai = planes(B, n)
+    per_step = chain_time(lambda a, b: fft_split_auto(a, b), lambda r: planes(B, n),
+                          ks=(2, 10), repeats=5)
+    as_called = time_ms(lambda: fft_split_auto(ar, ai))
+    print(f"entries fft_split_auto {MAIN_SHAPE}: chain_time {per_step * 1e3:.4f} ms a step; "
+          f"time_ms {as_called:.4f} ms a call [{card}]")
+    require(per_step > 0, f"chain_time of fft_split_auto read {per_step} s")
+    del ar, ai
+
+    # (c) and the minimal example of (e): subprocesses on the card, started
+    # after the timed steps above and read at the end, so their CUDA
+    # start-up overlaps (e) (their own microseconds run side by side)
+    procs = {f"algos.{m}": subprocess.Popen(
+        [sys.executable, "-m", f"fftlab_torch.algos.{m}", "--device", dev.type], cwd=root,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for m in DEMO_MODULES}
+    procs["examples.minimal"] = subprocess.Popen(
+        [sys.executable, "-m", "fftlab_torch.examples.minimal"], cwd=root,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    # (e) the entry points: entry() on the card, dryrun_multichip at world
+    # 1 on NCCL in this process and in four gloo ranks sharing the card
+    fn, fargs = entry(dev)
+    require(all(t.device == dev for t in fargs), "entry() placed its inputs off the card")
+    out = fn(*fargs)
+    hold("entry() 8 x 16384", out, None, sandwich_oracle(*fargs), ENTRY_GATES_DB["c2c"])
+    rx = planes(*fargs[0].shape)
+    rh = tuple(t[0] for t in planes(1, fargs[2].shape[-1]))
+    hold("entry() fn on random planes and H", fn(*rx, *rh), None, sandwich_oracle(*rx, *rh),
+         ENTRY_GATES_DB["c2c"])
+    with tempfile.TemporaryDirectory() as tmp:
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+        dist.init_process_group(backend, store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                rank=0, world_size=1)
+        try:
+            dryrun_multichip(1, device_type=dev.type)
+        finally:
+            dist.destroy_process_group()
+        print(f"entries dryrun_multichip(1) on {backend}: OK")
+        ctx = mp.get_context("spawn")
+        ranks = [ctx.Process(target=_dryrun_rank,
+                             args=(r, DIST_RANKS, f"file://{os.path.join(tmp, 'init')}",
+                                   dev.type))
+                 for r in range(DIST_RANKS)]
+        for p in ranks:
+            p.start()
+        deadline = time.monotonic() + ENTRY_TIMEOUT_S
+        for p in ranks:
+            p.join(max(deadline - time.monotonic(), 0.0))
+        late = [r for r, p in enumerate(ranks) if p.is_alive()]
+        for p in ranks:
+            if p.is_alive():
+                p.kill()
+            p.join()
+        require(not late, f"entries dryrun: ranks {late} outlasted {ENTRY_TIMEOUT_S} s, killed")
+        bad = [(r, p.exitcode) for r, p in enumerate(ranks) if p.exitcode]
+        require(not bad, f"entries dryrun: gloo ranks exited {bad}")
+        print(f"entries dryrun_multichip({DIST_RANKS}) in {DIST_RANKS} gloo ranks on the card: OK")
+
+    # (c) the nine module demos and the minimal example, started above
+    deadline = time.monotonic() + ENTRY_TIMEOUT_S
+    failed = []
+    for name, proc in procs.items():
+        try:
+            text, _ = proc.communicate(timeout=max(deadline - time.monotonic(), 1.0))
+        except subprocess.TimeoutExpired:
+            for q in procs.values():
+                q.kill()
+                q.communicate()
+            raise SmokeFailure(f"entries: python -m fftlab_torch.{name} outlasted "
+                               f"{ENTRY_TIMEOUT_S} s, killed")
+        lines = text.strip().splitlines()
+        results = [ln.strip() for ln in lines if "roundtrip" in ln]
+        print(f"entries python -m fftlab_torch.{name}: exit "
+              f"{proc.returncode}; " + ("; ".join(results) or lines[-1] if lines else "no output")
+              + f" [{card}]")
+        ok = proc.returncode == 0 and (
+            "self-test passed" in text if name == "examples.minimal"
+            else len(results) == 3 and all("PASS" in ln for ln in results))
+        if not ok:
+            failed.append(name)
+            print(text)
+    require(not failed, f"entries: the demos {failed} failed")
+    print(f"entries phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2334,6 +2609,9 @@ def main() -> int:
     # phase 4h: the sharded paths, through the public entry points
     dist_launches, dist_shapes = dist_phase(dev, gen, card)
 
+    # phase 4i: the public entries, the repairs, the demos and the entry points
+    entry_launches = entries_phase(dev, gen, card, reset_counts, read_counts)
+
     # every shape the sharded paths gave fft_rows and os_filter, on fresh
     # planes, against the plain versions and float64 (these launches are
     # not the path's)
@@ -2852,8 +3130,9 @@ def main() -> int:
         if also:
             entry["also_replaces"] = also
         bound_ms, bound_by = bound(nbytes, flops)
-        # the sharded paths (phase 4h) are a main path of their own
-        entry.update({"launches": launches[name] + dist_launches.get(name, 0),
+        # the sharded paths (phase 4h) and the entries (4i) are main paths of their own
+        entry.update({"launches": launches[name] + dist_launches.get(name, 0)
+                      + entry_launches.get(name, 0),
                       "max_abs_err": err[name],
                       "ms": ms[timed], "plain_ms": ms[timed.replace(name, name + "_plain")],
                       "bound_ms": bound_ms, "bound_by": bound_by,

@@ -109,3 +109,9 @@ def bluestein_fft_split(xr: torch.Tensor, xi: torch.Tensor, direction=FORWARD):
     if direction == Direction.INVERSE:
         return yr * (1.0 / n), yi * (1.0 / n)
     return yr, yi
+
+
+if __name__ == "__main__":
+    from fftlab_torch.algos._common import demo_device, run_module_demo
+
+    run_module_demo("bluestein_fft", bluestein_fft, device=demo_device())

@@ -87,3 +87,9 @@ def dft_bin(x, k, direction=FORWARD):
     with full_float32():
         y = torch.matmul(x, const(row, x))
     return inverse_scale(y, n, direction)
+
+
+if __name__ == "__main__":
+    from fftlab_torch.algos._common import demo_device, run_module_demo
+
+    run_module_demo("naive_dft (oracle)", naive_dft, sizes=(16, 64, 256), device=demo_device())

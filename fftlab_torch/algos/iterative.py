@@ -65,3 +65,10 @@ def explain(n: int) -> str:
         "  twiddle exponent = j*n/m: index tensors over a fixed [n] layout);\n"
         "  each stage is a gather, three selects and a multiply.")
     return "\n".join(lines)
+
+
+if __name__ == "__main__":
+    from fftlab_torch.algos._common import demo_device, run_module_demo
+
+    print(explain(16))
+    run_module_demo("iterative_fft", iterative_fft, device=demo_device())

@@ -73,3 +73,15 @@ def mixed_radix_fft(x, direction=FORWARD):
     """General-size FFT by prime factorization (any n >= 1)."""
     x, n, direction = prepare(x, direction)
     return inverse_scale(_mixed_radix_unscaled(x, n, direction), n, direction)
+
+
+def mixed_radix_fft_recursive(x, direction=FORWARD):
+    """Alias of `mixed_radix_fft` under the reference's recursive entry
+    point's name (fftlab/algos/mixed_radix.py:96)."""
+    return mixed_radix_fft(x, direction)
+
+
+if __name__ == "__main__":
+    from fftlab_torch.algos._common import demo_device, run_module_demo
+
+    run_module_demo("mixed_radix_fft", mixed_radix_fft, device=demo_device())

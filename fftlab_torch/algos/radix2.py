@@ -13,7 +13,7 @@ import torch
 from fftlab_torch.algos._common import index_table, inverse_scale, prepare, table
 from fftlab_torch.core.bitrev import bit_reverse_indices
 from fftlab_torch.core.twiddle import butterfly_twiddle_np
-from fftlab_torch.core.types import FORWARD, is_power_of_two, log2_int
+from fftlab_torch.core.types import FORWARD, INVERSE, is_power_of_two, log2_int
 
 
 def _check_pow2(n: int):
@@ -64,3 +64,19 @@ def radix2_dif(x, direction=FORWARD):
         x = torch.cat([a + b, (a - b) * w], dim=-1)
     x = x.reshape(*batch, n).index_select(-1, index_table(bit_reverse_indices, n, like=x))
     return inverse_scale(x, n, direction)
+
+
+def fft_radix2_dit(x):
+    """Forward wrapper (fftlab/algos/radix2.py:83)."""
+    return radix2_dit(x, FORWARD)
+
+
+def ifft_radix2_dit(x):
+    """Inverse wrapper with 1/n scaling (fftlab/algos/radix2.py:88)."""
+    return radix2_dit(x, INVERSE)
+
+
+if __name__ == "__main__":
+    from fftlab_torch.algos._common import demo_device, run_module_demo
+
+    run_module_demo("radix2_dit", radix2_dit, device=demo_device())

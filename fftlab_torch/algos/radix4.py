@@ -34,3 +34,9 @@ def radix4_fft(x, direction=FORWARD):
         with full_float32():
             x = torch.matmul(F4, t)  # the 4-point butterfly over the quarter axis
     return inverse_scale(x.reshape(*batch, n), n, direction)
+
+
+if __name__ == "__main__":
+    from fftlab_torch.algos._common import demo_device, run_module_demo
+
+    run_module_demo("radix4_fft", radix4_fft, device=demo_device())

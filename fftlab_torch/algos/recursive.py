@@ -41,3 +41,9 @@ def print_recursion_tree(n: int, indent: int = 0) -> None:
     if n > 1:
         print_recursion_tree(n // 2, indent + 1)
         print_recursion_tree(n // 2, indent + 1)
+
+
+if __name__ == "__main__":
+    from fftlab_torch.algos._common import demo_device, run_module_demo
+
+    run_module_demo("recursive_fft", recursive_fft, device=demo_device())

@@ -51,3 +51,9 @@ def split_radix_fft(x, direction=FORWARD, leaf: int = 32):
     if not is_power_of_two(n):
         raise ValueError(f"split-radix FFT requires power-of-two size, got n={n}")
     return inverse_scale(_rec(x, n, direction, leaf), n, direction)
+
+
+if __name__ == "__main__":
+    from fftlab_torch.algos._common import demo_device, run_module_demo
+
+    run_module_demo("split_radix_fft", split_radix_fft, device=demo_device())

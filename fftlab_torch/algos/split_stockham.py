@@ -305,9 +305,10 @@ def irfft_split(Xr: torch.Tensor, Xi: torch.Tensor, n: int | None = None,
 # digit-reversed input and emits natural order.
 
 
-def _fft_split_digitrev(xr, xi, direction, factors):
+def _fft_split_digitrev(xr, xi, direction, factors, precision=None):
     """Forward stages only: output [..., n] in digit-reversed order (axes
-    (k_0..k_{K-1}) flattened; spectrum bin k = k_0 + f_0*(k_1 + ...))."""
+    (k_0..k_{K-1}) flattened; spectrum bin k = k_0 + f_0*(k_1 + ...));
+    `precision` as in `_contract_split`."""
     batch = tuple(xr.shape[:-1])
     K = len(factors)
     n = int(np.prod(factors))
@@ -316,7 +317,7 @@ def _fft_split_digitrev(xr, xi, direction, factors):
     rem = n
     for i, r in enumerate(factors):
         Fr, Fi = _planes(dft_matrix_np(r, direction), xr)
-        xr, xi = _contract_split(xr, xi, Fr, Fi, K - 1 - i)
+        xr, xi = _contract_split(xr, xi, Fr, Fi, K - 1 - i, precision)
         if i < K - 1:
             m = rem // r
             tw = stage_twiddle_np(r, m, direction).reshape(r, *factors[i + 1:])
@@ -325,7 +326,7 @@ def _fft_split_digitrev(xr, xi, direction, factors):
     return xr.reshape(*batch, n), xi.reshape(*batch, n)
 
 
-def _ifft_split_from_digitrev(yr, yi, direction, factors):
+def _ifft_split_from_digitrev(yr, yi, direction, factors, precision=None):
     """Exact inverse of `_fft_split_digitrev`: the stages in reverse with
     conjugated tables. Digit-reversed order in, natural order out;
     unscaled (the caller applies 1/n)."""
@@ -347,7 +348,7 @@ def _ifft_split_from_digitrev(yr, yi, direction, factors):
             tw = stage_twiddle_np(r, m, inv_dir).reshape(r, *factors[i + 1:])
             yr, yi = _twiddle_split(yr, yi, *_planes(tw, yr))
         Fr, Fi = _planes(dft_matrix_np(r, inv_dir), yr)
-        yr, yi = _contract_split(yr, yi, Fr, Fi, K - 1 - i)
+        yr, yi = _contract_split(yr, yi, Fr, Fi, K - 1 - i, precision)
     return yr.reshape(*batch, n), yi.reshape(*batch, n)
 
 
@@ -397,14 +398,15 @@ def _as_planes(h, like: torch.Tensor) -> torch.Tensor:
 
 
 def spectral_filter_split_fused(xr: torch.Tensor, xi: torch.Tensor, hr, hi,
-                                leaf: int = DEFAULT_LEAF_SPLIT,
+                                leaf: int = DEFAULT_LEAF_SPLIT, precision=None,
                                 h_permuted: bool = False):
     """FFT -> H -> IFFT with no transposes: the pointwise multiply runs in
     digit-reversed bin order on a digit-reversed H, 1/n scaled.
 
     H is numpy (permuted here on the host) or a tensor (permuted by one
     gather on its device); pass a plan-time `permute_response` copy with
-    `h_permuted=True` to skip both."""
+    `h_permuted=True` to skip both. `precision`: None (full float32) or
+    a matmul tier of `core.precision.LEVELS`, as in `fft_split`."""
     n = int(xr.shape[-1])
     factors = plan_factors(n, leaf)
     if len(factors) == 1:
@@ -418,9 +420,9 @@ def spectral_filter_split_fused(xr: torch.Tensor, xi: torch.Tensor, hr, hi,
         hi_p = _as_planes(hi, xr)[..., bins]
     else:
         hr_p, hi_p = permute_response(hr, hi, n, leaf)
-    Yr, Yi = _fft_split_digitrev(xr, xi, FORWARD, factors)
+    Yr, Yi = _fft_split_digitrev(xr, xi, FORWARD, factors, precision)
     Gr, Gi = _twiddle_split(Yr, Yi, _as_planes(hr_p, xr), _as_planes(hi_p, xr))
-    zr, zi = _ifft_split_from_digitrev(Gr, Gi, FORWARD, factors)
+    zr, zi = _ifft_split_from_digitrev(Gr, Gi, FORWARD, factors, precision)
     return zr * (1.0 / n), zi * (1.0 / n)
 
 

@@ -145,3 +145,9 @@ def stockham_fft(x, direction=FORWARD, leaf: int = DEFAULT_LEAF):
 
 def supports(n: int, leaf: int = DEFAULT_LEAF) -> bool:
     return n >= 1 and max_prime_factor(n) <= leaf
+
+
+if __name__ == "__main__":
+    from fftlab_torch.algos._common import demo_device, run_module_demo
+
+    run_module_demo("stockham_fft", stockham_fft, device=demo_device())

@@ -9,6 +9,7 @@ complex128 tensors, which the card computes natively.
 from __future__ import annotations
 
 import enum
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -24,6 +25,21 @@ class Direction(enum.IntEnum):
 
 FORWARD = Direction.FORWARD
 INVERSE = Direction.INVERSE
+
+
+class SplitComplex(NamedTuple):
+    """Structure-of-arrays complex: two real tensors of one shape, the
+    layout of the split-plane path and its kernels."""
+
+    re: torch.Tensor
+    im: torch.Tensor
+
+    @staticmethod
+    def from_complex(x: torch.Tensor) -> "SplitComplex":
+        return SplitComplex(x.real, x.imag)
+
+    def to_complex(self) -> torch.Tensor:
+        return torch.complex(self.re, self.im)
 
 
 def is_power_of_two(n: int) -> bool:

@@ -152,11 +152,13 @@ def fft_rows(xr: torch.Tensor, xi: torch.Tensor, direction=FORWARD,
     return yr, yi
 
 
-def fft_split_rows(xr: torch.Tensor, xi: torch.Tensor, direction=FORWARD,
+def fft_split_rows(xr: torch.Tensor, xi: torch.Tensor, direction=FORWARD, *,
                    scale: float | None = None):
     """Batched FFT on split planes [..., n], n = m*128 with m in 8..128
     pow2: the CUDA kernel for a CUDA tensor, the plain version for a CPU
-    tensor. Forward unscaled / inverse 1/n; `scale` multiplies on top."""
+    tensor. Forward unscaled / inverse 1/n; `scale` multiplies on top.
+    `scale` is keyword-only: the JAX function's 4th parameter is
+    `interpret`, so a JAX-order call raises here instead of scaling."""
     check_planes(xr, xi, "fft_split_rows")
     n = int(xr.shape[-1])
     if not supported_size(n):
@@ -168,6 +170,9 @@ def fft_split_rows(xr: torch.Tensor, xi: torch.Tensor, direction=FORWARD,
     yr, yi = run(xr.reshape(B, n), xi.reshape(B, n), direction, eff)
     return yr.reshape(xr.shape), yi.reshape(xi.shape)
 
+
+# K3's split entry under the JAX package's name (fftlab/kernels/fft_vmem.py:197)
+pallas_fft_split = fft_split_rows
 
 pallas_fft_split_ad = make_differentiable(fft_split_rows)
 

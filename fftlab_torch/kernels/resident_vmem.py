@@ -12,9 +12,11 @@ two-pass kernels of `fourstep_vmem` (one kernel pair computes what both
 TPU kernels compute); the 50 MB L2 is the nearest the card has to the
 TPU's residency.
 
-The sandwich variants differ on the TPU only in where their corner turns
-and DMA edges sit inside the one residency; here every one of them is
-the same four launches of `fourstep_vmem.spectral_filter_large`.
+The FFT variants (v6 and cio) and the sandwich variants differ on the
+TPU only in where their corner turns and DMA edges sit inside the one
+residency; here each FFT variant is the same two launches of
+`fourstep_vmem.fft_split_large`, and each sandwich the same four
+launches of `fourstep_vmem.spectral_filter_large`.
 """
 
 from __future__ import annotations
@@ -42,6 +44,12 @@ def fft_split_resident(xr: torch.Tensor, xi: torch.Tensor, direction=FORWARD, *,
         raise ValueError(
             f"fft_split_resident supports pow2 n in [{MIN_N}, {MAX_N}]; got {n}")
     return fft_split_large(xr, xi, direction, scale=scale)
+
+
+# The cio variant (fftlab/kernels/resident_vmem.py:689) differs on the TPU
+# only in how its copies in and out of VMEM are laid out (its `in_rows`
+# and `out_rows`); here it is the same two launches.
+fft_split_resident_cio = fft_split_resident
 
 
 def _filter(name: str, xr, xi, hr, hi):

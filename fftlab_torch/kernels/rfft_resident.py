@@ -95,19 +95,19 @@ def rfft_resident(x: torch.Tensor, scale: float | None = None):
     return yr.reshape(*x.shape[:-1], h), yi.reshape(*x.shape[:-1], h)
 
 
-def irfft_resident(xr: torch.Tensor, xi: torch.Tensor, scale: float | None = None):
+def irfft_resident(Xr: torch.Tensor, Xi: torch.Tensor, scale: float | None = None):
     """One-sided (re, im) [..., n//2+1] float32 -> real [..., n]: three
     launches on a CUDA tensor, their plain versions on a CPU tensor. 1/m
     (m = n/2) is applied inside, and nothing else, so
     irfft_resident(rfft_resident(x)) == x; `scale` multiplies on top."""
-    check_planes(xr, xi, "irfft_resident")
-    h = int(xr.shape[-1])
+    check_planes(Xr, Xi, "irfft_resident")
+    h = int(Xr.shape[-1])
     n = 2 * (h - 1)
     if not supported_rfft_resident(n):
         raise ValueError(
             f"irfft_resident supports h = n//2+1 with n//2 in the resident "
             f"window [2^15, 2^20]; got h={h}")
-    B = rows_of(xr.shape)
-    run = irfft_resident_plain if on_cpu(xr, "irfft_resident") else _irfft_launches
-    y = run(xr.reshape(B, h), xi.reshape(B, h), 1.0 if scale is None else float(scale))
-    return y.reshape(*xr.shape[:-1], n)
+    B = rows_of(Xr.shape)
+    run = irfft_resident_plain if on_cpu(Xr, "irfft_resident") else _irfft_launches
+    y = run(Xr.reshape(B, h), Xi.reshape(B, h), 1.0 if scale is None else float(scale))
+    return y.reshape(*Xr.shape[:-1], n)

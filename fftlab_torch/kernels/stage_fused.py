@@ -301,7 +301,7 @@ def pipeline_launches_plain(xr: torch.Tensor, xi: torch.Tensor, direction=FORWAR
 
 
 def fft_split_pipeline_plain(xr: torch.Tensor, xi: torch.Tensor, direction=FORWARD,
-                             factors=(64, 128, 128), scale: float | None = None):
+                             factors=(64, 128, 128), *, scale: float | None = None):
     """The JAX package's pipeline in tensor ops, on any device: K-1 plain
     stages (each produced digit folds into the batch), the leaf
     contraction (`torch.matmul`, float32) and the digit reversal (a
@@ -325,14 +325,15 @@ def fft_split_pipeline_plain(xr: torch.Tensor, xi: torch.Tensor, direction=FORWA
 
 
 def fft_split_pipeline(xr: torch.Tensor, xi: torch.Tensor, direction=FORWARD,
-                       factors=(64, 128, 128), scale: float | None = None):
+                       factors=(64, 128, 128), *, scale: float | None = None):
     """FFT of [B, n] planes from fused stages: on CUDA planes K launches
     (`fused_stage`, `swap_stage` for the later stages, `stage_leaf`), on
     CPU planes `fft_split_pipeline_plain`. Forward unscaled / inverse 1/n;
-    `scale` multiplies on top, folded into the leaf."""
+    `scale` multiplies on top, folded into the leaf. `scale` is
+    keyword-only: the JAX function's 5th parameter is `col_tile`."""
     check_planes(xr, xi, "fft_split_pipeline")
     if on_cpu(xr, "fft_split_pipeline"):
-        return fft_split_pipeline_plain(xr, xi, direction, factors, scale)
+        return fft_split_pipeline_plain(xr, xi, direction, factors, scale=scale)
     # what no kernel runs raises before the first launch
     if not all(is_power_of_two(r) and r <= MAX_RADIX for r in factors[:-1]):
         raise ValueError(f"the fused_stage kernel takes pow2 r in [2, {MAX_RADIX}]; "

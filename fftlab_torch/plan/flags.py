@@ -48,3 +48,13 @@ class PlanConfig:
     @property
     def dtype(self) -> torch.dtype:
         return torch.complex128 if self.precision == "f64" else torch.complex64
+
+
+# The reference's names (fftlab/plan/flags.py:42-48)
+FFT_ESTIMATE = Flags.ESTIMATE
+FFT_MEASURE = Flags.MEASURE
+FFT_PATIENT = Flags.PATIENT
+FFT_EXHAUSTIVE = Flags.EXHAUSTIVE
+FFT_WISDOM_ONLY = Flags.WISDOM_ONLY
+FFT_CONSERVE_MEMORY = Flags.CONSERVE_MEMORY
+FFT_PREFER_GPU = Flags.PREFER_DEVICE

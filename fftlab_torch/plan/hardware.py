@@ -49,3 +49,8 @@ def detect_hardware(device: int = 0) -> HardwareCaps:
         l2_bytes=getattr(p, "L2_cache_size", None),
         memory_bytes=p.total_memory,
     )
+
+
+def print_hardware_info() -> None:
+    """Print the report of the card (or of the CPU, where there is none)."""
+    print(detect_hardware().summary())

@@ -98,12 +98,14 @@ def _route_candidates(n: int, device="cuda") -> list[str]:
     return cands
 
 
-def tune_split_route(n: int, batch: int = 4, persist: bool = True, iters: int = 5,
+def tune_split_route(n: int, batch: int = 4, persist: bool = True, *, iters: int = 5,
                      device="cuda") -> str:
     """Time every route for (n, batch) on `device` (the card by default)
     and return the winner; with `persist`, record it under kind 'route'
     with every route's ms (`timings_ms`) and merge it into the wisdom file,
-    so a later process skips the measurement."""
+    so a later process skips the measurement. `iters` and `device` are
+    keyword-only: the JAX function's 4th and 5th parameters are its
+    chain lengths and repeats."""
     from fftlab_torch.plan.dispatch import run_route
 
     dev = require_device(device)

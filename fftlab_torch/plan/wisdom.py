@@ -25,6 +25,9 @@ def _default_path() -> str:
         os.path.expanduser("~/.cache/fftlab_torch/wisdom.json"))
 
 
+DEFAULT_PATH = _default_path()  # informational: each call resolves the path anew
+
+
 def _key(n: int, precision: str, kind: str = "c2c") -> str:
     return f"{kind}:{n}:{precision}"
 

@@ -1,6 +1,6 @@
 """One rank of the port's distributed tests on the CPU
 (tests/test_torch_dist.py, test_torch_dist_split.py,
-test_torch_dist_pipelines.py, test_torch_multihost.py).
+test_torch_dist_pipelines.py, test_torch_multihost.py, test_torch_entry.py).
 
 Each test module starts `world` of these processes once, over gloo with
 a file store, at matmul precision "medium". Every rank runs every case of the module's suite on the
@@ -431,6 +431,30 @@ def batch_axes(m):
 
 
 # ---------------------------------------------------------------------------
+# suite "entry": tests/test_torch_entry.py (the multi-chip dry run)
+# ---------------------------------------------------------------------------
+
+
+def _dryrun(n_devices: int) -> dict:
+    import torch.distributed as dist
+
+    from fftlab_torch.entry import dryrun_multichip
+
+    dryrun_multichip(n_devices, device_type="cpu")
+    return {"n_devices": np.asarray(n_devices), "world": np.asarray(dist.get_world_size())}
+
+
+@case("entry")
+def dryrun_2(m):  # over the first two ranks of the world: dp 1, pp 2
+    return _dryrun(2)
+
+
+@case("entry")
+def dryrun_4(m):  # dp 2 x sp 2, pp 4
+    return _dryrun(4)
+
+
+# ---------------------------------------------------------------------------
 # suite "pipelines": tests/test_tp_pipeline.py and test_pp_pipeline.py
 # ---------------------------------------------------------------------------
 
@@ -566,6 +590,8 @@ def meshes(suite: str, world: int) -> dict:
     from fftlab_torch.dist import make_mesh, make_mesh_1d
 
     cpu = dict(device_type="cpu")
+    if suite == "entry":  # dryrun_multichip builds its own
+        return {}
     if suite == "multihost":
         return {"sp": make_mesh_1d("sp", **cpu)}
     if suite == "pipelines":

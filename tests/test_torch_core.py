@@ -46,6 +46,10 @@ def test_import_loads_no_jax_triton_or_cuda():
             "fftlab_torch.core.bitrev, fftlab_torch.dist, fftlab_torch.dist.comm, "
             "fftlab_torch.dist.multihost, fftlab_torch.dist.fft2_mesh2d, "
             "fftlab_torch.dist.overlap_save, fftlab_torch.cli.dist_demo; "
+            "from fftlab_torch.kernels import (pallas_fft, pallas_fft_split, "
+            "pallas_spectral_filter, supported_size, pallas_stft_split, fused_stage, "
+            "fft_split_pipeline, _build); "
+            "assert _build.load_library.cache_info().currsize == 0; "
             "bad = [m for m in ('jax', 'triton', 'fftlab') if m in sys.modules]; "
             "assert not bad, bad")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

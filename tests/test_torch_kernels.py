@@ -82,7 +82,7 @@ def test_sides_and_windows_equal():
 @pytest.mark.parametrize("direction,scale", CASES, ids=CASE_IDS)
 def test_rows_plain_matches_pallas(n, direction, scale):
     xr, xi = planes(n, (2, n))
-    got = cplx(*fft_vmem.fft_split_rows(tt(xr), tt(xi), direction, scale))
+    got = cplx(*fft_vmem.fft_split_rows(tt(xr), tt(xi), direction, scale=scale))
     want = cplx(*jx_rows.pallas_fft_split(
         jnp.asarray(xr), jnp.asarray(xi), direction, interpret=True,
         scale=scale))
