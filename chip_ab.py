@@ -14,7 +14,9 @@ script prints each case's times per tree, their means and the ratio.
 The cases: the filter kernels, `filter_rows` at 256 x 16384 and 64 x 1024
 (the Bluestein and `fft_convolution_split` end) and `os_filter` on 2^23
 samples x two planes with 129 taps in 1K and 16K frames and with 1025
-taps in 2K frames; `stft_frames` at 2^22 samples and frame/hop 256/128,
+taps in 2K frames; the two-pass sandwich `spectral_filter_large` at
+64 x 2^15, 16 x 2^20 and 4 x 2^21, and Bluestein (`fft_split_auto`) at
+4 x 500009, whose sandwich is 2^20, beside `torch.fft.fft`; `stft_frames` at 2^22 samples and frame/hop 256/128,
 2048/512, 4096/1024 and 16384/4096 (one-sided), beside `torch.stft`;
 `fft_rows` at 256 x 16384 beside `torch.fft.fft`; and the other
 register-engine kernels (csrc/fft_reg.cuh): the two-pass pair at
@@ -44,6 +46,8 @@ PIPELINE_SHAPE = (16, 1 << 20)
 FILTER_ROWS_SHAPES = ((256, 16384), (64, 1024))
 OS_N = 1 << 23
 OS_CASES = ((129, 1024), (129, 16384), (1025, 2048))  # (taps, frame)
+SANDWICH_SHAPES = ((64, 1 << 15), (16, 1 << 20), (4, 1 << 21))
+BLUESTEIN_SHAPE = (4, 500009)
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -54,7 +58,7 @@ def worker(tree: str) -> dict:
     from chip_smoke import time_ms  # this checkout's, before `tree` goes on the path
 
     sys.path.insert(0, os.path.abspath(tree))
-    from fftlab_torch import INVERSE
+    from fftlab_torch import INVERSE, fft_split_auto
     import numpy as np
 
     from fftlab_torch.kernels import (_build, fft_vmem, fourstep_vmem, os_filter_vmem,
@@ -83,6 +87,15 @@ def worker(tree: str) -> dict:
         kr, ki = os_filter_vmem._cached_response(taps.tobytes(), fsz, dev)
         cases[f"os_filter 2^23 x 2, {nh} taps, {fsz} frames"] = (
             lambda kr=kr, ki=ki, nh=nh: os_filter_vmem.os_filter(sr, si, kr, ki, nh))
+    for B, n in SANDWICH_SHAPES:
+        zr, zi = planes(B, n)
+        gr, gi = (h[0] for h in planes(1, n))
+        cases[f"spectral_filter_large {B} x 2^{n.bit_length() - 1}"] = (
+            lambda zr=zr, zi=zi, gr=gr, gi=gi: fourstep_vmem.spectral_filter_large(zr, zi, gr, gi))
+    br, bi = planes(*BLUESTEIN_SHAPE)
+    bc = torch.complex(br, bi)
+    cases["Bluestein fft_split_auto 4 x 500009"] = lambda: fft_split_auto(br, bi)
+    cases["torch.fft.fft 4 x 500009"] = lambda: torch.fft.fft(bc)
     sig = torch.randn(STFT_N, generator=gen, device=dev)
     for fft_size, hop in STFT_CASES:
         n_frames = (STFT_N - fft_size) // hop + 1

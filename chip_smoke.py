@@ -16,8 +16,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
    (torch.fft on complex128 and np.convolve, used as oracles only):
    the c2c kernels forward, inverse and scale=0.5 (>= 120 dB two-pass,
    >= 110 dB rows); the sandwiches ifft(fft(x) * H) with a random H
-   (>= 110 dB `filter_rows`, also at 64 x 1024, >= 120 dB
-   `fourstep_pass2_filter` and the four-launch sandwich); `os_filter` at
+   (>= 110 dB `filter_rows`, also at 64 x 1024; at 64 x 2^15, 16 x 2^20
+   and 4 x 2^21 `fourstep_pass2_sandwich`, pass 2's sandwich mode, >= 110
+   dB against its plain version, and the three-launch sandwich >= 110 dB
+   against its plain version and >= 120 dB against float64); `os_filter` at
    2 x 2^20 with 9, 129 and 1025 taps in 16K frames, 129 taps in 1K
    frames and 1025 taps in 2K frames against np.convolve (>= 100 dB);
    the real-signal kernels at 8 x 2^21 and 4 x 2^22 reals
@@ -35,8 +37,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
 4. main paths, each with every launch count set to 0 just before it and
    read just after: (a) the FFT, plan_dft_1d_split(2^20, batch=16)
    forward and inverse and fft_split_auto at 256 x 16384; (b) the filter
-   path, spectral_filter_auto at 16 x 2^20, fft_filter_split at
-   256 x 16384, fft_split_auto at 4 x 500009 (Bluestein, m = 2^20) and
+   path, spectral_filter_auto at 16 x 2^20 (exactly two `fourstep_pass1`
+   launches and one `fourstep_pass2_sandwich`, printed), fft_filter_split at
+   256 x 16384, fft_split_auto at 4 x 500009 (Bluestein, m = 2^20: a
+   sandwich forward and one inverse, their launches printed) and
    64 x 509 (Bluestein, m = 1024, the row sandwich) and FilterPlan on a
    2^23-sample signal (two planes, packed real, stream);
    (c) the real-signal path, plan_r2c_1d_split(2^21, batch=8) (the fused
@@ -119,12 +123,15 @@ Phases, in order; any failure raises and the exit code is non-zero:
    at 1 x 2^24, the A/B of the fused r2c (3 launches) against the
    pipeline (4 launches) at 8 x 2^21, in turns, and the geometry A/B of
    the two-pass kernels at 16 x 2^20 and 4 x 2^21 (W columns per pass-1
-   block, R rows per pass-2 block), each candidate checked against the
+   block, R rows per pass-2 block and per block of the sandwich mode),
+   each candidate checked against the
    plain version first and timed in turns; `stft_frames` and
    `fft_rows`, whose wrappers' host time per call can be as long as the
    kernel, and their library calls are also timed as CUDA graphs of the
    10 calls (the device time alone), and so is the A/B of `stft_frames`'
    frames per block (T in {16, 32} at 256/128, {2, 4} at 2048/512);
+   the three-launch sandwich at 64 x 2^15, 16 x 2^20 and 4 x 2^21 beside
+   cuFFT's three calls, and Bluestein at 4 x 500009 beside torch.fft.fft;
    `filter_rows` (256 x 16384, 64 x 1024) and `os_filter` at the serving
    shape (1K and 16K frames) are timed as calls and as graphs, beside the
    A/B of `os_filter`'s frames per block at 1K frames (T in {2, 4, 8}, graph,
@@ -211,6 +218,9 @@ STAGE_SHAPES = ((4, 64, 2048), (4, 128, 1024), (4, 32, 128), (4, 2, 128),
 SWAP_SHAPES = ((2048, 64, 128, 128), (256, 2, 128, 128))
 LEAF_SHAPES = ((16, 1 << 20, 128), (2, 1 << 15, 128))
 GATE_PLAIN_DB = 110.0
+# the launches of one two-pass sandwich: pass 1, the sandwich mode, the
+# inverse pass 1
+SANDWICH_LAUNCHES = {"fourstep_pass1": 2, "fourstep_pass2_sandwich": 1}
 GATE_ORACLE_DB = {"rows": 110.0, "two_pass": 120.0, "os_filter": 100.0,
                   "bluestein": 95.0, "real": 110.0, "three_pass": 120.0,
                   "stage": 115.0}
@@ -1000,8 +1010,7 @@ def edges_phase(dev, gen, card: str, reset_counts, read_counts) -> None:
     print(f"edges bigfft fft_convolution_split {bigfft.CONV_N} x {bigfft.CONV_TAPS}: max err "
           f"{err:.2e} vs np.convolve, launches {path}")
     require(err <= 1e-4, f"bigfft convolution max err {err:.2e}")
-    require(path.get("fourstep_pass2_filter", 0) == 1 and path.get("fourstep_pass1", 0) == 2,
-            f"bigfft convolution launched {path}")
+    require(path == SANDWICH_LAUNCHES, f"bigfft convolution launched {path}")
     saved, sys.argv = sys.argv, ["prog"]
     text = io.StringIO()
     try:
@@ -1895,9 +1904,11 @@ def main() -> int:
     # every instantiation of the register engine: a kernel per length
     engine = ({f"fft_rows_kernel<{e}>" for e in range(9, 15)}
               | {f"fourstep_pass1_kernel<{m}, {e}>" for m in range(3) for e in range(7, 11)}
-              | {f"fourstep_pass2_kernel<{m}, {e}>" for m in range(3) for e in range(7, 12)}
+              | {f"fourstep_pass2_kernel<{m}, {e}>" for m in range(2) for e in range(7, 12)}
+              | {f"fourstep_pass2_sandwich_kernel<{e}>" for e in range(7, 12)}
               | {f"fourstep_pass1_kernel<3, {e}>" for e in range(1, 8)}  # the stages
-              | {f"fourstep_pass2_kernel<3, {e}>" for e in range(7, 12)}  # the leaves
+              | {f"fourstep_pass1_kernel<4, {e}>" for e in range(7, 11)}  # no twiddle
+              | {f"fourstep_pass2_kernel<2, {e}>" for e in range(7, 12)}  # the leaves
               | {f"{k}_kernel<{e}>" for k in ("filter_rows", "os_filter") for e in range(9, 15)})
     missing = engine - {k["kernel"] for k in ptxas}
     require(not missing, f"ptxas reported no {sorted(missing)}")
@@ -1970,7 +1981,7 @@ def main() -> int:
         y = torch.fft.ifft(torch.fft.fft(z) * torch.complex(hr.double(), hi.double()))
         return y.real, y.imag
 
-    err.update({"filter_rows": 0.0, "fourstep_pass2_filter": 0.0, "os_filter": 0.0})
+    err.update({"filter_rows": 0.0, "fourstep_pass2_sandwich": 0.0, "os_filter": 0.0})
     for B, n in FILTER_ROWS_SHAPES:
         xr, xi = planes(B, n)
         hr, hi = planes(1, n)
@@ -1991,19 +2002,19 @@ def main() -> int:
         hr, hi = planes(1, n)
         hr, hi = hr[0], hi[0]
         mid = fourstep_vmem.fourstep_pass1(xr, xi, FORWARD)
-        got2 = fourstep_vmem.fourstep_pass2_filter(*mid, hr, hi)
-        plain2 = fourstep_vmem.fourstep_pass2_filter_plain(*mid, hr, hi)
+        plain2 = fourstep_vmem.fourstep_pass2_sandwich_plain(*mid, hr, hi)
+        got2 = fourstep_vmem.fourstep_pass2_sandwich(*mid, hr, hi)  # in place over mid
         got = fourstep_vmem.spectral_filter_large(xr, xi, hr, hi)
         plain = fourstep_vmem.spectral_filter_large_plain(xr, xi, hr, hi)
         torch.cuda.synchronize()
         s2 = snr_db(got2, plain2)
         s_plain = snr_db(got, plain)
         s_oracle = snr_db(got, sandwich_oracle(xr, xi, hr, hi))
-        err["fourstep_pass2_filter"] = max(err["fourstep_pass2_filter"],
-                                           max_abs(got2, plain2))
-        print(f"check sandwich B={B} n={n}: pass2_filter vs plain {s2:.1f} dB, "
+        err["fourstep_pass2_sandwich"] = max(err["fourstep_pass2_sandwich"],
+                                             max_abs(got2, plain2))
+        print(f"check sandwich B={B} n={n}: pass2_sandwich vs plain {s2:.1f} dB, "
               f"whole vs plain {s_plain:.1f} dB, vs oracle {s_oracle:.1f} dB")
-        require(s2 >= GATE_PLAIN_DB, f"fourstep_pass2_filter vs plain {s2:.1f} dB")
+        require(s2 >= GATE_PLAIN_DB, f"fourstep_pass2_sandwich vs plain {s2:.1f} dB")
         require(s_plain >= GATE_PLAIN_DB, f"sandwich vs plain {s_plain:.1f} dB")
         require(s_oracle >= GATE_ORACLE_DB["two_pass"],
                 f"sandwich vs oracle {s_oracle:.1f} dB at B={B} n={n}")
@@ -2280,6 +2291,10 @@ def main() -> int:
     h_real = torch.randn(n, generator=gen, device=dev)
     h_zero = torch.zeros_like(h_real)
     fr, fi = spectral_filter_auto(xr, xi, h_real, h_zero)
+    torch.cuda.synchronize()
+    sandwich = {k: v for k, v in read_counts().items() if v}
+    print(f"filter path sandwich {B} x 2^{n.bit_length() - 1} launches: {sandwich}")
+    require(sandwich == SANDWICH_LAUNCHES, f"the sandwich launched {sandwich}")
     B3, n3 = FILTER_ROWS_MAIN_SHAPE
     ur, ui = planes(B3, n3)
     lowpass = FilterParams(FilterType.LOWPASS, 0.1, transition_width=0.02)
@@ -2318,11 +2333,12 @@ def main() -> int:
     require(select_filter_impl(n3) == "smem_rows", f"16384 sandwich route "
             f"{select_filter_impl(n3)}")
     require(plan.uses_kernel(), f"FilterPlan route: {plan.describe()}")
-    for name in ("fourstep_pass1", "fourstep_pass2_filter", "fourstep_pass2"):
-        require(bluestein[name] > 0, f"Bluestein did not launch {name}")
+    # a sandwich forward and one inverse
+    require({k: v for k, v in bluestein.items() if v}
+            == {k: 2 * v for k, v in SANDWICH_LAUNCHES.items()},
+            f"Bluestein 4 x 500009 launched {bluestein}")
     require(bluestein_rows["filter_rows"] > 0, f"Bluestein {n5} did not launch filter_rows")
-    for name in ("filter_rows", "fourstep_pass1", "fourstep_pass2",
-                 "fourstep_pass2_filter", "os_filter"):
+    for name in ("filter_rows", "fourstep_pass1", "fourstep_pass2_sandwich", "os_filter"):
         require(filter_launches[name] > 0,
                 f"kernel {name} was not launched on the filter path")
     for t, shape in ((fr, (B, n)), (fi, (B, n)), (lr, (B3, n3)), (li, (B3, n3)),
@@ -2680,26 +2696,48 @@ def main() -> int:
     shapes = {name: ROWS_MAIN_SHAPE for name in ("fft_rows", "fft_rows_graph", "fft_rows_plain",
                                                  "cufft_16k", "cufft_16k_graph")}
 
-    B, n = FILTER_MAIN_SHAPE
+    # the two-pass sandwich at each of its shapes beside cuFFT's three
+    # calls; the sandwich mode alone (in place) at the main path's, with
+    # an all-pass H times L1, so that each call keeps its input's scale
+    for B, n in TWO_PASS_SHAPES:
+        xr, xi = planes(B, n)
+        hr, hi = planes(1, n)
+        hr, hi = hr[0], hi[0]
+        xc, hc = torch.complex(xr, xi), torch.complex(hr, hi)
+        tag = f"_2^{n.bit_length() - 1}"
+        ms["sandwich" + tag] = time_ms(
+            lambda: fourstep_vmem.spectral_filter_large(xr, xi, hr, hi))
+        ms["sandwich_plain" + tag] = time_ms(
+            lambda: fourstep_vmem.spectral_filter_large_plain(xr, xi, hr, hi))
+        ms["cufft_sandwich" + tag] = time_ms(lambda: torch.fft.ifft(torch.fft.fft(xc) * hc))
+        shapes.update(dict.fromkeys(("sandwich" + tag, "sandwich_plain" + tag,
+                                     "cufft_sandwich" + tag), (B, n)))
+        print(f"sandwich {B} x 2^{n.bit_length() - 1}: three launches "
+              f"{ms['sandwich' + tag]:.4f} ms, cuFFT's three calls "
+              f"{ms['cufft_sandwich' + tag]:.4f} ms [{card}]")
+        if (B, n) != FILTER_MAIN_SHAPE:
+            continue
+        L1 = fourstep_vmem._split_sides(n)[0]
+        phase = 2 * math.pi * torch.rand(n, generator=gen, device=dev)
+        ar, ai = L1 * torch.cos(phase), L1 * torch.sin(phase)
+        mid = fourstep_vmem.fourstep_pass1(xr, xi, FORWARD)
+        ms["fourstep_pass2_sandwich"] = time_ms(
+            lambda: fourstep_vmem.fourstep_pass2_sandwich(*mid, ar, ai))
+        ms["fourstep_pass2_sandwich_plain"] = time_ms(
+            lambda: fourstep_vmem.fourstep_pass2_sandwich_plain(*mid, ar, ai))
+        require(bool(torch.isfinite(mid[0]).all() and torch.isfinite(mid[1]).all()),
+                "the sandwich mode's timing input left its range")
+        shapes.update(dict.fromkeys(("fourstep_pass2_sandwich",
+                                     "fourstep_pass2_sandwich_plain"), (B, n)))
+    B, n = BLUESTEIN_SHAPE
     xr, xi = planes(B, n)
-    hr, hi = planes(1, n)
-    hr, hi = hr[0], hi[0]
-    mid = fourstep_vmem.fourstep_pass1(xr, xi, FORWARD)
-    xc, hc = torch.complex(xr, xi), torch.complex(hr, hi)
-    ms["sandwich_1m"] = time_ms(
-        lambda: fourstep_vmem.spectral_filter_large(xr, xi, hr, hi))
-    ms["sandwich_1m_plain"] = time_ms(
-        lambda: fourstep_vmem.spectral_filter_large_plain(xr, xi, hr, hi))
-    ms["fourstep_pass2_filter"] = time_ms(
-        lambda: fourstep_vmem.fourstep_pass2_filter(*mid, hr, hi))
-    ms["fourstep_pass2_filter_plain"] = time_ms(
-        lambda: fourstep_vmem.fourstep_pass2_filter_plain(*mid, hr, hi))
-    ms["cufft_sandwich_1m"] = time_ms(
-        lambda: torch.fft.ifft(torch.fft.fft(xc) * hc))
-    shapes.update(dict.fromkeys(("sandwich_1m", "sandwich_1m_plain",
-                                 "fourstep_pass2_filter",
-                                 "fourstep_pass2_filter_plain",
-                                 "cufft_sandwich_1m"), FILTER_MAIN_SHAPE))
+    xc = torch.complex(xr, xi)
+    ms["bluestein"] = time_ms(lambda: fft_split_auto(xr, xi))
+    ms["cufft_bluestein"] = time_ms(lambda: torch.fft.fft(xc))
+    shapes.update(dict.fromkeys(("bluestein", "cufft_bluestein"), (B, n)))
+    print(f"Bluestein {B} x {n}: fft_split_auto {ms['bluestein']:.4f} ms, torch.fft.fft "
+          f"{ms['cufft_bluestein']:.4f} ms [{card}]")
+    del xr, xi, xc, hc, mid, ar, ai
     B, n = FILTER_ROWS_MAIN_SHAPE
     ur, ui = planes(B, n)
     hr, hi = planes(1, n)
@@ -2873,8 +2911,10 @@ def main() -> int:
          "rfft_pipeline", "irfft_fused", "irfft_fused_plain", "cufft_rfft",
          "cufft_irfft", "stack_interleave"), RFFT_SHAPE))
     # the geometry A/B of the two-pass kernels, in turns on the same card:
-    # W columns per pass-1 block, R rows per pass-2 block; its launches
-    # count apart from the main path's
+    # W columns per pass-1 block, R rows per block of pass 2 and of its
+    # sandwich mode (checked on a copy of pass 1's output, timed in place
+    # with an all-pass H times L1); its launches count apart from the main
+    # path's
     ab_counts = dict.fromkeys(fourstep_vmem.LAUNCHES, 0)
     for B, n in AB_SHAPES:
         sides = fourstep_vmem._split_sides(n)
@@ -2883,25 +2923,40 @@ def main() -> int:
         mid = fourstep_vmem.fourstep_pass1(xr, xi)
         want1 = fourstep_vmem.fourstep_pass1_plain(xr, xi)
         want2 = fourstep_vmem.fourstep_pass2_plain(*mid)
+        hr, hi = (h[0] for h in planes(1, n))
+        want3 = fourstep_vmem.fourstep_pass2_sandwich_plain(*mid, hr, hi)
+        phase = 2 * math.pi * torch.rand(n, generator=gen, device=dev)
+        ar, ai = L1 * torch.cos(phase), L1 * torch.sin(phase)
+        smid = [t.clone() for t in mid]
 
         def pass1(g):
             return fourstep_vmem._launch_pass1("fourstep_pass1", xr, xi, FORWARD, sides,
                                                ab_counts, geometry=g)
 
         def pass2(g):
-            return fourstep_vmem._launch_pass2("fourstep_pass2", *mid, None, FORWARD, 1.0,
+            return fourstep_vmem._launch_pass2("fourstep_pass2", *mid, FORWARD, 1.0,
                                                sides, ab_counts, geometry=g)
+
+        def sandwich(g):
+            return fourstep_vmem._launch_sandwich(*(t.clone() for t in mid), hr, hi,
+                                                  ab_counts, geometry=g)
+
+        def sandwich_in_place(g):
+            return fourstep_vmem._launch_sandwich(*smid, ar, ai, ab_counts, geometry=g)
 
         rows = (16, 8) if 16 * L2 <= 16384 else (8, 4)
         arms = (("pass1", fourstep_vmem.pass1_geometry(L1, L2).T,
                  {f"W={v}": fourstep_vmem.pass1_geometry(L1, L2, v) for v in (16, 8)},
-                 pass1, want1),
+                 pass1, pass1, want1),
                 ("pass2", fourstep_vmem.pass2_geometry(L1, L2).T,
                  {f"R={v}": fourstep_vmem.pass2_geometry(L1, L2, v) for v in rows},
-                 pass2, want2))
-        for kernel, default, geos, launch, want in arms:
+                 pass2, pass2, want2),
+                ("sandwich", fourstep_vmem.sandwich_geometry(L1, L2).T,
+                 {f"R={v}": fourstep_vmem.sandwich_geometry(L1, L2, v) for v in (4, 8)},
+                 sandwich, sandwich_in_place, want3))
+        for kernel, default, geos, check, launch, want in arms:
             for label, geo in geos.items():
-                s_geo = snr_db(launch(geo), want)
+                s_geo = snr_db(check(geo), want)
                 require(s_geo >= GATE_PLAIN_DB, f"{kernel} {label} vs plain {s_geo:.1f} dB")
             runs = {label: [] for label in geos}
             for label in list(geos) + list(geos)[::-1]:  # in turns: a b b a
@@ -2914,7 +2969,9 @@ def main() -> int:
                   + ", ".join(f"{k} {v} ms" for k, v in runs.items())
                   + f"; default {'W' if kernel == 'pass1' else 'R'}={default}, faster "
                   f"{faster} [{card}]")
-    del xr, xi, mid, want1, want2
+        require(bool(torch.isfinite(smid[0]).all() and torch.isfinite(smid[1]).all()),
+                "the sandwich mode's timing input left its range")
+    del xr, xi, mid, want1, want2, want3, smid
     # stft_frames: at 256/128 the wrapper's host time per call is as long
     # as the kernel, so the calls' time is the host's there; the kernel
     # and torch.stft are also timed as CUDA graphs (the device time
@@ -3080,9 +3137,11 @@ def main() -> int:
         ("fourstep_pass2", "fourstep.cu", "fftlab/kernels/fourstep_vmem.py:628",
          "fftlab/kernels/resident_vmem.py:433", fft_launches, "fourstep_pass2", None,
          16 * N, 5 * N * lg(L2)),
-        ("fourstep_pass2_filter", "fourstep.cu", "fftlab/kernels/fourstep_vmem.py:628",
-         "fftlab/kernels/resident_vmem.py:883", filter_launches, "fourstep_pass2_filter",
-         None, 16 * N + 8 * MAIN_SHAPE[1], 5 * N * lg(L2) + 6 * N),
+        # the middle step of the sandwich: the forward and inverse row FFTs,
+        # H and the inverse twiddle
+        ("fourstep_pass2_sandwich", "fourstep.cu", "fftlab/kernels/resident_vmem.py:883",
+         "fftlab/kernels/fourstep_vmem.py:628", filter_launches, "fourstep_pass2_sandwich",
+         None, 16 * N + 8 * MAIN_SHAPE[1], 10 * N * lg(L2) + 12 * N),
         ("filter_rows", "filter.cu", "fftlab/kernels/fft_vmem.py:247", None,
          filter_launches, "filter_rows", None, 16 * Nf + 8 * n_f,
          10 * Nf * lg(n_f) + 6 * Nf),

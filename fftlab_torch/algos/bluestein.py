@@ -7,7 +7,7 @@ a linear convolution of a[j] = x[j]*c[j] with conj(c), evaluated
 circularly at the power of two m = next_pow2(2n-1). That convolution is
 the FFT -> B -> IFFT sandwich at size m with B the spectrum of the chirp
 kernel, so it rides `plan.dispatch.spectral_filter_auto`: the row kernel
-for m up to 16K, the four-launch two-pass sandwich for m in 2^15..2^21
+for m up to 16K, the three-launch two-pass sandwich for m in 2^15..2^21
 (n up to about 2^20), the tensor-op sandwich above.
 
 The chirp and B are float64 plan-time constants, cached per

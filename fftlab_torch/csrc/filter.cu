@@ -19,7 +19,8 @@
 // Bound on this card: device memory. The sandwich reads and writes each
 // point once (16 bytes in split float32) against about 10 log2 L flops
 // per point, under 9 flops per byte at 16K. Design:
-//   - one sandwich (`sandwich`): the engine's forward transform leaves the
+//   - one sandwich (sandwich.cuh `sandwich`, shared with fourstep.cu's
+//     `fourstep_pass2_sandwich`): the engine's forward transform leaves the
 //     spectrum in the exchange planes (`forward_in_place`); the inverse's first
 //     pass reads it there times H (`__ldg`, natural order, L2-resident
 //     across blocks), and its last pass stores with 1/L folded in. Nothing
@@ -48,92 +49,9 @@
 
 #include <climits>
 
-#include "fft_reg.cuh"
+#include "sandwich.cuh"
 
 using namespace fftlab;
-
-// The forward transform of every transform of the tile x (first-pass
-// inputs through `load(t, e)`) with its outputs left in the planes, in
-// natural order: the passes of Engine::run_in_place. Its last pass reads
-// all of its inputs into registers before a barrier and writes its
-// outputs in place after it; the slots of those writes are rebuilt after
-// the barrier from z, the barrier's result (0), which the compiler cannot
-// see through: otherwise it keeps the reads' plane addresses live across
-// the barrier and spills at 4 and 8 slots a thread (ptxas, sm_90a).
-// Returns z, the 0 of the closing barrier, for the same use. (The same
-// change in Engine::run_in_place cost stft_frames 2.6% at 4096/1024.)
-template <int kLogL, int kLogPad, class Load>
-__device__ __forceinline__ int forward_in_place(const Tile& x, const float2* __restrict__ tw,
-                                                Load load) {
-  using Fwd = Engine<kLogL, kLogPad>;
-  constexpr int R = Fwd::kLastR;
-  constexpr int kLogJ = kLogL - (Fwd::kLogLast == 0 ? 4 : Fwd::kLogLast);  // ns = L/R
-  const Fwd fwd{x, 0, 0, -1.0f};
-  float2 v[kP];
-  fwd.load_first(v, load);
-  dft<16>(v, 0, -1.0f);
-  int log_ns = 0;
-#pragma unroll
-  for (int p = 0; p < Fwd::kMid; ++p) {
-    fwd.exchange16(v, log_ns, 0, tw);
-    tw += 16 << (log_ns + 4);
-    log_ns += 4;
-  }
-  fwd.write16(v, log_ns, 0);
-#pragma unroll
-  for (int i = 0; i < kP / R; ++i) {
-    int j, t;
-    slot_of(i, 0, kLogJ, j, t);
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int at = padded<kLogPad>(x, t, j + (r << kLogJ));
-      v[i * R + r] = make_float2(x.re[at], x.im[at]);
-    }
-    twiddle<R>(v, i * R, tw, j, 1 << kLogJ);
-    dft<R>(v, i * R, -1.0f);
-  }
-  const int z = __syncthreads_or(0);
-#pragma unroll
-  for (int i = 0; i < kP / R; ++i) {
-    int j, t;
-    slot_of(i, z, kLogJ, j, t);
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int at = padded<kLogPad>(x, t, j + (r << kLogJ));
-      x.re[at] = v[i * R + r].x;
-      x.im[at] = v[i * R + r].y;
-    }
-  }
-  return __syncthreads_or(0);
-}
-
-// The forward transform of every transform of the tile x (first-pass
-// inputs through `load(t, e)`), times H, the inverse with `scale`, its
-// outputs through the functor `make_store(z)` returns (`store(t, e,
-// value)`); tw_fwd, tw_inv: the engine's twiddle tables of L for each
-// direction. Both transforms put neighbouring threads on neighbouring
-// elements (slot mapping 0); for the inverse that 0 is z, the result of
-// forward_in_place's closing barrier, which the compiler cannot see through,
-// so it does not keep the forward's plane addresses (the same slots) live
-// for the inverse (300-1200 bytes of spills without it). make_store
-// builds the store's pointers from z too, after the hand-off, for the
-// same reason.
-template <int kLogL, int kLogPad, class Load, class MakeStore>
-__device__ __forceinline__ void sandwich(const Tile& x, const float2* __restrict__ tw_fwd,
-                                         const float2* __restrict__ tw_inv,
-                                         const float* __restrict__ hr,
-                                         const float* __restrict__ hi, float scale, Load load,
-                                         MakeStore make_store) {
-  const int z = forward_in_place<kLogL, kLogPad>(x, tw_fwd, load);
-  const Engine<kLogL, kLogPad> inv{x, z, z, 1.0f};
-  inv.run(
-      tw_inv, scale,
-      [&](int t, int e) {
-        const int a = padded<kLogPad>(x, t, e);
-        return cmul(make_float2(x.re[a], x.im[a]), make_float2(__ldg(hr + e), __ldg(hi + e)));
-      },
-      make_store(z));
-}
 
 // No pad: a row's exchanges are swizzled (fft_reg.cuh `padded`).
 constexpr int kLogPadRows = 0;
@@ -149,8 +67,9 @@ filter_rows_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   const float* __restrict__ ar = xr + base;
   const float* __restrict__ ai = xi + base;
   sandwich<kLogN, kLogPadRows>(
-      make_tile(0, geo), tw_fwd, tw_inv, hr, hi, scale,
+      make_tile(0, geo), tw_fwd, tw_inv, scale, MappingZero{},
       [&](int, int e) { return make_float2(__ldg(ar + e), __ldg(ai + e)); },
+      [&](int, int e) { return make_float2(__ldg(hr + e), __ldg(hi + e)); },
       [&](int z) {
         const size_t at = static_cast<size_t>(blockIdx.x + z) << kLogN;
         return [br = yr + at, bi = yi + at](int, int e, float2 y) {
@@ -192,12 +111,13 @@ os_filter_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   const int lo = s0 < 0 ? static_cast<int>(-s0) : 0;
   const int hi_ = static_cast<int>(n - s0 < span ? n - s0 : span);
   sandwich<kLogL, kOneFrame ? kLogPadRows : kFrameRows>(
-      make_tile(log_t, geo), tw_fwd, tw_inv, hr, hi, scale,
+      make_tile(log_t, geo), tw_fwd, tw_inv, scale, MappingZero{},
       [&](int t, int e) {
         const int u = kOneFrame ? e : t * hop + e;
         return u >= lo && u < hi_ ? make_float2(__ldg(ar + u), __ldg(ai + u))
                                   : make_float2(0.0f, 0.0f);
       },
+      [&](int, int e) { return make_float2(__ldg(hr + e), __ldg(hi + e)); },
       [&](int z) {
         const int b = blockIdx.x + z;
         const size_t at = static_cast<size_t>(b / n_groups) * static_cast<size_t>(n);

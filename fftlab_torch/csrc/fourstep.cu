@@ -1,4 +1,4 @@
-// fourstep_pass1 / fourstep_pass2 / fourstep_pass2_filter /
+// fourstep_pass1 / fourstep_pass2 / fourstep_pass2_sandwich /
 // fourstep_pass1_packed / fourstep_pass2_interleaved / fourstep_pass1_swap
 // / fused_stage / stage_leaf: the two-pass four-step FFT for power-of-two
 // n = L1*L2 in 2^15..2^21 (L1 <= L2, L1 <= 1024), the FFT -> H -> IFFT
@@ -12,14 +12,26 @@
 //     shared memory ends at 227 KB), and
 //   fftlab/kernels/fourstep_vmem.py `_two_pass` (`_pass1_kernel`,
 //     `_pass2_kernel`), whose two passes these kernels follow.
-// With H multiplied in pass 2's epilogue (fourstep_pass2_filter) they
-// also replace the sandwich fftlab/kernels/fourstep_vmem.py
-// `_filter_large_impl` (`_two_pass(h2=...)`, `_pass2_filter_kernel`) and
-// the one-residency sandwiches of fftlab/kernels/resident_vmem.py
-// (`_filter_resident_impl`, `_filter_resident_cio_impl`,
-// `_filter_resident_v5_impl`, `_filter_resident_v7_impl`), whose signal
-// cannot stay in one block here either. The sandwich is four launches:
-// pass 1, pass 2 with H, then pass 1 and pass 2 of the inverse with 1/n.
+// With pass 2's sandwich mode (fourstep_pass2_sandwich) they also replace
+// the sandwich fftlab/kernels/fourstep_vmem.py `_filter_large_impl`
+// (`_two_pass(h2=...)`, `_pass2_filter_kernel`) and the one-residency
+// sandwiches of fftlab/kernels/resident_vmem.py (`_filter_resident_impl`,
+// `_filter_resident_cio_impl`, `_filter_resident_v5_impl`,
+// `_filter_resident_v7_impl`), whose signal cannot stay in one block here
+// either. The sandwich is three launches, the three phases of the
+// resident kernels (`_resident_filter_kernel`: the column FFT, `_mid`,
+// the inverse column FFT):
+//   pass 1     the forward column FFT and W_n^{k1*j2}, as below;
+//   sandwich   per row k1: the forward length-L2 FFT, times
+//              H[k2*L1 + k1], the inverse length-L2 FFT, then
+//              W_n^{-k1*j2}/n, stored back over the row (no corner turn);
+//   pass 1     the inverse column FFT with no twiddle (kNoTwiddle), whose
+//              store k1*L2 + j2 is already the natural order.
+// x[L2*j1 + j2] = (1/n) sum_k1 W_L1^{-j1*k1} W_n^{-j2*k1} sum_k2
+// Y[k1 + L1*k2] W_L2^{-j2*k2}, Y = X*H: the inverse's index splits as the
+// forward's, so the middle step needs no corner turn, and the sandwich
+// moves 48 bytes a point where pass 1, pass 2 with H, and the inverse's
+// two passes moved 64.
 //
 // Pass 1: one block per (batch row b, tile of W consecutive columns j2).
 //   It loads x[b, j1, c*W .. c*W+W) for every j1 (W floats = 32 or 64
@@ -32,9 +44,28 @@
 //   whole rows, runs the length-L2 FFT along each with the output scale
 //   folded into the last pass, and stores element (k2, k1) at
 //   k2*L1 + k1: the natural-order spectrum, with the corner turn done by
-//   the store (runs of 8 consecutive k1). The filter entry multiplies
-//   each output by H[k2*L1 + k1] (natural order) before the store, so
-//   the response costs one read of H and no pass of its own.
+//   the store (runs of 8 consecutive k1).
+// Pass 2's sandwich mode (fourstep_pass2_sandwich): one block per (b,
+//   tile of R consecutive rows k1), in place. It loads R whole rows as
+//   pass 2 does (slot mapping 0: a warp reads 32 consecutive floats of one
+//   row), runs the forward length-L2 FFT with its spectrum left in the
+//   exchange planes (sandwich.cuh), and the inverse's first pass reads it
+//   times H[k2*L1 + k1] under slot mapping run_bits(R): min(R, 8)
+//   neighbouring threads on as many neighbouring rows k1 of one k2, so a
+//   warp's H reads are whole 32-byte sectors at R >= 8 and half sectors at
+//   R = 4 (under slot mapping 0 each float would take a sector of its own,
+//   L1 floats from the next). The inverse's later passes keep that
+//   mapping, its last pass takes 0, and its store puts row k1 back at
+//   k1*L2 + j2 times A[j2/16, k1] * P[k1, j2 mod 16] = W_n^{-k1*j2}/n
+//   (pass 1's rank-1 tables built for the inverse, 1/n folded into P):
+//   runs of 32 consecutive floats a warp (16 at L2 = 256). In the padded
+//   tile (a row stride of L2 + L2/16 + 8 at R = 4) every exchange then
+//   takes one wavefront per 32 floats but two: the forward's first store
+//   at L2 <= 256 (as pass 2's) and the inverse's last loads
+//   (tests/test_torch_geometry.py). A block owns its R rows and has read
+//   all of them before its first store, so it writes over its input; the
+//   planes are not __restrict__ and are read with plain loads, not the
+//   read-only path.
 //
 // The real-signal modes fuse the pack-two-reals deinterleave and its
 // inverse into the passes (K7's `_pack_impl` / `_interleave_impl` at the
@@ -105,16 +136,18 @@
 // the passes exchange through padded shared-memory planes (2 exchanges
 // at L = 512..2048, 1 at 128..256), and the last pass stores straight
 // from registers: pass 1 with the rank-1 twiddle, pass 2 with the scale,
-// the corner turn (runs of 8 consecutive k1 per k2) and H or the
-// interleave. The geometry (W or R, threads, shared bytes, schedule)
-// comes from the Python wrappers; with 8K-value tiles two blocks share
-// an SM, so one block's loads overlap the other's passes. At 2^20 the
-// intermediate of a few rows fits the 50 MB L2; keeping it there on
-// purpose (and a blocked intermediate layout) is later work.
+// the corner turn (runs of 8 consecutive k1 per k2) or the interleave.
+// The sandwich mode reads and writes the signal once too, and H (8 bytes
+// a point of one batch row, L2-resident across batch rows) once a batch
+// row. The geometry (W or R, threads, shared bytes, schedule) comes from
+// the Python wrappers; with 8K-value tiles two blocks share an SM, so one
+// block's loads overlap the other's passes. At 2^20 the intermediate of
+// a few rows fits the 50 MB L2; keeping it there on purpose (and a
+// blocked intermediate layout) is later work.
 
 #include <climits>
 
-#include "fft_reg.cuh"
+#include "sandwich.cuh"
 
 using namespace fftlab;
 
@@ -143,8 +176,11 @@ __device__ __forceinline__ int run_bits(int log_t) { return log_t < 3 ? log_t : 
 // bb = o*F1 + k1a and stores output row k1 of it at row (o, k1, k1a) of a
 // (batch/F1, L1, F1) row grid: the three-pass kernel's pass B, whose
 // (k1, k2) swap rides the store (runs of W floats, as the plain store).
-// kStage is one stage of the stage pipeline (`stage_tile`).
-enum Pass1Mode { kPlainLoad, kPackedReal, kSwapStore, kStage };
+// kStage is one stage of the stage pipeline (`stage_tile`). kNoTwiddle is
+// kPlainLoad without the twiddle: the sandwich's inverse pass 1, whose
+// input carries W_n^{-k1*j2} from the sandwich mode (multiplying by
+// tables of ones instead cost 10-25% of the pass on an H100 at 700 W).
+enum Pass1Mode { kPlainLoad, kPackedReal, kSwapStore, kStage, kNoTwiddle };
 
 // The threads of a stage's block (kStage) and of a leaf's block at its
 // shortest length (kLeaf): a tile of 4096 values.
@@ -251,7 +287,9 @@ __device__ __forceinline__ void column_tile(const float* __restrict__ xr,
         }
       },
       [&](int t, int k1, float2 y) {
-        y = cmul(y, cmul(__ldg(a_c + k1), __ldg(p_c + (k1 << kLogTableWidth) + t)));
+        if constexpr (kMode != kNoTwiddle) {
+          y = cmul(y, cmul(__ldg(a_c + k1), __ldg(p_c + (k1 << kLogTableWidth) + t)));
+        }
         const int at = (k1 << log_out_row) + t;
         outr[at] = y.x;
         outi[at] = y.y;
@@ -275,12 +313,12 @@ fourstep_pass1_kernel(const float* __restrict__ xr, const float* __restrict__ xi
 }
 
 // What pass 2 does at its store: kPlainStore writes the two planes;
-// kFilter multiplies each output bin k by hr[k] + i*hi[k] first;
 // kInterleaved writes bin k as the float2 (yr[2k], yr[2k+1]) of a real
-// row (yi unused). Template parameters, not a runtime branch: a runtime
-// null check of H cost the plain pass 2 six registers. kLeaf is the
-// stage pipeline's leaf (`leaf_tile`).
-enum Pass2Mode { kPlainStore, kFilter, kInterleaved, kLeaf };
+// row (yi unused). Template parameters, not a runtime branch. kLeaf is the
+// stage pipeline's leaf (`leaf_tile`). The sandwich mode is a kernel of
+// its own (`fourstep_pass2_sandwich_kernel`): its input and output are
+// the same planes, which this kernel's __restrict__ parameters exclude.
+enum Pass2Mode { kPlainStore, kInterleaved, kLeaf };
 
 // The most threads a block of pass 2 in `kMode` takes.
 template <int kMode, int kLogL2>
@@ -333,9 +371,8 @@ template <int kMode, int kLogL2>
 __device__ __forceinline__ void row_tile(const float* __restrict__ mr,
                                          const float* __restrict__ mi, float* __restrict__ yr,
                                          float* __restrict__ yi, const float2* __restrict__ tw2,
-                                         const float* __restrict__ hr,
-                                         const float* __restrict__ hi, int log_l1, int log_r,
-                                         const Geometry& geo, float sign, float scale) {
+                                         int log_l1, int log_r, const Geometry& geo, float sign,
+                                         float scale) {
   constexpr int log_l2 = kLogL2;
   const int log_g = log_l1 - log_r;
   const int k1_0 = (blockIdx.x & ((1 << log_g) - 1)) << log_r;
@@ -354,9 +391,6 @@ __device__ __forceinline__ void row_tile(const float* __restrict__ mr,
       // element (k2, r) -> natural index k = k2*L1 + k1_0 + r
       [&](int r, int k2, float2 v) {
         const int k = (k2 << log_l1) + r;  // minus k1_0
-        if constexpr (kMode == kFilter) {
-          v = cmul(v, make_float2(__ldg(hr + k1_0 + k), __ldg(hi + k1_0 + k)));
-        }
         if constexpr (kMode == kInterleaved) {
           reinterpret_cast<float2*>(yr)[out0 + k] = v;
         } else {
@@ -371,14 +405,62 @@ __global__ void __launch_bounds__(pass2_threads<kMode, kLogL2>(),
                                   blocks_per_sm<pass2_threads<kMode, kLogL2>()>())
 fourstep_pass2_kernel(const float* __restrict__ mr, const float* __restrict__ mi,
                       float* __restrict__ yr, float* __restrict__ yi,
-                      const float2* __restrict__ tw2, const float* __restrict__ hr,
-                      const float* __restrict__ hi, int log_l1, int log_r, Geometry geo,
+                      const float2* __restrict__ tw2, int log_l1, int log_r, Geometry geo,
                       float sign, float scale, long long rows) {
   if constexpr (kMode == kLeaf) {
     leaf_tile<kLogL2>(mr, mi, yr, yi, tw2, log_l1, log_r, geo, sign, scale, rows);
   } else {
-    row_tile<kMode, kLogL2>(mr, mi, yr, yi, tw2, hr, hi, log_l1, log_r, geo, sign, scale);
+    row_tile<kMode, kLogL2>(mr, mi, yr, yi, tw2, log_l1, log_r, geo, sign, scale);
   }
+}
+
+// Pass 2's sandwich mode: block b*(L1/R) + c takes the R = 2^log_r rows
+// k1 = c*R .. c*R + R - 1 of batch row b of the (batch, L1, L2)
+// intermediate m and writes each back over itself as
+// W_n^{-k1*j2}/n * IFFT_L2(FFT_L2(row) * H[k2*L1 + k1]) (the slot
+// mappings at the top of this file). tw_fwd, tw_inv: the engine's tables
+// of L2; a_tab (L2/16, L1) and p_tab (L1, 16): W_n^{-k1*j2}/n in rank-1
+// form.
+template <int kLogL2>
+__global__ void __launch_bounds__(tile_threads<kLogL2>(), blocks_per_sm<tile_threads<kLogL2>()>())
+fourstep_pass2_sandwich_kernel(float* mr, float* mi, const float2* __restrict__ tw_fwd,
+                               const float2* __restrict__ tw_inv, const float* __restrict__ hr,
+                               const float* __restrict__ hi, const float2* __restrict__ a_tab,
+                               const float2* __restrict__ p_tab, int log_l1, int log_r,
+                               Geometry geo) {
+  constexpr int log_l2 = kLogL2;
+  const int log_g = log_l1 - log_r;
+  const int k1_0 = (blockIdx.x & ((1 << log_g) - 1)) << log_r;
+  // 64-bit block bases, 32-bit offsets inside a row of L1*L2 <= 2^26
+  const size_t row0 = (static_cast<size_t>(blockIdx.x >> log_g) << (log_l1 + log_l2)) +
+                      (static_cast<size_t>(k1_0) << log_l2);
+  sandwich<kLogL2, kLogPadTiles>(
+      make_tile(log_r, geo), tw_fwd, tw_inv, 1.0f, run_bits(log_r),
+      // R whole rows: a warp reads 32 consecutive floats of one row
+      [&](int t, int e) {
+        const int at = (t << log_l2) + e;
+        return make_float2(mr[row0 + at], mi[row0 + at]);
+      },
+      // H[k2*L1 + k1], k2 = e, k1 = k1_0 + t: runs of min(R, 8) k1 a warp
+      [&](int t, int e) {
+        const int k = (e << log_l1) + k1_0 + t;
+        return make_float2(__ldg(hr + k), __ldg(hi + k));
+      },
+      [&](int z) {
+        const int b = blockIdx.x + z;
+        const int k0 = (b & ((1 << log_g) - 1)) << log_r;
+        const size_t at0 = (static_cast<size_t>(b >> log_g) << (log_l1 + log_l2)) +
+                           (static_cast<size_t>(k0) << log_l2);
+        return [yr = mr + at0, yi = mi + at0, a_c = a_tab + k0,
+                p_c = p_tab + (static_cast<size_t>(k0) << kLogTableWidth), log_l1](
+                   int t, int e, float2 y) {
+          y = cmul(y, cmul(__ldg(a_c + ((e >> kLogTableWidth) << log_l1) + t),
+                           __ldg(p_c + (t << kLogTableWidth) + (e & ((1 << kLogTableWidth) - 1)))));
+          const int at = (t << kLogL2) + e;
+          yr[at] = y.x;
+          yi[at] = y.y;
+        };
+      });
 }
 
 namespace {
@@ -432,6 +514,17 @@ extern "C" int fftlab_fourstep_pass1(const float* xr, const float* xi, float* mr
                                   log_w, 0, geo, direction, stream);
 }
 
+// Pass 1 with no twiddle (kNoTwiddle): the column FFTs alone, stored at
+// k1*L2 + j2. Planes, tw1 and the rest as fftlab_fourstep_pass1. Returns
+// a cudaError_t.
+extern "C" int fftlab_fourstep_pass1_no_twiddle(const float* xr, const float* xi, float* mr,
+                                                float* mi, const void* tw1, long long batch,
+                                                int log_l1, int log_l2, int log_w, Geometry geo,
+                                                int direction, void* stream) {
+  return launch_pass1<kNoTwiddle>(xr, xi, mr, mi, tw1, nullptr, nullptr, batch, log_l1, log_l2,
+                                  log_w, 0, geo, direction, stream);
+}
+
 // Pass 1 of a packed real signal. x: [batch, 2*L1*L2] float32 (8-byte
 // aligned), complex element j = (x[2j], x[2j+1]); the rest as
 // fftlab_fourstep_pass1. Returns a cudaError_t.
@@ -462,8 +555,8 @@ namespace {
 // Pass 2, with the store of `kMode`.
 template <int kMode>
 int launch_pass2(const float* mr, const float* mi, float* yr, float* yi, const void* tw2,
-                 const float* hr, const float* hi, long long batch, int log_l1, int log_l2,
-                 int log_r, Geometry geo, int direction, float scale, void* stream) {
+                 long long batch, int log_l1, int log_l2, int log_r, Geometry geo,
+                 int direction, float scale, void* stream) {
   const long long blocks = batch << (log_l1 - log_r);
   if (!valid_geometry(geo, log_l2, log_r, kLogPadTiles) || log_r > log_l1 || log_r < 1 ||
       log_l1 + log_l2 > 26 || batch < 1 || blocks > INT_MAX ||
@@ -472,7 +565,7 @@ int launch_pass2(const float* mr, const float* mi, float* yr, float* yi, const v
   }
   return dispatch<7, 11>(log_l2, [&](auto log_l2_c) {
     return launch(fourstep_pass2_kernel<kMode, decltype(log_l2_c)::value>, blocks, geo, stream,
-                  mr, mi, yr, yi, static_cast<const float2*>(tw2), hr, hi, log_l1, log_r, geo,
+                  mr, mi, yr, yi, static_cast<const float2*>(tw2), log_l1, log_r, geo,
                   static_cast<float>(direction), scale, batch << log_l1);
   });
 }
@@ -487,21 +580,35 @@ extern "C" int fftlab_fourstep_pass2(const float* mr, const float* mi, float* yr
                                      const void* tw2, long long batch, int log_l1, int log_l2,
                                      int log_r, Geometry geo, int direction, float scale,
                                      void* stream) {
-  return launch_pass2<kPlainStore>(mr, mi, yr, yi, tw2, nullptr, nullptr, batch, log_l1,
-                                   log_l2, log_r, geo, direction, scale, stream);
+  return launch_pass2<kPlainStore>(mr, mi, yr, yi, tw2, batch, log_l1, log_l2, log_r, geo,
+                                   direction, scale, stream);
 }
 
-// Pass 2 with the spectral response in its epilogue: as
-// fftlab_fourstep_pass2, then output bin k times hr[k] + i*hi[k] (n float32
-// each, natural order). Returns a cudaError_t.
-extern "C" int fftlab_fourstep_pass2_filter(const float* mr, const float* mi, float* yr,
-                                            float* yi, const void* tw2, const float* hr,
-                                            const float* hi, long long batch, int log_l1,
-                                            int log_l2, int log_r, Geometry geo, int direction,
-                                            float scale, void* stream) {
-  if (hr == nullptr || hi == nullptr) return cudaErrorInvalidValue;
-  return launch_pass2<kFilter>(mr, mi, yr, yi, tw2, hr, hi, batch, log_l1, log_l2, log_r, geo,
-                               direction, scale, stream);
+// Pass 2's sandwich mode, in place. m: the (batch, L1, L2) intermediate
+// planes of pass 1 (forward), overwritten with the input of the inverse's
+// pass 1; tw_fwd, tw_inv: the engine's twiddle tables for L2, forward and
+// inverse; hr, hi: the n-point response in natural bin order; a_tab:
+// (L2/16, L1) and p_tab: (L1, 16) float2, W_n^{-k1*j2}/n in rank-1 form;
+// R = 2^log_r rows per block; geo: the launch geometry of
+// kernels/fourstep_vmem.py `sandwich_geometry`. Returns a cudaError_t.
+extern "C" int fftlab_fourstep_pass2_sandwich(float* mr, float* mi, const void* tw_fwd,
+                                              const void* tw_inv, const float* hr,
+                                              const float* hi, const void* a_tab,
+                                              const void* p_tab, long long batch, int log_l1,
+                                              int log_l2, int log_r, Geometry geo,
+                                              void* stream) {
+  const long long blocks = batch << (log_l1 - log_r);
+  if (hr == nullptr || hi == nullptr || !valid_geometry(geo, log_l2, log_r, kLogPadTiles) ||
+      log_r > log_l1 || log_r < 1 || log_l2 < kLogTableWidth || log_l1 + log_l2 > 26 ||
+      batch < 1 || blocks > INT_MAX) {
+    return cudaErrorInvalidValue;
+  }
+  return dispatch<7, 11>(log_l2, [&](auto log_l2_c) {
+    return launch(fourstep_pass2_sandwich_kernel<decltype(log_l2_c)::value>, blocks, geo,
+                  stream, mr, mi, static_cast<const float2*>(tw_fwd),
+                  static_cast<const float2*>(tw_inv), hr, hi, static_cast<const float2*>(a_tab),
+                  static_cast<const float2*>(p_tab), log_l1, log_r, geo);
+  });
 }
 
 // Pass 2 into a real signal: as fftlab_fourstep_pass2, with output bin k
@@ -511,8 +618,8 @@ extern "C" int fftlab_fourstep_pass2_interleaved(const float* mr, const float* m
                                                  const void* tw2, long long batch, int log_l1,
                                                  int log_l2, int log_r, Geometry geo,
                                                  int direction, float scale, void* stream) {
-  return launch_pass2<kInterleaved>(mr, mi, y, nullptr, tw2, nullptr, nullptr, batch, log_l1,
-                                    log_l2, log_r, geo, direction, scale, stream);
+  return launch_pass2<kInterleaved>(mr, mi, y, nullptr, tw2, batch, log_l1, log_l2, log_r, geo,
+                                    direction, scale, stream);
 }
 
 // One stage of the stage pipeline: pass 1 in kStage mode (`stage_tile`).
@@ -566,8 +673,7 @@ extern "C" int fftlab_stage_leaf(const float* mr, const float* mi, float* yr, fl
     constexpr int kLogL2 = decltype(log_l2_c)::value;
     if (geo.threads > pass2_threads<kLeaf, kLogL2>()) return cudaErrorInvalidValue;
     return launch(fourstep_pass2_kernel<kLeaf, kLogL2>, blocks, geo, stream, mr, mi, yr, yi,
-                  static_cast<const float2*>(tw2), static_cast<const float*>(nullptr),
-                  static_cast<const float*>(nullptr), log_l1, log_r, geo,
+                  static_cast<const float2*>(tw2), log_l1, log_r, geo,
                   static_cast<float>(direction), scale, rows);
   });
 }

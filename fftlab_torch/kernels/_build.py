@@ -62,13 +62,16 @@ SIGNATURES = {
     # xr, xi, mr, mi, tw1, a_tab, p_tab, batch, log_l1, log_l2, log_w,
     # geometry, direction, stream
     "fftlab_fourstep_pass1": (_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _G, _I, _P),
+    # xr, xi, mr, mi, tw1, batch, log_l1, log_l2, log_w, geometry,
+    # direction, stream
+    "fftlab_fourstep_pass1_no_twiddle": (_P, _P, _P, _P, _P, _LL, _I, _I, _I, _G, _I, _P),
     # mr, mi, yr, yi, tw2, batch, log_l1, log_l2, log_r, geometry,
     # direction, scale, stream
     "fftlab_fourstep_pass2": (_P, _P, _P, _P, _P, _LL, _I, _I, _I, _G, _I, _F, _P),
-    # mr, mi, yr, yi, tw2, hr, hi, batch, log_l1, log_l2, log_r, geometry,
-    # direction, scale, stream
-    "fftlab_fourstep_pass2_filter": (_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I,
-                                     _G, _I, _F, _P),
+    # mr, mi, tw_fwd, tw_inv, hr, hi, a_tab, p_tab, batch, log_l1, log_l2,
+    # log_r, geometry, stream
+    "fftlab_fourstep_pass2_sandwich": (_P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I,
+                                       _G, _P),
     # xr, xi, yr, yi, tw_fwd, tw_inv, hr, hi, batch, log_n, geometry, scale,
     # stream
     "fftlab_filter_rows": (_P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _G, _F, _P),

@@ -39,15 +39,28 @@ pass 2 in its leaf mode (`fftlab_stage_leaf`) at the launches of
 `stage_geometry` and `leaf_geometry`.
 
 `spectral_filter_large` is the FFT -> H -> IFFT sandwich on the same
-passes (fftlab/kernels/fourstep_vmem.py:667-749): pass 1, pass 2 with H
-multiplied in its epilogue (`fourstep_pass2_filter`), then the inverse
-pass 1 and pass 2 with 1/n, four launches. The JAX package's blocked
-hand-off between the forward and the inverse is a TPU DMA layout; the
-intermediates here stay in natural order.
+passes, in the three phases of the JAX package's resident sandwich
+(fftlab/kernels/resident_vmem.py `_resident_filter_kernel`: the column
+FFT, `_mid`, the inverse column FFT), three launches:
+
+  pass 1     forward, as above;
+  sandwich   pass 2's sandwich mode (`fourstep_pass2_sandwich`), in
+             place: per row k1 the forward length-L2 FFT, times
+             H[k2*L1 + k1], the inverse length-L2 FFT, then
+             W_n^{-k1*j2}/n, row k1 stored back at k1*L2 + j2;
+  pass 1     inverse, in its mode with no twiddle: its store k1*L2 + j2
+             is the natural order x[j1*L2 + j2].
+
+x[L2*j1 + j2] = (1/n) sum_k1 W_L1^{-j1*k1} W_n^{-j2*k1} sum_k2
+Y[k1 + L1*k2] W_L2^{-j2*k2} with Y = X*H, so the middle step needs no
+corner turn; the three launches move 48 bytes a point, where the JAX
+package's two-pass sandwich (fftlab/kernels/fourstep_vmem.py:667-749:
+pass 1, pass 2 with H, the inverse's two passes) would move 64.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -93,9 +106,16 @@ SHARED_TILE = 8192
 STAGE_VALUES = 4096
 STAGE_SLACK = {32: 4, 64: 2, 128: 2}
 
+# Rows R of a block of the sandwich mode at each L2 of the two-pass window:
+# tiles of 4K values, the fastest R of {2, 4, 8, 16} on an H100 at 2^17,
+# 2^19 and 2^20 (scripts/torch_sandwich_launches.py; at 2^15 every R reads
+# the wrapper's host time), and R = 8 at 2^21, where R = 4 and 8 came
+# within 4.2% of each other over four runs and 8 won three.
+SANDWICH_ROWS = {256: 16, 512: 8, 1024: 4, 2048: 8}
+
 # Launches of the CUDA kernels since the counts were last reset.
 LAUNCHES = {"fourstep_pass1": 0, "fourstep_pass2": 0,
-            "fourstep_pass2_filter": 0, "fourstep_pass1_packed": 0,
+            "fourstep_pass2_sandwich": 0, "fourstep_pass1_packed": 0,
             "fourstep_pass2_interleaved": 0}
 
 def supported_large(n: int) -> bool:
@@ -136,6 +156,23 @@ def pass2_geometry(L1: int, L2: int, rows: int | None = None) -> TileGeometry:
     if R > L1:
         raise ValueError(f"pass 2 takes R <= L1 = {L1} rows; got {R}")
     return tile_geometry(L2, R)
+
+
+def sandwich_geometry(L1: int, L2: int, rows: int | None = None) -> TileGeometry:
+    """The launch of pass 2's sandwich mode at sides (L1, L2): R =
+    SANDWICH_ROWS[L2] rows of length L2 per block in pass 2's padded tile.
+    The inverse's first pass reads H in runs of run_bits(R) rows of one k2
+    (csrc/fourstep.cu), and the tile's row stride is L2 + L2/16 +
+    32/min(R, 8) (pass 2's at R >= 8), where each of its exchanges takes
+    one wavefront per 32 floats under that slot mapping (pass 2's + 4
+    would take two at R = 4; tests/test_torch_geometry.py). `rows`
+    overrides R, for the A/B."""
+    R = rows or SANDWICH_ROWS[L2]
+    if R > L1:
+        raise ValueError(f"the sandwich mode takes R <= L1 = {L1} rows; got {R}")
+    geo = tile_geometry(L2, R)
+    stride = L2 + L2 // 16 + 32 // min(R, 8)
+    return dataclasses.replace(geo, smem=8 * R * stride, stride=stride)
 
 
 def stage_geometry(r: int) -> TileGeometry:
@@ -243,14 +280,18 @@ def _plain_pass1_twiddle(L1: int, L2: int, direction: Direction,
             wi.permute(1, 0, 2).reshape(L1, L2))
 
 
-def pass1_plain(xr: torch.Tensor, xi: torch.Tensor, direction, L1: int, L2: int):
+def pass1_plain(xr: torch.Tensor, xi: torch.Tensor, direction, L1: int, L2: int,
+                twiddle: bool = True):
     """Pass 1's math on [B, L1*L2] planes -> the (B, L1, L2) intermediate
-    planes, flattened: column FFTs of length L1, times W_{L1L2}^{k1*j2}."""
+    planes, flattened: column FFTs of length L1, times W_{L1L2}^{k1*j2}
+    where `twiddle`."""
     direction = Direction(int(direction))
     B = xr.shape[0]
     fa, fb = _split_factors(L1)
     tabs = _plain_col_tables(L1, direction, 1.0, xr.device)
     yr, yi = _col_fft(xr.reshape(B, L1, L2), xi.reshape(B, L1, L2), tabs, fa, fb)
+    if not twiddle:
+        return yr.reshape(B, L1 * L2), yi.reshape(B, L1 * L2)
     wr, wi = _plain_pass1_twiddle(L1, L2, direction, xr.device)
     return ((yr * wr - yi * wi).reshape(B, L1 * L2),
             (yr * wi + yi * wr).reshape(B, L1 * L2))
@@ -271,10 +312,12 @@ def pass2_plain(mr: torch.Tensor, mi: torch.Tensor, direction, scale: float,
     return yr.reshape(B, L1 * L2), yi.reshape(B, L1 * L2)
 
 
-def fourstep_pass1_plain(xr: torch.Tensor, xi: torch.Tensor, direction=FORWARD):
+def fourstep_pass1_plain(xr: torch.Tensor, xi: torch.Tensor, direction=FORWARD,
+                         twiddle: bool = True):
     """Plain version of pass 1 on [B, n] planes -> the (B, L1, L2)
-    intermediate planes, flattened to [B, n]."""
-    return pass1_plain(xr, xi, direction, *_split_sides(int(xr.shape[-1])))
+    intermediate planes, flattened to [B, n]; `twiddle=False` leaves out
+    W_n^{k1*j2} (the sandwich's inverse pass 1)."""
+    return pass1_plain(xr, xi, direction, *_split_sides(int(xr.shape[-1])), twiddle)
 
 
 def fourstep_pass2_plain(mr: torch.Tensor, mi: torch.Tensor, direction=FORWARD,
@@ -357,13 +400,15 @@ def fourstep_pass1_packed(x: torch.Tensor, direction=FORWARD):
 
 
 def _launch_pass1(name: str, xr, xi, direction, sides: tuple[int, int],
-                  counts: dict, swap: int = 1, geometry: TileGeometry | None = None):
+                  counts: dict, swap: int = 1, geometry: TileGeometry | None = None,
+                  twiddle: bool = True):
     """Launch pass 1 at `sides` = (L1, L2) on contiguous [B, L1*L2] planes
     (xi None: a packed real row); `swap` = F1 > 1 launches the swap-store
     mode (`fftlab_fourstep_pass1_swap`): row k1 of input row o*F1 + k1a is
-    stored at row (o, k1, k1a). `geometry` defaults to `pass1_geometry`.
-    The launch adds one to `counts[name]`, the LAUNCHES of the module
-    whose wrapper it serves."""
+    stored at row (o, k1, k1a). `geometry` defaults to `pass1_geometry`;
+    `twiddle` False (planes, no swap) launches the mode with no twiddle
+    (`fftlab_fourstep_pass1_no_twiddle`). The launch adds one to
+    `counts[name]`, the LAUNCHES of the module whose wrapper it serves."""
     direction = Direction(int(direction))
     packed = xi is None
     _check_launch(xr, xi, name, sides)
@@ -387,6 +432,10 @@ def _launch_pass1(name: str, xr, xi, direction, sides: tuple[int, int],
             rc = lib.fftlab_fourstep_pass1_swap(
                 xr.data_ptr(), xi.data_ptr(), mr.data_ptr(), mi.data_ptr(), *tabs,
                 B // swap, log2_int(swap), *logs, *tail)
+        elif not twiddle:
+            rc = lib.fftlab_fourstep_pass1_no_twiddle(
+                xr.data_ptr(), xi.data_ptr(), mr.data_ptr(), mi.data_ptr(), tabs[0], B, *logs,
+                *tail)
         else:
             rc = lib.fftlab_fourstep_pass1(xr.data_ptr(), xi.data_ptr(), mr.data_ptr(),
                                            mi.data_ptr(), *tabs, B, *logs, *tail)
@@ -399,16 +448,8 @@ def fourstep_pass2(mr: torch.Tensor, mi: torch.Tensor, direction=FORWARD,
                    scale: float = 1.0):
     """Launch pass 2 on the contiguous [B, n] intermediate planes; returns
     the natural-order spectrum. `scale` is the whole output scale."""
-    return _launch_pass2("fourstep_pass2", mr, mi, None, direction, scale,
+    return _launch_pass2("fourstep_pass2", mr, mi, direction, scale,
                          _two_pass_sides(mr, "fourstep_pass2"), LAUNCHES)
-
-
-def fourstep_pass2_filter(mr: torch.Tensor, mi: torch.Tensor, hr: torch.Tensor,
-                          hi: torch.Tensor, direction=FORWARD, scale: float = 1.0):
-    """Launch pass 2 with the response in its epilogue: the natural-order
-    spectrum times H (contiguous float32 CUDA planes of n bins)."""
-    return _launch_pass2("fourstep_pass2_filter", mr, mi, (hr, hi), direction,
-                         scale, _two_pass_sides(mr, "fourstep_pass2_filter"), LAUNCHES)
 
 
 def fourstep_pass2_interleaved(mr: torch.Tensor, mi: torch.Tensor,
@@ -416,12 +457,12 @@ def fourstep_pass2_interleaved(mr: torch.Tensor, mi: torch.Tensor,
     """Launch pass 2 on the contiguous [B, n] intermediate planes with
     the natural-order spectrum stored interleaved: returns the real
     [B, 2n] signal whose (2k, 2k+1) samples are bin k's (re, im)."""
-    return _launch_pass2("fourstep_pass2_interleaved", mr, mi, None, direction,
+    return _launch_pass2("fourstep_pass2_interleaved", mr, mi, direction,
                          scale, _two_pass_sides(mr, "fourstep_pass2_interleaved"),
                          LAUNCHES)
 
 
-def _launch_pass2(name: str, mr, mi, h, direction, scale: float,
+def _launch_pass2(name: str, mr, mi, direction, scale: float,
                   sides: tuple[int, int], counts: dict,
                   geometry: TileGeometry | None = None):
     """Launch pass 2 (the store of `name`) on contiguous [B, L1*L2]
@@ -431,9 +472,6 @@ def _launch_pass2(name: str, mr, mi, h, direction, scale: float,
     _check_launch(mr, mi, name, sides)
     L1, L2 = sides
     n = L1 * L2
-    if h is not None:
-        check_cuda(*h, name=name)
-        check_response(*h, n, mr, name)
     lib = _build.load_library()
     tw2 = _pass2_twiddle(L2, direction, mr.device)
     geo = geometry or pass2_geometry(L1, L2)
@@ -448,14 +486,10 @@ def _launch_pass2(name: str, mr, mi, h, direction, scale: float,
         if interleaved:
             rc = lib.fftlab_fourstep_pass2_interleaved(
                 mr.data_ptr(), mi.data_ptr(), out.data_ptr(), tw2.data_ptr(), *args)
-        elif h is None:
+        else:
             rc = lib.fftlab_fourstep_pass2(
                 mr.data_ptr(), mi.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
                 tw2.data_ptr(), *args)
-        else:
-            rc = lib.fftlab_fourstep_pass2_filter(
-                mr.data_ptr(), mi.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
-                tw2.data_ptr(), h[0].data_ptr(), h[1].data_ptr(), *args)
     _build.check(lib, name, rc)
     counts[name] += 1
     return out
@@ -529,34 +563,92 @@ def irfft_split_large(Xr: torch.Tensor, Xi: torch.Tensor, n: int | None = None):
     return irfft_split(Xr, Xi, n=n, cfft=cfft)
 
 
-def fourstep_pass2_filter_plain(mr: torch.Tensor, mi: torch.Tensor,
-                                hr: torch.Tensor, hi: torch.Tensor,
-                                direction=FORWARD, scale: float = 1.0):
-    """Plain version of `fourstep_pass2_filter`: pass 2, then times H."""
-    yr, yi = fourstep_pass2_plain(mr, mi, direction, scale)
-    return yr * hr - yi * hi, yr * hi + yi * hr
+@functools.lru_cache(maxsize=32)
+def _sandwich_tables(L1: int, L2: int, device: torch.device):
+    """The sandwich mode's tables: the engine's twiddles of L2 forward and
+    inverse, and W_n^{-k1*j2}/n in pass 1's rank-1 form, A (L2/16, L1) and
+    P (L1, 16) with 1/n folded into P (float64-built)."""
+    A, P = _rank1_twiddle_np(L1, L2, PASS1_WIDTH, INVERSE)
+    return (_pass2_twiddle(L2, FORWARD, device), _pass2_twiddle(L2, INVERSE, device),
+            complex_table(A.reshape(-1, L1), device),
+            complex_table(P / (L1 * L2), device))
+
+
+def fourstep_pass2_sandwich_plain(mr: torch.Tensor, mi: torch.Tensor,
+                                  hr: torch.Tensor, hi: torch.Tensor):
+    """Plain version of `fourstep_pass2_sandwich` on the (B, L1, L2)
+    intermediate planes, flattened to [B, n] (a new pair; the inputs are
+    left as they are): the kernel's steps, each row k1's length-L2 FFT,
+    times H[k2*L1 + k1], the length-L2 inverse FFT, times W_n^{-k1*j2}/n,
+    row k1 at k1*L2 + j2."""
+    B, n = mr.shape
+    L1, L2 = _split_sides(n)
+    fa, fb = _split_factors(L2)
+    rows = lambda t: t.reshape(B, L1, L2).transpose(1, 2)  # (B, L2 = j2, L1 = k1)
+    # (B, L2 = k2, L1 = k1): element k2*L1 + k1, H in natural order
+    sr, si = _col_fft(rows(mr), rows(mi), _plain_col_tables(L2, FORWARD, 1.0, mr.device),
+                      fa, fb)
+    h2r, h2i = hr.reshape(L2, L1), hi.reshape(L2, L1)
+    yr, yi = _col_fft(sr * h2r - si * h2i, sr * h2i + si * h2r,
+                      _plain_col_tables(L2, INVERSE, 1.0, mr.device), fa, fb)
+    zr, zi = yr.transpose(1, 2), yi.transpose(1, 2)  # (B, L1 = k1, L2 = j2)
+    # the kernel's table products with 1/n (a power of two) folded in: exact
+    wr, wi = (w / n for w in _plain_pass1_twiddle(L1, L2, INVERSE, mr.device))
+    return (zr * wr - zi * wi).reshape(B, n), (zr * wi + zi * wr).reshape(B, n)
+
+
+def fourstep_pass2_sandwich(mr: torch.Tensor, mi: torch.Tensor, hr: torch.Tensor,
+                            hi: torch.Tensor):
+    """Launch pass 2's sandwich mode on the contiguous [B, n] intermediate
+    planes of the forward pass 1, IN PLACE: each row k1 of the (B, L1, L2)
+    intermediate becomes W_n^{-k1*j2}/n * IFFT(FFT(row) * H[k2*L1 + k1]),
+    the input of the inverse's pass 1. H: contiguous float32 CUDA planes of
+    n bins in natural order. Returns (mr, mi)."""
+    return _launch_sandwich(mr, mi, hr, hi, LAUNCHES)
+
+
+def _launch_sandwich(mr, mi, hr, hi, counts: dict, geometry: TileGeometry | None = None):
+    """Launch the sandwich mode in place on contiguous [B, n] CUDA planes;
+    `counts` as in `_launch_pass1`, `geometry` defaults to
+    `sandwich_geometry`."""
+    name = "fourstep_pass2_sandwich"
+    sides = _two_pass_sides(mr, name)
+    _check_launch(mr, mi, name, sides)
+    check_cuda(hr, hi, name=name)
+    L1, L2 = sides
+    check_response(hr, hi, L1 * L2, mr, name)
+    lib = _build.load_library()
+    geo = geometry or sandwich_geometry(L1, L2)
+    tabs = _sandwich_tables(L1, L2, mr.device)
+    with torch.cuda.device(mr.device):
+        rc = lib.fftlab_fourstep_pass2_sandwich(
+            mr.data_ptr(), mi.data_ptr(), *(t.data_ptr() for t in tabs[:2]), hr.data_ptr(),
+            hi.data_ptr(), *(t.data_ptr() for t in tabs[2:]), mr.shape[0], log2_int(L1),
+            log2_int(L2), log2_int(geo.T), geo.c_struct(), stream_of(mr))
+    _build.check(lib, name, rc)
+    counts[name] += 1
+    return mr, mi
 
 
 def spectral_filter_large_plain(xr: torch.Tensor, xi: torch.Tensor,
                                 hr: torch.Tensor, hi: torch.Tensor):
-    """Plain version of the four-launch sandwich on [B, n] planes."""
-    n = int(xr.shape[-1])
-    gr, gi = fourstep_pass2_filter_plain(
-        *fourstep_pass1_plain(xr, xi, FORWARD), hr, hi, FORWARD)
-    return fourstep_pass2_plain(*fourstep_pass1_plain(gr, gi, INVERSE),
-                                INVERSE, 1.0 / n)
+    """Plain version of the three-launch sandwich on [B, n] planes: pass 1,
+    the sandwich mode, the inverse pass 1 with no twiddle."""
+    mr, mi = fourstep_pass1_plain(xr, xi, FORWARD)
+    return fourstep_pass1_plain(*fourstep_pass2_sandwich_plain(mr, mi, hr, hi), INVERSE,
+                                twiddle=False)
 
 
 def _filter_launches(xr, xi, hr, hi):
-    n = int(xr.shape[-1])
-    gr, gi = fourstep_pass2_filter(*fourstep_pass1(xr, xi, FORWARD), hr, hi,
-                                   FORWARD)
-    return fourstep_pass2(*fourstep_pass1(gr, gi, INVERSE), INVERSE, 1.0 / n)
+    mr, mi = fourstep_pass1(xr, xi, FORWARD)
+    fourstep_pass2_sandwich(mr, mi, hr, hi)
+    return _launch_pass1("fourstep_pass1", mr, mi, INVERSE,
+                         _two_pass_sides(mr, "fourstep_pass1"), LAUNCHES, twiddle=False)
 
 
 def spectral_filter_large(xr: torch.Tensor, xi: torch.Tensor, hr, hi):
     """ifft(fft(x) * H), 1/n scaled, on split planes [..., n], pow2 n in
-    2^15..2^21: the four launches for a CUDA tensor, the plain version for
+    2^15..2^21: the three launches for a CUDA tensor, the plain version for
     a CPU tensor. hr, hi: the n-bin response in natural order (numpy or
     tensor)."""
     check_planes(xr, xi, "spectral_filter_large")

@@ -15,8 +15,12 @@ TPU's residency.
 The FFT variants (v6 and cio) and the sandwich variants differ on the
 TPU only in where their corner turns and DMA edges sit inside the one
 residency; here each FFT variant is the same two launches of
-`fourstep_vmem.fft_split_large`, and each sandwich the same four
-launches of `fourstep_vmem.spectral_filter_large`.
+`fourstep_vmem.fft_split_large`, and each sandwich the same three
+launches of `fourstep_vmem.spectral_filter_large`: the resident
+kernel's three phases (`_resident_filter_kernel`: the column FFT and
+forward twiddle, `_mid`, the inverse column FFT), each a launch, `_mid`
+as pass 2's sandwich mode (`fourstep_pass2_sandwich`: the row FFT, H,
+the row IFFT and the inverse twiddle, written back over its rows).
 """
 
 from __future__ import annotations

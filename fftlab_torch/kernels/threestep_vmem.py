@@ -136,7 +136,7 @@ def threestep_pass_c(mr: torch.Tensor, mi: torch.Tensor, direction=FORWARD,
     """Launch pass C on pass B's contiguous [B, n] CUDA output; returns
     the natural-order spectrum. `scale` is the whole output scale."""
     F1, F2, F3 = _sides(mr, "threestep_pass_c")
-    return _launch_pass2("threestep_pass_c", mr, mi, None, direction, scale,
+    return _launch_pass2("threestep_pass_c", mr, mi, direction, scale,
                          (F1 * F2, F3), LAUNCHES)
 
 

@@ -22,10 +22,12 @@ Sandwich routes (`spectral_filter_auto`, ifft(fft(x) * H), 1/n scaled):
 
   smem_rows  n = m*128, 1K <= n <= 16K: one block per row runs the
              whole sandwich (kernel `filter_rows`, kernels/fft_vmem.py)
-  two_pass   pow2 n in 2^15..2^21: four launches, H in the forward
-             pass 2's epilogue (kernels/fourstep_vmem.py
-             `spectral_filter_large`); 2^21 included, where the JAX
-             package stops at 2^20 for a TPU compiler crash
+  two_pass   pow2 n in 2^15..2^21: three launches, pass 1, pass 2's
+             sandwich mode (the row FFT, H, the row IFFT and the inverse
+             twiddle in one kernel) and the inverse pass 1
+             (kernels/fourstep_vmem.py `spectral_filter_large`); 2^21
+             included, where the JAX package stops at 2^20 for a TPU
+             compiler crash
   einsum     every other size: the transpose-free tensor-op sandwich
              (algos/split_stockham.spectral_filter_split_fused)
 

@@ -128,19 +128,25 @@ def test_filter_rows_matches_plain(no_tf32, n):
     assert snr_db(got, _sandwich_oracle(xr, xi, hr, hi)) >= 110.0
 
 
-@pytest.mark.parametrize("n", [1 << 15, 1 << 18, 1 << 21])
-def test_two_pass_sandwich_matches_plain(no_tf32, n):
-    xr, xi = _cuda_pair(n % 89, (2, n))
+# one two-pass sandwich: pass 1, pass 2's sandwich mode, the inverse pass 1
+SANDWICH_LAUNCHES = {"fourstep_pass1": 2, "fourstep_pass2_sandwich": 1, "fourstep_pass2": 0}
+
+
+@pytest.mark.parametrize("B,n", [(64, 1 << 15), (16, 1 << 20), (4, 1 << 21)])
+def test_two_pass_sandwich_matches_plain(no_tf32, B, n):
+    """The sandwich mode in place against its plain version, and the three
+    launches against theirs and float64, at chip_smoke.py's shapes."""
+    xr, xi = _cuda_pair(n % 89, (B, n))
     hr, hi = _cuda_pair(n % 83, (n,))
     mid = fourstep_vmem.fourstep_pass1(xr, xi)
-    got2 = cplx(*fourstep_vmem.fourstep_pass2_filter(*mid, hr, hi))
-    plain2 = cplx(*fourstep_vmem.fourstep_pass2_filter_plain(*mid, hr, hi))
-    assert snr_db(got2, plain2) >= 110.0
+    plain2 = cplx(*fourstep_vmem.fourstep_pass2_sandwich_plain(*mid, hr, hi))
+    got2 = fourstep_vmem.fourstep_pass2_sandwich(*mid, hr, hi)
+    assert got2[0] is mid[0] and got2[1] is mid[1]  # in place
+    assert snr_db(cplx(*got2), plain2) >= 110.0
     before = _launches()
     got = cplx(*fourstep_vmem.spectral_filter_large(xr, xi, hr, hi))
     after = _launches()
-    assert [after[k] - before[k] for k in
-            ("fourstep_pass1", "fourstep_pass2_filter", "fourstep_pass2")] == [2, 1, 1]
+    assert {k: after[k] - before[k] for k in SANDWICH_LAUNCHES} == SANDWICH_LAUNCHES
     plain = cplx(*fourstep_vmem.spectral_filter_large_plain(xr, xi, hr, hi))
     assert snr_db(got, plain) >= 110.0
     assert snr_db(got, _sandwich_oracle(xr, xi, hr, hi)) >= 120.0
@@ -199,16 +205,15 @@ def test_os_filter_at_every_frame_size(no_tf32, fft_size, T, offset):
 
 
 @pytest.mark.parametrize("n,kernels", [
-    (16384, ("filter_rows",)),
-    (1 << 20, ("fourstep_pass1", "fourstep_pass2_filter", "fourstep_pass2"))])
+    (16384, {"filter_rows": 1}), (1 << 15, SANDWICH_LAUNCHES), (1 << 20, SANDWICH_LAUNCHES),
+    (1 << 21, SANDWICH_LAUNCHES)])
 def test_filter_path_launches_kernels(no_tf32, n, kernels):
     xr, xi = _cuda_pair(n, (4, n))
     hr = torch.randn(n, device="cuda")
     before = _launches()
     yr, yi = fftlab_torch.spectral_filter_auto(xr, xi, hr, torch.zeros_like(hr))
     after = _launches()
-    for k in kernels:
-        assert after[k] > before[k]
+    assert {k: after[k] - before[k] for k in kernels} == kernels
     gate = 110.0 if n == 16384 else 120.0
     assert snr_db(cplx(yr, yi), _sandwich_oracle(xr, xi, hr, torch.zeros_like(hr))) >= gate
 
@@ -219,7 +224,7 @@ def test_bluestein_launches_the_sandwich(no_tf32):
     before = _launches()
     yr, yi = fftlab_torch.fft_split_auto(tt(xr, "cuda"), tt(xi, "cuda"))
     after = _launches()
-    assert after["fourstep_pass2_filter"] > before["fourstep_pass2_filter"]
+    assert {k: after[k] - before[k] for k in SANDWICH_LAUNCHES} == SANDWICH_LAUNCHES
     assert snr_db(cplx(yr, yi), oracle(xr, xi, -1)) >= 95.0
     br, bi = fftlab_torch.fft_split_auto(yr, yi, fftlab_torch.INVERSE)
     assert snr_db(cplx(br, bi), xr + 1j * xi.astype(np.float64)) >= 95.0
@@ -249,9 +254,11 @@ def test_sandwich_wrappers_refuse():
     with pytest.raises(TypeError, match="float32"):
         fourstep_vmem.spectral_filter_large(x64, x64, h, h)
     with pytest.raises(TypeError, match="float32"):
-        fourstep_vmem.fourstep_pass2_filter(x, x, h.double(), h.double())
+        fourstep_vmem.fourstep_pass2_sandwich(x, x, h.double(), h.double())
     with pytest.raises(ValueError, match="H as"):
-        fourstep_vmem.fourstep_pass2_filter(x, x, h[:1024], h[:1024])
+        fourstep_vmem.fourstep_pass2_sandwich(x, x, h[:1024], h[:1024])
+    with pytest.raises(TypeError, match="float32"):
+        fourstep_vmem.fourstep_pass2_sandwich(x64, x64, h, h)
     x8 = torch.zeros(2, 8192, device="cuda")
     x256 = torch.zeros(2, 256, device="cuda")
     with pytest.raises(ValueError, match="H as"):
@@ -760,7 +767,7 @@ def test_engine_two_pass_at_every_length_and_geometry(no_tf32, n, direction, sca
                                           geometry=g1)
         assert snr_db(cplx(*mid), cplx(*fourstep_vmem.fourstep_pass1_plain(xr, xi, direction))) >= 110.0
         for g2 in g2s:
-            got = cplx(*fourstep_vmem._launch_pass2("fourstep_pass2", *mid, None, direction, eff,
+            got = cplx(*fourstep_vmem._launch_pass2("fourstep_pass2", *mid, direction, eff,
                                                     sides, counts, geometry=g2))
             assert snr_db(got, cplx(*fourstep_vmem.fourstep_pass2_plain(*mid, direction, eff))) >= 110.0
             assert snr_db(got, want) >= 120.0, (g1.T, g2.T)
@@ -770,7 +777,7 @@ def test_engine_two_pass_at_every_length_and_geometry(no_tf32, n, direction, sca
 @pytest.mark.parametrize("n", [1 << e for e in range(15, 22)])
 @pytest.mark.parametrize("direction", [-1, 1])
 def test_engine_pass_modes_at_every_length(no_tf32, n, direction):
-    """The packed-real load, the interleaved store and the filter store."""
+    """The packed-real load, the interleaved store and the sandwich mode."""
     x, xc = _real(n % 83 + 2, (2, 2 * n))
     mid = fourstep_vmem.fourstep_pass1_packed(xc, direction)
     assert snr_db(cplx(*mid), cplx(*fourstep_vmem.fourstep_pass1_packed_plain(xc, direction))) >= 110.0
@@ -780,10 +787,14 @@ def test_engine_pass_modes_at_every_length(no_tf32, n, direction):
     z = _card_oracle(xc[:, 0::2], xc[:, 1::2], direction, 0.5)
     assert snr_db(y.cpu().numpy(), np.stack([z.real, z.imag], -1).reshape(2, 2 * n)) >= 120.0
     hr, hi = _cuda_pair(n % 79 + 3, (n,))
-    got = cplx(*fourstep_vmem.fourstep_pass2_filter(*mid, hr, hi, direction, 0.5))
-    plain = cplx(*fourstep_vmem.fourstep_pass2_filter_plain(*mid, hr, hi, direction, 0.5))
-    assert snr_db(got, plain) >= 110.0
-    assert snr_db(got, z * cplx(hr, hi)) >= 120.0
+    sides = fourstep_vmem._split_sides(n)
+    L2 = sides[1]
+    plain = cplx(*fourstep_vmem.fourstep_pass2_sandwich_plain(*mid, hr, hi))
+    for R in (4, 8, 16) if L2 <= 1024 else (4, 8):  # the default and chip_smoke.py's A/B
+        geo = fourstep_vmem.sandwich_geometry(*sides, R)
+        got = fourstep_vmem._launch_sandwich(*(t.clone() for t in mid), hr, hi,
+                                             dict(fourstep_vmem.LAUNCHES), geometry=geo)
+        assert snr_db(cplx(*got), plain) >= 110.0, R
 
 
 @pytest.mark.parametrize("n", [1 << 22, 1 << 24, 1 << 26])

@@ -179,16 +179,50 @@ def test_resident_variants_are_the_sandwich(name):
 
 
 def test_large_sandwich_plain_is_its_parts():
+    """The plain sandwich is the three launches' plain versions: pass 1,
+    the sandwich mode, pass 1 inverse without the twiddle; the kernels are
+    held to the same pieces."""
     n = 1 << 16
     xr, xi, hr, hi = case(2, 2, n)
     X, H = (tt(xr), tt(xi)), (tt(hr), tt(hi))
     got = fourstep_vmem.spectral_filter_large_plain(*X, *H)
     mid = fourstep_vmem.fourstep_pass1_plain(*X, -1)
-    gr, gi = fourstep_vmem.fourstep_pass2_filter_plain(*mid, *H)
-    sr, si = fourstep_vmem.fourstep_pass2_plain(*mid, -1, 1.0)
-    assert torch.equal(gr, sr * H[0] - si * H[1])
-    assert torch.equal(gi, sr * H[1] + si * H[0])
+    sr, si = fourstep_vmem.fourstep_pass2_sandwich_plain(*mid, *H)
+    want = fourstep_vmem.fourstep_pass1_plain(sr, si, 1, twiddle=False)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert snr_db(cplx(*got), sandwich_oracle(xr, xi, hr, hi)) >= 120.0
+
+
+def sandwich_mid_model(mr, mi, hr, hi) -> np.ndarray:
+    """The sandwich mode in float64 numpy on the (B, L1, L2) intermediate,
+    flattened: each row k1's length-L2 FFT, times H[k2*L1 + k1], the
+    unscaled inverse FFT, times W_n^{-k1*j2}/n, row k1 at k1*L2 + j2."""
+    B, n = mr.shape
+    L1, L2 = jx_fs._split_sides(n)
+    m = (np.asarray(mr, np.float64) + 1j * np.asarray(mi, np.float64)).reshape(B, L1, L2)
+    h = (np.asarray(hr, np.float64) + 1j * np.asarray(hi, np.float64)).reshape(L2, L1).T
+    z = np.fft.ifft(np.fft.fft(m, axis=2) * h, axis=2) * L2
+    k1, j2 = np.arange(L1)[:, None], np.arange(L2)[None, :]
+    return (z * np.exp(2j * np.pi * (k1 * j2 % n) / n) / n).reshape(B, n)
+
+
+@pytest.mark.parametrize("sides", [(128, 256), (256, 256), (1024, 2048)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_sandwich_mode_plain_matches_float64_model(sides):
+    """`fourstep_pass2_sandwich_plain` against the float64 model of the
+    middle step, with a random complex H, at the non-square split of 2^15,
+    a square one and the widest (2^21 = 1024 x 2048); the inputs are left
+    as they are (the kernel writes in place, the plain version does not)."""
+    L1, L2 = sides
+    n = L1 * L2
+    assert fourstep_vmem._split_sides(n) == sides
+    mr, mi = planes(n + 3, (2, n))
+    hr, hi = planes(n + 4, (n,))
+    before = (tt(mr).clone(), tt(mi).clone())
+    args = (tt(mr), tt(mi), tt(hr), tt(hi))
+    got = fourstep_vmem.fourstep_pass2_sandwich_plain(*args)
+    assert torch.equal(args[0], before[0]) and torch.equal(args[1], before[1])
+    assert snr_db(cplx(*got), sandwich_mid_model(mr, mi, hr, hi)) >= 120.0
 
 
 @pytest.mark.parametrize("nh", [9, 129])

@@ -21,6 +21,7 @@ import math
 
 import numpy as np
 import pytest
+import torch
 
 import fftlab.kernels.fourstep_vmem as jx_fs
 import fftlab.kernels.threestep_vmem as jx_ts
@@ -388,3 +389,131 @@ def test_os_geometry_refuses_what_the_launcher_refuses():
     assert os_filter_vmem.frames_per_block(1024) == 4
     with pytest.raises(ValueError, match="pow2"):
         os_filter_vmem.os_geometry(1000, 1)
+
+
+# ------------------------------------- the two-pass sandwich's middle step
+
+# (n, R): pass 2's sandwich mode (csrc/fourstep.cu
+# `fourstep_pass2_sandwich_kernel`) at every two-pass size and its default
+# R, and the other R of chip_smoke.py's geometry A/B at 2^20 and 2^21
+SANDWICH_MODE = ([(1 << e, None) for e in range(15, 22)] + [(1 << 20, 8), (1 << 21, 4)])
+
+
+def _sandwich_mode_accesses(geo, g):
+    """(access, addresses) of every exchange-plane access of the sandwich
+    mode (csrc/sandwich.cuh): the forward's first pass with slot mapping 0
+    (its loads are in device memory), its later passes and the in-place
+    hand-off g; the inverse's first pass (its reads of the spectrum) and
+    later passes g, its last pass 0 (its stores are in device memory).
+    Addresses are (warps, 32) floats of one plane."""
+    L, T, threads = geo.L, geo.T, geo.threads
+    n_pass = len(geo.schedule)
+    out = []
+    for transform, maps in (("forward", [0] + [g] * (n_pass - 1)),
+                            ("inverse", [g] * (n_pass - 1) + [0])):
+        ns = 1
+        for p, R in enumerate(geo.schedule):
+            j, t = _slots(L, T, R, maps[p], threads)
+            last = p == n_pass - 1
+            for r in range(R):
+                load = j + r * (L // R)
+                store = load if last else (j // ns) * ns * R + j % ns + r * ns
+                if p > 0 or transform == "inverse":
+                    out.append((f"{transform} {'last' if last else p} load", _at(geo, t, load)))
+                if transform == "forward" or not last:
+                    out.append((f"{transform} {'last' if last else p} store",
+                                _at(geo, t, store)))
+            ns *= R
+    return [(kind, a.T.reshape(-1, 32)) for kind, a in out]
+
+
+def _sectors(floats):
+    """32-byte sectors each warp's access touches: floats is (warps, 32)
+    float offsets of 32-byte-aligned planes."""
+    return np.array([len(set(row // 8)) for row in floats])
+
+
+@pytest.mark.parametrize("n,R", SANDWICH_MODE,
+                         ids=[f"2^{n.bit_length() - 1}-R{r or 'default'}" for n, r in SANDWICH_MODE])
+def test_sandwich_mode_tile(n, R):
+    """The tile of pass 2's sandwich mode (`sandwich_geometry`): R rows of
+    L2 in pass 2's padded tile (a row stride of L2 + L2/16 + 32/min(R, 8)),
+    4K values up to 2^20, in a block's shared memory, two blocks an SM
+    where the tile is at most 8K values (at 2^21 the default R = 8 is a
+    16K-value tile of 1024 threads, one block an SM, as pass 2's; the
+    A/B's R = 4 is two). H's reads in the inverse's first pass (slot mapping
+    run_bits(R)): H[k2*L1 + k1_0 + t], a warp's 32 floats in 4 whole
+    32-byte sectors at R >= 8 (8 at R = 4; under slot mapping 0 a float
+    or two would take a sector of its own); the last pass's stores (mapping 0)
+    32 consecutive floats of one row; every exchange one wavefront per 32
+    floats, but two in the forward's first store at L2 <= 256 (pass 2's
+    own) and in the inverse's last loads (mapping 0 in the padded tile)."""
+    L1, L2 = fourstep_vmem._split_sides(n)
+    geo = fourstep_vmem.sandwich_geometry(L1, L2, R)
+    assert geo.L == L2 and geo.T == (R or fourstep_vmem.SANDWICH_ROWS[L2]) and geo.T <= L1
+    assert geo.T * L2 == (16384 if (n, R) == (1 << 21, None) else 4096) or R
+    assert geo.stride == L2 + L2 // 16 + 32 // min(geo.T, 8)
+    assert geo.log_pad == 4 and geo.smem == 8 * geo.T * geo.stride <= MAX_SMEM
+    assert geo.threads == geo.T * L2 // 16 <= 1024
+    two_blocks = 2 * geo.smem <= MAX_SMEM and 2 * geo.threads <= 2048 and geo.threads <= 512
+    assert two_blocks == (geo.T * L2 <= fourstep_vmem.SHARED_TILE)
+    g = min(3, geo.T.bit_length() - 1)  # csrc/fourstep.cu run_bits(log_r)
+    k1_0 = geo.T  # the second block of a batch row
+    j, t = _slots(L2, geo.T, 16, g, geo.threads)  # the first pass: slot 0, inputs j + r*L2/16
+    for r in range(16):
+        h_at = ((j + r * (L2 // 16)) * L1 + k1_0 + t).T.reshape(-1, 32)
+        assert _sectors(h_at).max() == (4 if geo.T >= 8 else 8)
+    j0, t0 = _slots(L2, geo.T, 16, 0, geo.threads)
+    assert _sectors(((j0 * L1) + t0).T.reshape(-1, 32)).min() >= 16  # mapping 0's
+    R_last = geo.schedule[-1]
+    j, t = _slots(L2, geo.T, R_last, 0, geo.threads)
+    for r in range(R_last):
+        at = (t * L2 + j + r * (L2 // R_last)).T.reshape(-1, 32)
+        assert np.all(_sectors(at) == 4)  # runs of 16 or 32 floats of a row
+    worst = {}
+    for kind, addr in _sandwich_mode_accesses(geo, g):
+        worst[kind] = max(worst.get(kind, 0), int(_wavefronts(addr).max()))
+    want = {kind: 1 for kind in worst}
+    want["inverse last load"] = 2
+    if L2 <= 256:
+        want["forward 0 store"] = 2
+    assert worst == want, worst
+    if geo.T < 8:  # pass 2's stride would take two wavefronts
+        pass2 = fourstep_vmem.pass2_geometry(L1, L2, geo.T)
+        assert max(int(_wavefronts(a).max()) for _, a in _sandwich_mode_accesses(pass2, g)) == 2
+
+
+@pytest.mark.parametrize("n", [1 << 15, 1 << 16, 1 << 21], ids=lambda n: f"2^{n.bit_length() - 1}")
+def test_sandwich_mode_indexing(n):
+    """The sandwich mode's index rules in float64 numpy, block by block as
+    the kernel runs them (csrc/fourstep.cu `fourstep_pass2_sandwich_kernel`):
+    block b*(L1/R) + c takes rows k1_0 + t (k1_0 = c*R, t < R) at
+    row0 + t*L2 + e, reads H at e*L1 + k1_0 + t, and stores element e of
+    row t times A[(e >> 4)*L1 + k1_0 + t] * P[(k1_0 + t)*16 + (e & 15)]
+    from the wrapper's tables; the result is the middle step
+    W_n^{-k1*j2}/n * IFFT(FFT(row) * H[k2*L1 + k1])."""
+    L1, L2 = fourstep_vmem._split_sides(n)
+    R = fourstep_vmem.sandwich_geometry(L1, L2).T
+    rng = np.random.default_rng(n)
+    B = 2
+    m = rng.standard_normal((B, n)) + 1j * rng.standard_normal((B, n))
+    h = rng.standard_normal(n) + 1j * rng.standard_normal(n)
+    _, _, a_tab, p_tab = fourstep_vmem._sandwich_tables(L1, L2, torch.device("cpu"))
+    A = a_tab.numpy().astype(np.float64) @ np.array([1, 1j])
+    P = p_tab.numpy().astype(np.float64) @ np.array([1, 1j])
+    assert A.shape == (L2 // 16, L1) and P.shape == (L1, 16)
+    A, P = A.ravel(), P.ravel()
+    out = m.copy()  # in place
+    e = np.arange(L2)
+    for block in range(B * (L1 // R)):
+        b, c = divmod(block, L1 // R)
+        k1_0 = c * R
+        for t in range(R):
+            at = b * n + (k1_0 + t) * L2 + e
+            row = m.ravel()[at]
+            z = np.fft.ifft(np.fft.fft(row) * h[e * L1 + k1_0 + t]) * L2
+            out.ravel()[at] = z * A[(e >> 4) * L1 + k1_0 + t] * P[(k1_0 + t) * 16 + (e & 15)]
+    k1, j2 = np.arange(L1)[:, None], np.arange(L2)[None, :]
+    z = np.fft.ifft(np.fft.fft(m.reshape(B, L1, L2), axis=2) * h.reshape(L2, L1).T, axis=2) * L2
+    want = (z * np.exp(2j * np.pi * (k1 * j2 % n) / n) / n).reshape(B, n)
+    assert np.max(np.abs(out - want)) <= 1e-6 * np.max(np.abs(want))  # float32 tables

@@ -188,10 +188,10 @@ def _all_launches():
     lambda x: fft_vmem.fft_rows(x, x),
     lambda x: fourstep_vmem.fourstep_pass1(x, x),
     lambda x: fourstep_vmem.fourstep_pass2(x, x),
-    lambda x: fourstep_vmem.fourstep_pass2_filter(x, x, x[0], x[0]),
+    lambda x: fourstep_vmem.fourstep_pass2_sandwich(x, x, x[0], x[0]),
     lambda x: fft_vmem.filter_rows(x[:, :8192], x[:, :8192], x[0, :8192], x[0, :8192]),
     lambda x: os_filter_vmem.os_filter(x, x, x[0, :2048], x[0, :2048], 9),
-], ids=["fft_rows", "fourstep_pass1", "fourstep_pass2", "fourstep_pass2_filter",
+], ids=["fft_rows", "fourstep_pass1", "fourstep_pass2", "fourstep_pass2_sandwich",
         "filter_rows", "os_filter"])
 def test_kernel_wrappers_refuse_cpu_tensors(launch):
     """A kernel wrapper launches on CUDA tensors or raises; it never runs
@@ -230,8 +230,9 @@ def _c_entries():
 def test_ctypes_signatures_match_sources():
     assert _c_entries() == {k: len(v) for k, v in _build.SIGNATURES.items()}
     assert set(_build.SIGNATURES) == {
-        "fftlab_fft_rows", "fftlab_fourstep_pass1", "fftlab_fourstep_pass2",
-        "fftlab_fourstep_pass2_filter", "fftlab_filter_rows", "fftlab_os_filter",
+        "fftlab_fft_rows", "fftlab_fourstep_pass1", "fftlab_fourstep_pass1_no_twiddle",
+        "fftlab_fourstep_pass2", "fftlab_fourstep_pass2_sandwich", "fftlab_filter_rows",
+        "fftlab_os_filter",
         "fftlab_fourstep_pass1_packed", "fftlab_fourstep_pass2_interleaved",
         "fftlab_pack_real", "fftlab_interleave", "fftlab_herm_unpack",
         "fftlab_herm_repack", "fftlab_stft_frames", "fftlab_fourstep_pass1_swap",

@@ -344,7 +344,7 @@ EXCEPTIONS = {
                                         "on Hopper a card tensor always runs its kernel",
     "plan/dispatch.py:resident_filter_enabled": "picks among the TPU's one-residency "
                                                 "sandwiches; on Hopper each is the same "
-                                                "four launches",
+                                                "three launches",
     "kernels/fourstep_vmem.py:LANES": "the TPU's lane width, a Mosaic layout constant",
     "kernels/threestep_vmem.py:LANES": "the TPU's lane width, a Mosaic layout constant",
     "kernels/threestep_vmem.py:blocked_huge_feasible": "a Mosaic VMEM layout check",
