@@ -17,7 +17,6 @@ demo needs no input. It runs on the card unless `--device cpu` is given.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import os
 import tempfile
 import time
@@ -37,33 +36,29 @@ from fftlab_torch.utils.trace import span
 TONES = (440.0, 6000.0)
 
 
-def _step(timers: dict | None, name: str, device=None):
-    """A `utils.trace.span` into `timers`, or nothing when timers is None."""
-    return contextlib.nullcontext() if timers is None else span(name, timers, device=device)
-
-
 def stream_through_ring(plan: FilterPlan, audio: np.ndarray, chunk: int,
                         timers: dict | None = None) -> np.ndarray:
     """Producer -> native ring -> `plan.stream` chunk by chunk -> host:
     the filtered float32 stream, before any clipping. With `timers`, each
     step is a `utils.trace.span` ("ring", "to_card", "stream", "to_host"),
     each waiting for the card at its end; without, the only wait per chunk
-    is the copy back to the host."""
+    is the copy back to the host. While the recorder is on, the steps are
+    its spans too (utils/trace.py)."""
     ring = RingBuffer(max(chunk * 4, 1 << 18))
     pieces = []
     try:
         pos = 0
         while pos < len(audio) or ring.available:
-            with _step(timers, "ring", plan.device):
+            with span("ring", timers, device=plan.device):
                 if pos < len(audio):
                     pos += ring.write(audio[pos : pos + chunk])
                 piece = ring.read(chunk)
             if len(piece):
-                with _step(timers, "to_card", plan.device):
+                with span("to_card", timers, device=plan.device):
                     x = torch.from_numpy(piece).to(plan.device)
-                with _step(timers, "stream", plan.device):
+                with span("stream", timers, device=plan.device):
                     y = plan.stream(x)
-                with _step(timers, "to_host", plan.device):
+                with span("to_host", timers, device=plan.device):
                     pieces.append(y.cpu().numpy())
     finally:
         ring.close()
@@ -120,7 +115,7 @@ def run(args: argparse.Namespace, timers: dict | None = None) -> Served:
     chunks, write the clipped output to `args.out` as PCM16. With
     `timers`, the steps are `utils.trace.span`s ("wav_read", the steps of
     `stream_through_ring`, "wav_write")."""
-    with _step(timers, "wav_read"):
+    with span("wav_read", timers):
         audio, fs = read_wav(args.inp)
         if audio.ndim == 2:
             audio = np.ascontiguousarray(audio.mean(axis=1), np.float32)
@@ -128,7 +123,7 @@ def run(args: argparse.Namespace, timers: dict | None = None) -> Served:
     t0 = time.perf_counter()
     filtered = stream_through_ring(plan, audio, args.chunk, timers)
     seconds = time.perf_counter() - t0
-    with _step(timers, "wav_write"):
+    with span("wav_write", timers):
         write_wav(args.out, np.clip(filtered, -1, 1), fs)
     return Served(audio, fs, plan, filtered, seconds)
 

@@ -22,6 +22,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+from fftlab_torch.utils import trace
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
@@ -176,18 +178,27 @@ def compile_library(out: Path) -> Path:
 
 
 @functools.cache
+@trace.setup_span("library")
 def load_library() -> ctypes.CDLL:
-    """The kernel library, built first if this source hash has none."""
-    so = BUILD_ROOT / source_digest() / LIB_NAME
+    """The kernel library, built first if this source hash has none: the
+    set-up span `library`, with `digest`, `build` (nvcc, where it runs)
+    and `dlopen` under it, counted in COUNTS["library_builds"] and
+    COUNTS["library_loads"] (utils/trace.py)."""
+    with trace.setup_span("digest"):
+        so = BUILD_ROOT / source_digest() / LIB_NAME
     if not so.is_file():
-        compile_library(so)
-    lib = ctypes.CDLL(str(so))
-    for name, args in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = list(args)
-        fn.restype = ctypes.c_int
-    lib.fftlab_error_string.argtypes = [ctypes.c_int]
-    lib.fftlab_error_string.restype = ctypes.c_char_p
+        with trace.setup_span("build"):
+            compile_library(so)
+        trace.COUNTS["library_builds"] += 1
+    with trace.setup_span("dlopen"):
+        lib = ctypes.CDLL(str(so))
+        for name, args in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(args)
+            fn.restype = ctypes.c_int
+        lib.fftlab_error_string.argtypes = [ctypes.c_int]
+        lib.fftlab_error_string.restype = ctypes.c_char_p
+    trace.COUNTS["library_loads"] += 1
     return lib
 
 

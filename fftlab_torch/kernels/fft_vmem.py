@@ -31,7 +31,6 @@ inverse.
 
 from __future__ import annotations
 
-import functools
 
 import numpy as np
 import torch
@@ -56,6 +55,7 @@ from fftlab_torch.kernels._common import (
     stream_of,
     tile_geometry,
 )
+from fftlab_torch.utils import trace
 
 N1 = 128
 
@@ -86,7 +86,7 @@ def _tables(n: int, direction: Direction, scale: float | None = None):
             c(tw.real), c(tw.imag))
 
 
-@functools.lru_cache(maxsize=32)
+@trace.table_cache(maxsize=32)
 def _plain_tables(n: int, direction: Direction, scale: float,
                   device: torch.device):
     tabs = _tables(n, direction, None if scale == 1.0 else scale)
@@ -114,13 +114,13 @@ def fft_rows_plain(xr: torch.Tensor, xi: torch.Tensor, direction=FORWARD,
             di.transpose(1, 2).reshape(B, n))
 
 
-@functools.lru_cache(maxsize=32)
+@trace.table_cache(maxsize=32)
 def _engine_twiddle(n: int, direction: Direction, device: torch.device):
     """The register engine's per-pass table for length n (fft_reg.cuh)."""
     return complex_table(pass_twiddle_np(n, direction), device)
 
 
-@functools.lru_cache(maxsize=16)
+@trace.table_cache(maxsize=16)
 def rows_geometry(n: int) -> TileGeometry:
     """The launch of `fft_rows` and `filter_rows` at pow2 n in
     [512, 16384]: one row per block on n/16 threads (one row per SM at
@@ -132,16 +132,19 @@ def fft_rows(xr: torch.Tensor, xi: torch.Tensor, direction=FORWARD,
              scale: float = 1.0):
     """Launch the CUDA kernel on contiguous [B, n] float32 planes (pow2 n,
     512 <= n <= 16384); `scale` is the whole output scale."""
+    rec = trace.on()
+    t0 = rec and trace.now()
     direction = Direction(int(direction))
     check_planes(xr, xi, "fft_rows")
     check_cuda(xr, xi, name="fft_rows")
     B, n = xr.shape
     if not (is_power_of_two(n) and 512 <= n <= 16384):
         raise ValueError(f"fft_rows takes pow2 n in [512, 16384]; got {n}")
-    lib = _build.load_library()
     yr = torch.empty_like(xr)
     yi = torch.empty_like(xi)
     tw = _engine_twiddle(n, direction, xr.device)
+    t3 = rec and trace.now()
+    lib = _build.load_library()
     with torch.cuda.device(xr.device):
         rc = lib.fftlab_fft_rows(
             xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
@@ -149,6 +152,8 @@ def fft_rows(xr: torch.Tensor, xi: torch.Tensor, direction=FORWARD,
             float(scale), stream_of(xr))
     _build.check(lib, "fft_rows", rc)
     LAUNCHES["fft_rows"] += 1
+    if rec:
+        trace.launch_call("fft_rows", t0, t3, trace.now())
     return yr, yi
 
 
@@ -204,17 +209,20 @@ def filter_rows(xr: torch.Tensor, xi: torch.Tensor, hr: torch.Tensor,
     """Launch the row sandwich on contiguous [B, n] CUDA float32 planes
     (pow2 n, 512 <= n <= 16384); hr, hi: the n-bin response, natural
     order. Returns ifft(fft(x) * H), 1/n scaled."""
+    rec = trace.on()
+    t0 = rec and trace.now()
     check_planes(xr, xi, "filter_rows")
     check_cuda(xr, xi, hr, hi, name="filter_rows")
     B, n = xr.shape
     if not (is_power_of_two(n) and 512 <= n <= 16384):
         raise ValueError(f"filter_rows takes pow2 n in [512, 16384]; got {n}")
     check_response(hr, hi, n, xr, "filter_rows")
-    lib = _build.load_library()
     yr = torch.empty_like(xr)
     yi = torch.empty_like(xi)
     tw_fwd = _engine_twiddle(n, Direction.FORWARD, xr.device)
     tw_inv = _engine_twiddle(n, Direction.INVERSE, xr.device)
+    t3 = rec and trace.now()
+    lib = _build.load_library()
     with torch.cuda.device(xr.device):
         rc = lib.fftlab_filter_rows(
             xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
@@ -222,6 +230,8 @@ def filter_rows(xr: torch.Tensor, xi: torch.Tensor, hr: torch.Tensor,
             B, log2_int(n), rows_geometry(n).c_struct(), 1.0 / n, stream_of(xr))
     _build.check(lib, "filter_rows", rc)
     LAUNCHES["filter_rows"] += 1
+    if rec:
+        trace.launch_call("filter_rows", t0, t3, trace.now())
     return yr, yi
 
 

@@ -61,7 +61,6 @@ pass 1, pass 2 with H, the inverse's two passes) would move 64.
 from __future__ import annotations
 
 import dataclasses
-import functools
 
 import numpy as np
 import torch
@@ -89,6 +88,7 @@ from fftlab_torch.kernels._common import (
     stream_of,
     tile_geometry,
 )
+from fftlab_torch.utils import trace
 
 MIN_N = 1 << 15
 MAX_N = 1 << 21
@@ -259,14 +259,14 @@ def _col_fft(xr, xi, tabs, fa: int, fb: int):
             yi.transpose(1, 2).reshape(B, L, W))
 
 
-@functools.lru_cache(maxsize=32)
+@trace.table_cache(maxsize=32)
 def _plain_col_tables(L: int, direction: Direction, scale: float,
                       device: torch.device):
     tabs = _col_fft_tables(L, direction, None if scale == 1.0 else scale)
     return tuple(torch.from_numpy(t).to(device) for t in tabs)
 
 
-@functools.lru_cache(maxsize=32)
+@trace.table_cache(maxsize=32)
 def _plain_pass1_twiddle(L1: int, L2: int, direction: Direction,
                          device: torch.device):
     """W_{L1*L2}^{k1*j2} as (L1, L2) planes from the rank-1 factors,
@@ -327,7 +327,7 @@ def fourstep_pass2_plain(mr: torch.Tensor, mi: torch.Tensor, direction=FORWARD,
     return pass2_plain(mr, mi, direction, scale, *_split_sides(int(mr.shape[-1])))
 
 
-@functools.lru_cache(maxsize=32)
+@trace.table_cache(maxsize=32)
 def _pass1_tables(L1: int, L2: int, direction: Direction, device: torch.device):
     A, P = _rank1_twiddle_np(L1, L2, PASS1_WIDTH, direction)
     return (complex_table(pass_twiddle_np(L1, direction), device),
@@ -335,7 +335,7 @@ def _pass1_tables(L1: int, L2: int, direction: Direction, device: torch.device):
             complex_table(P, device))
 
 
-@functools.lru_cache(maxsize=32)
+@trace.table_cache(maxsize=32)
 def _pass2_twiddle(L2: int, direction: Direction, device: torch.device):
     return complex_table(pass_twiddle_np(L2, direction), device)
 
@@ -384,8 +384,7 @@ def _check_launch(xr, xi, name: str, sides: tuple[int, int]) -> None:
 def fourstep_pass1(xr: torch.Tensor, xi: torch.Tensor, direction=FORWARD):
     """Launch pass 1 on contiguous [B, n] CUDA planes; returns the
     intermediate planes [B, n] (row-major (B, L1, L2))."""
-    return _launch_pass1("fourstep_pass1", xr, xi, direction,
-                         _two_pass_sides(xr, "fourstep_pass1"), LAUNCHES)
+    return _launch_pass1("fourstep_pass1", xr, xi, direction, None, LAUNCHES)
 
 
 def fourstep_pass1_packed(x: torch.Tensor, direction=FORWARD):
@@ -395,34 +394,43 @@ def fourstep_pass1_packed(x: torch.Tensor, direction=FORWARD):
     if x.shape[-1] % 2:
         raise ValueError(f"fourstep_pass1_packed takes an even length; got "
                          f"{tuple(x.shape)}")
-    sides = _two_pass_sides(x, "fourstep_pass1_packed", int(x.shape[-1]) // 2)
-    return _launch_pass1("fourstep_pass1_packed", x, None, direction, sides, LAUNCHES)
+    return _launch_pass1("fourstep_pass1_packed", x, None, direction, None, LAUNCHES)
 
 
-def _launch_pass1(name: str, xr, xi, direction, sides: tuple[int, int],
+def _launch_pass1(name: str, xr, xi, direction, sides: tuple[int, int] | None,
                   counts: dict, swap: int = 1, geometry: TileGeometry | None = None,
                   twiddle: bool = True):
     """Launch pass 1 at `sides` = (L1, L2) on contiguous [B, L1*L2] planes
-    (xi None: a packed real row); `swap` = F1 > 1 launches the swap-store
+    (xi None: a packed real row; `sides` None: the two-pass sides of the
+    row); `swap` = F1 > 1 launches the swap-store
     mode (`fftlab_fourstep_pass1_swap`): row k1 of input row o*F1 + k1a is
     stored at row (o, k1, k1a). `geometry` defaults to `pass1_geometry`;
     `twiddle` False (planes, no swap) launches the mode with no twiddle
     (`fftlab_fourstep_pass1_no_twiddle`). The launch adds one to
-    `counts[name]`, the LAUNCHES of the module whose wrapper it serves."""
+    `counts[name]`, the LAUNCHES of the module whose wrapper it serves,
+    and, while the recorder is on, records its span `name` with the
+    phases checks, alloc, tables and call (utils/trace.py)."""
+    rec = trace.on()
+    t0 = rec and trace.now()
     direction = Direction(int(direction))
     packed = xi is None
+    if sides is None:
+        sides = _two_pass_sides(xr, name, int(xr.shape[-1]) // 2 if packed else None)
     _check_launch(xr, xi, name, sides)
     L1, L2 = sides
     B = xr.shape[0]
     if B % swap:
         raise ValueError(f"{name} takes a multiple of {swap} rows; got {B}")
-    lib = _build.load_library()
+    t1 = rec and trace.now()
     mr = torch.empty(B, L1 * L2, device=xr.device)
     mi = torch.empty_like(mr)
+    t2 = rec and trace.now()
     geo = geometry or pass1_geometry(L1, L2)
     tw1, a_tab, p_tab = _pass1_tables(L1, L2, direction, xr.device)
     tabs = (tw1.data_ptr(), a_tab.data_ptr(), p_tab.data_ptr())
     logs = (log2_int(L1), log2_int(L2), log2_int(geo.T), geo.c_struct())
+    t3 = rec and trace.now()
+    lib = _build.load_library()
     tail = (int(direction), stream_of(xr))
     with torch.cuda.device(xr.device):
         if packed:
@@ -441,6 +449,8 @@ def _launch_pass1(name: str, xr, xi, direction, sides: tuple[int, int],
                                            mi.data_ptr(), *tabs, B, *logs, *tail)
     _build.check(lib, name, rc)
     counts[name] += 1
+    if rec:
+        trace.launch(name, t0, t1, t2, t3, trace.now())
     return mr, mi
 
 
@@ -448,8 +458,7 @@ def fourstep_pass2(mr: torch.Tensor, mi: torch.Tensor, direction=FORWARD,
                    scale: float = 1.0):
     """Launch pass 2 on the contiguous [B, n] intermediate planes; returns
     the natural-order spectrum. `scale` is the whole output scale."""
-    return _launch_pass2("fourstep_pass2", mr, mi, direction, scale,
-                         _two_pass_sides(mr, "fourstep_pass2"), LAUNCHES)
+    return _launch_pass2("fourstep_pass2", mr, mi, direction, scale, None, LAUNCHES)
 
 
 def fourstep_pass2_interleaved(mr: torch.Tensor, mi: torch.Tensor,
@@ -457,41 +466,50 @@ def fourstep_pass2_interleaved(mr: torch.Tensor, mi: torch.Tensor,
     """Launch pass 2 on the contiguous [B, n] intermediate planes with
     the natural-order spectrum stored interleaved: returns the real
     [B, 2n] signal whose (2k, 2k+1) samples are bin k's (re, im)."""
-    return _launch_pass2("fourstep_pass2_interleaved", mr, mi, direction,
-                         scale, _two_pass_sides(mr, "fourstep_pass2_interleaved"),
+    return _launch_pass2("fourstep_pass2_interleaved", mr, mi, direction, scale, None,
                          LAUNCHES)
 
 
 def _launch_pass2(name: str, mr, mi, direction, scale: float,
-                  sides: tuple[int, int], counts: dict,
+                  sides: tuple[int, int] | None, counts: dict,
                   geometry: TileGeometry | None = None):
     """Launch pass 2 (the store of `name`) on contiguous [B, L1*L2]
-    intermediate planes; `sides` and `counts` as in `_launch_pass1`,
-    `geometry` defaults to `pass2_geometry`."""
+    intermediate planes; `sides`, `counts` and the span as in
+    `_launch_pass1`, `geometry` defaults to `pass2_geometry`."""
+    rec = trace.on()
+    t0 = rec and trace.now()
     direction = Direction(int(direction))
+    if sides is None:
+        sides = _two_pass_sides(mr, name)
     _check_launch(mr, mi, name, sides)
     L1, L2 = sides
     n = L1 * L2
-    lib = _build.load_library()
-    tw2 = _pass2_twiddle(L2, direction, mr.device)
-    geo = geometry or pass2_geometry(L1, L2)
-    args = (mr.shape[0], log2_int(L1), log2_int(L2), log2_int(geo.T), geo.c_struct(),
-            int(direction), float(scale), stream_of(mr))
     interleaved = name == "fourstep_pass2_interleaved"
+    t1 = rec and trace.now()
     if interleaved:
         out = torch.empty(mr.shape[0], 2 * n, device=mr.device)
     else:
         out = (torch.empty_like(mr), torch.empty_like(mi))
+    t2 = rec and trace.now()
+    tw2 = _pass2_twiddle(L2, direction, mr.device)
+    geo = geometry or pass2_geometry(L1, L2)
+    args = (mr.shape[0], log2_int(L1), log2_int(L2), log2_int(geo.T), geo.c_struct(),
+            int(direction), float(scale))
+    t3 = rec and trace.now()
+    lib = _build.load_library()
     with torch.cuda.device(mr.device):
         if interleaved:
             rc = lib.fftlab_fourstep_pass2_interleaved(
-                mr.data_ptr(), mi.data_ptr(), out.data_ptr(), tw2.data_ptr(), *args)
+                mr.data_ptr(), mi.data_ptr(), out.data_ptr(), tw2.data_ptr(), *args,
+                stream_of(mr))
         else:
             rc = lib.fftlab_fourstep_pass2(
                 mr.data_ptr(), mi.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
-                tw2.data_ptr(), *args)
+                tw2.data_ptr(), *args, stream_of(mr))
     _build.check(lib, name, rc)
     counts[name] += 1
+    if rec:
+        trace.launch(name, t0, t1, t2, t3, trace.now())
     return out
 
 
@@ -563,7 +581,7 @@ def irfft_split_large(Xr: torch.Tensor, Xi: torch.Tensor, n: int | None = None):
     return irfft_split(Xr, Xi, n=n, cfft=cfft)
 
 
-@functools.lru_cache(maxsize=32)
+@trace.table_cache(maxsize=32)
 def _sandwich_tables(L1: int, L2: int, device: torch.device):
     """The sandwich mode's tables: the engine's twiddles of L2 forward and
     inverse, and W_n^{-k1*j2}/n in pass 1's rank-1 form, A (L2/16, L1) and
@@ -611,22 +629,29 @@ def _launch_sandwich(mr, mi, hr, hi, counts: dict, geometry: TileGeometry | None
     """Launch the sandwich mode in place on contiguous [B, n] CUDA planes;
     `counts` as in `_launch_pass1`, `geometry` defaults to
     `sandwich_geometry`."""
+    rec = trace.on()
+    t0 = rec and trace.now()
     name = "fourstep_pass2_sandwich"
     sides = _two_pass_sides(mr, name)
     _check_launch(mr, mi, name, sides)
     check_cuda(hr, hi, name=name)
     L1, L2 = sides
     check_response(hr, hi, L1 * L2, mr, name)
-    lib = _build.load_library()
+    t1 = rec and trace.now()  # in place: nothing to allocate
     geo = geometry or sandwich_geometry(L1, L2)
     tabs = _sandwich_tables(L1, L2, mr.device)
+    args = (*(t.data_ptr() for t in tabs[2:]), mr.shape[0], log2_int(L1), log2_int(L2),
+            log2_int(geo.T), geo.c_struct())
+    t3 = rec and trace.now()
+    lib = _build.load_library()
     with torch.cuda.device(mr.device):
         rc = lib.fftlab_fourstep_pass2_sandwich(
             mr.data_ptr(), mi.data_ptr(), *(t.data_ptr() for t in tabs[:2]), hr.data_ptr(),
-            hi.data_ptr(), *(t.data_ptr() for t in tabs[2:]), mr.shape[0], log2_int(L1),
-            log2_int(L2), log2_int(geo.T), geo.c_struct(), stream_of(mr))
+            hi.data_ptr(), *args, stream_of(mr))
     _build.check(lib, name, rc)
     counts[name] += 1
+    if rec:
+        trace.launch(name, t0, t1, t1, t3, trace.now())
     return mr, mi
 
 
@@ -642,8 +667,7 @@ def spectral_filter_large_plain(xr: torch.Tensor, xi: torch.Tensor,
 def _filter_launches(xr, xi, hr, hi):
     mr, mi = fourstep_pass1(xr, xi, FORWARD)
     fourstep_pass2_sandwich(mr, mi, hr, hi)
-    return _launch_pass1("fourstep_pass1", mr, mi, INVERSE,
-                         _two_pass_sides(mr, "fourstep_pass1"), LAUNCHES, twiddle=False)
+    return _launch_pass1("fourstep_pass1", mr, mi, INVERSE, None, LAUNCHES, twiddle=False)
 
 
 def spectral_filter_large(xr: torch.Tensor, xi: torch.Tensor, hr, hi):

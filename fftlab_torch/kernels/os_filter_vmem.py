@@ -24,7 +24,6 @@ layout; neither changes the output, and neither exists here.
 
 from __future__ import annotations
 
-import functools
 
 import numpy as np
 import torch
@@ -50,6 +49,7 @@ from fftlab_torch.kernels.fft_vmem import (
     spectral_filter_rows_plain,
     supported_size,
 )
+from fftlab_torch.utils import trace
 
 # The largest frame the row sandwich takes (fft_vmem.supported_size).
 MAX_FFT_SIZE = 16384
@@ -77,7 +77,7 @@ def os_response_np(h: np.ndarray, fft_size: int) -> tuple[np.ndarray, np.ndarray
     return H.real.astype(np.float32), H.imag.astype(np.float32)
 
 
-@functools.lru_cache(maxsize=16)
+@trace.table_cache(maxsize=16)
 def _cached_response(h_bytes: bytes, fft_size: int, device: torch.device):
     hr, hi = os_response_np(np.frombuffer(h_bytes, dtype=np.float64), fft_size)
     return torch.from_numpy(hr).to(device), torch.from_numpy(hi).to(device)
@@ -109,7 +109,7 @@ def frames_per_block(fft_size: int) -> int:
     return 1 if fft_size >= ONE_FRAME else FRAME_TILE // fft_size
 
 
-@functools.lru_cache(maxsize=64)
+@trace.table_cache(maxsize=64)
 def os_geometry(fft_size: int, T: int) -> TileGeometry:
     """The launch of `os_filter`: T frames of fft_size points a block as
     stacked swizzled rows (`frame_geometry`); from ONE_FRAME one frame a
@@ -142,16 +142,19 @@ def _launch_os(xr, xi, hr, hi, nh: int, T: int, counts: dict):
     """Launch `os_filter` at T frames per block on checked tensors; the
     launch adds one to `counts["os_filter"]` (LAUNCHES, or the counts of
     chip_smoke.py's A/B of T)."""
+    rec = trace.on()
+    t0 = rec and trace.now()
     C, n = xr.shape
     fft_size = int(hr.shape[-1])
     halo = nh - 1
     hop = fft_size - halo
     geo = os_geometry(fft_size, T)
-    lib = _build.load_library()
     yr = torch.empty_like(xr)
     yi = torch.empty_like(xi)
     tw_fwd = _engine_twiddle(fft_size, Direction.FORWARD, xr.device)
     tw_inv = _engine_twiddle(fft_size, Direction.INVERSE, xr.device)
+    t3 = rec and trace.now()
+    lib = _build.load_library()
     with torch.cuda.device(xr.device):
         rc = lib.fftlab_os_filter(
             xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
@@ -160,6 +163,8 @@ def _launch_os(xr, xi, hr, hi, nh: int, T: int, counts: dict):
             1.0 / fft_size, stream_of(xr))
     _build.check(lib, "os_filter", rc)
     counts["os_filter"] += 1
+    if rec:
+        trace.launch_call("os_filter", t0, t3, trace.now())
     return yr, yi
 
 

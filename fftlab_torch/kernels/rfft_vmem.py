@@ -27,7 +27,6 @@ The paired and unpaired unpacks agree to float32 rounding.
 
 from __future__ import annotations
 
-import functools
 
 import numpy as np
 import torch
@@ -44,6 +43,7 @@ from fftlab_torch.kernels._common import (
     rows_of,
     stream_of,
 )
+from fftlab_torch.utils import trace
 
 LANES = 128
 
@@ -57,7 +57,7 @@ def pack_supported(n: int) -> bool:
     return n % 2 == 0 and m % (LANES * 8) == 0
 
 
-@functools.lru_cache(maxsize=32)
+@trace.table_cache(maxsize=32)
 def _pair_twiddle(n: int, direction: Direction, device: torch.device):
     """exp(2*pi*i*direction*k/n), built in float64 for k = 0..n/4 (one per
     pair), as a float32 (n/4 + 1, 2) re/im table on `device`: the table of
@@ -66,7 +66,7 @@ def _pair_twiddle(n: int, direction: Direction, device: torch.device):
     return complex_table(np.exp(2j * np.pi * float(int(direction)) * k / n), device)
 
 
-@functools.lru_cache(maxsize=32)
+@trace.table_cache(maxsize=32)
 def _unpack_twiddle_plain(n: int, device: torch.device):
     """W_n^k for k = 0..n/2-1 as float32 planes (rfft_vmem.py:235-238)."""
     w = np.exp(-2j * np.pi * np.arange(n // 2, dtype=np.float64) / n)
@@ -142,6 +142,8 @@ def _check_launch(name: str, *tensors: torch.Tensor) -> None:
 def pack_real(x: torch.Tensor):
     """Launch `pack_real` on a contiguous [B, n] CUDA float32 signal (n
     even, 8-byte aligned); returns the even and odd planes [B, n/2]."""
+    rec = trace.on()
+    t0 = rec and trace.now()
     check_real(x, "pack_real")
     _check_launch("pack_real", x)
     check_aligned(x, name="pack_real")
@@ -150,28 +152,36 @@ def pack_real(x: torch.Tensor):
         raise ValueError(f"pack_real takes an even length; got {n}")
     zr = torch.empty(B, n // 2, device=x.device)
     zi = torch.empty_like(zr)
+    t3 = rec and trace.now()
     lib = _build.load_library()
     with torch.cuda.device(x.device):
         rc = lib.fftlab_pack_real(x.data_ptr(), zr.data_ptr(), zi.data_ptr(),
                                   zr.numel(), stream_of(x))
     _build.check(lib, "pack_real", rc)
     LAUNCHES["pack_real"] += 1
+    if rec:
+        trace.launch_call("pack_real", t0, t3, trace.now())
     return zr, zi
 
 
 def interleave(zr: torch.Tensor, zi: torch.Tensor) -> torch.Tensor:
     """Launch `interleave` on contiguous [B, m] CUDA float32 planes;
     returns the real [B, 2m] signal."""
+    rec = trace.on()
+    t0 = rec and trace.now()
     check_planes(zr, zi, "interleave")
     _check_launch("interleave", zr, zi)
     B, m = zr.shape
     x = torch.empty(B, 2 * m, device=zr.device)
+    t3 = rec and trace.now()
     lib = _build.load_library()
     with torch.cuda.device(zr.device):
         rc = lib.fftlab_interleave(zr.data_ptr(), zi.data_ptr(), x.data_ptr(),
                                    zr.numel(), stream_of(zr))
     _build.check(lib, "interleave", rc)
     LAUNCHES["interleave"] += 1
+    if rec:
+        trace.launch_call("interleave", t0, t3, trace.now())
     return x
 
 
@@ -179,6 +189,8 @@ def herm_unpack(zr: torch.Tensor, zi: torch.Tensor, scale: float = 1.0):
     """Launch `herm_unpack` on contiguous [B, m] CUDA float32 half-size
     spectra (m even); returns the one-sided [B, m+1] planes, bins 0..m,
     times `scale`."""
+    rec = trace.on()
+    t0 = rec and trace.now()
     check_planes(zr, zi, "herm_unpack")
     _check_launch("herm_unpack", zr, zi)
     B, m = zr.shape
@@ -187,6 +199,7 @@ def herm_unpack(zr: torch.Tensor, zi: torch.Tensor, scale: float = 1.0):
     xr = torch.empty(B, m + 1, device=zr.device)
     xi = torch.empty_like(xr)
     tw = _pair_twiddle(2 * m, Direction.FORWARD, zr.device)
+    t3 = rec and trace.now()
     lib = _build.load_library()
     with torch.cuda.device(zr.device):
         rc = lib.fftlab_herm_unpack(zr.data_ptr(), zi.data_ptr(), xr.data_ptr(),
@@ -194,6 +207,8 @@ def herm_unpack(zr: torch.Tensor, zi: torch.Tensor, scale: float = 1.0):
                                     stream_of(zr))
     _build.check(lib, "herm_unpack", rc)
     LAUNCHES["herm_unpack"] += 1
+    if rec:
+        trace.launch_call("herm_unpack", t0, t3, trace.now())
     return xr, xi
 
 
@@ -201,6 +216,8 @@ def herm_repack(xr: torch.Tensor, xi: torch.Tensor):
     """Launch `herm_repack` on contiguous [B, m+1] CUDA float32 one-sided
     spectra (m even); returns the half-size [B, m] planes for the inverse
     c2c."""
+    rec = trace.on()
+    t0 = rec and trace.now()
     check_planes(xr, xi, "herm_repack")
     _check_launch("herm_repack", xr, xi)
     B, h = xr.shape
@@ -210,12 +227,15 @@ def herm_repack(xr: torch.Tensor, xi: torch.Tensor):
     zr = torch.empty(B, m, device=xr.device)
     zi = torch.empty_like(zr)
     tw = _pair_twiddle(2 * m, Direction.INVERSE, xr.device)
+    t3 = rec and trace.now()
     lib = _build.load_library()
     with torch.cuda.device(xr.device):
         rc = lib.fftlab_herm_repack(xr.data_ptr(), xi.data_ptr(), zr.data_ptr(),
                                     zi.data_ptr(), tw.data_ptr(), B, m, stream_of(xr))
     _build.check(lib, "herm_repack", rc)
     LAUNCHES["herm_repack"] += 1
+    if rec:
+        trace.launch_call("herm_repack", t0, t3, trace.now())
     return zr, zi
 
 

@@ -48,7 +48,6 @@ counterpart: a stage's block takes 4096 values, 256/r rows of 16 columns
 
 from __future__ import annotations
 
-import functools
 
 import numpy as np
 import torch
@@ -61,6 +60,7 @@ from fftlab_torch.kernels._common import (check_cuda, check_planes, complex_tabl
                                           effective_scale, on_cpu, stream_of)
 from fftlab_torch.kernels.fourstep_vmem import (PASS1_WIDTH, _pass1_tables, _pass2_twiddle,
                                                 leaf_geometry, stage_geometry)
+from fftlab_torch.utils import trace
 
 LANES = 128
 MAX_RADIX = 128
@@ -82,7 +82,7 @@ def _check_stage(xr, xi, r: int, name: str) -> int:
     return n // r
 
 
-@functools.lru_cache(maxsize=64)
+@trace.table_cache(maxsize=64)
 def _plain_tables(r: int, M: int, direction: Direction, twiddle: bool,
                   device: torch.device):
     as_t = lambda a: torch.from_numpy(np.ascontiguousarray(a).astype(np.float32)).to(device)
@@ -120,7 +120,7 @@ def swap_stage_plain(xr: torch.Tensor, xi: torch.Tensor, r: int, f1: int,
     return swap(yr), swap(yi)
 
 
-@functools.lru_cache(maxsize=32)
+@trace.table_cache(maxsize=32)
 def _leaf_table(r: int, direction: Direction, scale: float, device: torch.device):
     F = dft_matrix_np(r, direction) * scale
     as_t = lambda a: torch.from_numpy(np.ascontiguousarray(a.T).astype(np.float32)).to(device)
@@ -148,7 +148,7 @@ def stage_leaf_plain(xr: torch.Tensor, xi: torch.Tensor, leaf: int, direction=FO
     return turn(yr), turn(yi)
 
 
-@functools.lru_cache(maxsize=64)
+@trace.table_cache(maxsize=64)
 def _stage_tables(r: int, M: int, direction: Direction, twiddle: bool, device: torch.device):
     tw1, a_tab, p_tab = _pass1_tables(r, M, direction, device)
     if not twiddle:  # W^0: the rank-1 factors of a twiddle of ones
@@ -161,6 +161,8 @@ def _launch(xr, xi, r: int, direction: Direction, twiddle: bool, f1: int):
     """Launch one stage on contiguous [rows, r*M] CUDA planes: pass 1 in
     its stage mode, output row k of input row o*f1 + k1a at row
     (o, k, k1a) (f1 = 1: the plain store)."""
+    rec = trace.on()
+    t0 = rec and trace.now()
     name = "fused_stage"
     check_cuda(xr, xi, name=name)
     rows, n = xr.shape
@@ -170,9 +172,10 @@ def _launch(xr, xi, r: int, direction: Direction, twiddle: bool, f1: int):
                          f"got r={r}, M={M}")
     geo = stage_geometry(r)
     tw1, a_tab, p_tab = _stage_tables(r, M, direction, bool(twiddle), xr.device)
-    lib = _build.load_library()
     yr = torch.empty_like(xr)
     yi = torch.empty_like(xi)
+    t3 = rec and trace.now()
+    lib = _build.load_library()
     with torch.cuda.device(xr.device):
         rc = lib.fftlab_fused_stage(
             xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(), tw1.data_ptr(),
@@ -180,6 +183,8 @@ def _launch(xr, xi, r: int, direction: Direction, twiddle: bool, f1: int):
             log2_int(geo.T // PASS1_WIDTH), geo.c_struct(), int(direction), stream_of(xr))
     _build.check(lib, name, rc)
     LAUNCHES[name] += 1
+    if rec:
+        trace.launch_call(name, t0, t3, trace.now())
     return yr, yi
 
 
@@ -226,15 +231,18 @@ def stage_leaf(xr: torch.Tensor, xi: torch.Tensor, leaf: int, direction=FORWARD,
     direction = Direction(int(direction))
     if on_cpu(xr, name):
         return stage_leaf_plain(xr, xi, leaf, direction, scale)
+    rec = trace.on()
+    t0 = rec and trace.now()
     check_cuda(xr, xi, name=name)
     if not (is_power_of_two(n) and LANES <= leaf <= MAX_LEAF):
         raise ValueError(f"the {name} kernel takes pow2 n and pow2 leaf in "
                          f"[{LANES}, {MAX_LEAF}]; got n={n}, leaf={leaf}")
     geo = leaf_geometry(leaf)
     tw2 = _pass2_twiddle(leaf, direction, xr.device)
-    lib = _build.load_library()
     yr = torch.empty_like(xr)
     yi = torch.empty_like(xi)
+    t3 = rec and trace.now()
+    lib = _build.load_library()
     with torch.cuda.device(xr.device):
         rc = lib.fftlab_stage_leaf(
             xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(), tw2.data_ptr(), B,
@@ -242,6 +250,8 @@ def stage_leaf(xr: torch.Tensor, xi: torch.Tensor, leaf: int, direction=FORWARD,
             int(direction), float(scale), stream_of(xr))
     _build.check(lib, name, rc)
     LAUNCHES[name] += 1
+    if rec:
+        trace.launch_call(name, t0, t3, trace.now())
     return yr, yi
 
 

@@ -25,7 +25,6 @@ inputs take the kernel in both packages.
 from __future__ import annotations
 
 import dataclasses
-import functools
 
 import numpy as np
 import torch
@@ -46,6 +45,7 @@ from fftlab_torch.kernels._common import (
 )
 from fftlab_torch.kernels.fft_vmem import N1, _engine_twiddle, supported_size
 from fftlab_torch.kernels.rfft_vmem import _pair_twiddle, herm_unpack_plain
+from fftlab_torch.utils import trace
 
 FBS = 32  # frames per program of the JAX small-frame kernel
 
@@ -110,7 +110,7 @@ class StftLayout:
         return _build.StftLayout(*dataclasses.astuple(self))
 
 
-@functools.lru_cache(maxsize=64)
+@trace.table_cache(maxsize=64)
 def stft_layout(m: int, hop: int, T: int, stride: int, bins: int) -> StftLayout:
     """The layout of a block of T frames of m pairs at `hop`, `bins`
     floats out per frame, planes of `stride` (`StftLayout`)."""
@@ -126,7 +126,7 @@ def stft_layout(m: int, hop: int, T: int, stride: int, bins: int) -> StftLayout:
                       max(window + fft_size, 2 * stage_pitch))
 
 
-@functools.lru_cache(maxsize=64)
+@trace.table_cache(maxsize=64)
 def stft_geometry(fft_size: int, hop: int, T: int, bins: int) -> TileGeometry:
     """The launch of `stft_frames`: the engine's tile of T frames of
     m = fft_size/2 points (one frame a row, swizzled, above m = 1024;
@@ -145,7 +145,7 @@ def stft_geometry(fft_size: int, hop: int, T: int, bins: int) -> TileGeometry:
     return dataclasses.replace(geo, smem=4 * lay.total)
 
 
-@functools.lru_cache(maxsize=16)
+@trace.table_cache(maxsize=16)
 def _named_window(name: str, fft_size: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(get_window(name, fft_size).astype(np.float32)).to(device)
 
@@ -198,6 +198,8 @@ def _launch_stft(x, fft_size: int, hop: int, w, n_frames: int, onesided: bool,
     """Launch `stft_frames` at T frames per block on checked tensors; the
     launch adds one to `counts["stft_frames"]` (LAUNCHES, or the counts of
     chip_smoke.py's A/B of T)."""
+    rec = trace.on()
+    t0 = rec and trace.now()
     m = fft_size // 2
     bins = m + 1 if onesided else fft_size
     geo = stft_geometry(fft_size, hop, T, bins)
@@ -206,6 +208,7 @@ def _launch_stft(x, fft_size: int, hop: int, w, n_frames: int, onesided: bool,
     yi = torch.empty_like(yr)
     tw = _engine_twiddle(m, FORWARD, x.device)
     utw = _pair_twiddle(fft_size, FORWARD, x.device)
+    t3 = rec and trace.now()
     lib = _build.load_library()
     with torch.cuda.device(x.device):
         rc = lib.fftlab_stft_frames(
@@ -214,6 +217,8 @@ def _launch_stft(x, fft_size: int, hop: int, w, n_frames: int, onesided: bool,
             geo.c_struct(), lay.c_struct(), stream_of(x))
     _build.check(lib, "stft_frames", rc)
     counts["stft_frames"] += 1
+    if rec:
+        trace.launch_call("stft_frames", t0, t3, trace.now())
     return yr, yi
 
 

@@ -35,6 +35,7 @@ from fftlab_torch.core.types import FORWARD, INVERSE, Direction, as_complex_arra
 from fftlab_torch.plan.dispatch import run_route, select_split_impl
 from fftlab_torch.plan.flags import Flags, PlanConfig
 from fftlab_torch.plan.planner import select_algorithm
+from fftlab_torch.utils import trace
 
 
 def _dtype_name(dtype) -> str:
@@ -54,7 +55,16 @@ class Plan:
     fn: Callable = dataclasses.field(compare=False)
 
     def execute(self, x):
-        return self.fn(x)
+        """Run the plan on `x`: the recorder's root span `execute` while it
+        is on (utils/trace.py), opened and closed as near the caller as
+        it can be."""
+        if not trace.on():
+            return self.fn(x)
+        rec = trace.begin("execute")
+        try:
+            return self.fn(x)
+        finally:
+            trace.end(rec)
 
     __call__ = execute
 
@@ -118,6 +128,7 @@ def _make_plan(kind: str, n, direction: Direction, dtype: torch.dtype,
 
 
 @functools.lru_cache(maxsize=256)
+@trace.setup_span("plan")
 def _cached_plan(kind: str, n, direction: Direction, dtype_name: str,
                  config: PlanConfig, device: str) -> Plan:
     dtype = getattr(torch, dtype_name)
@@ -201,6 +212,7 @@ def ifft(x, algorithm: str | None = None, flags: Flags = Flags.ESTIMATE):
     return fft(x, INVERSE, algorithm, flags)
 
 
+@trace.setup_span("plan")
 def plan_dft_1d_sharded(n: int, mesh, axis_name: str = "tp",
                         direction=FORWARD, n1: int | None = None) -> Plan:
     """A plan whose execution splits ONE transform over `mesh[axis_name]`
@@ -254,6 +266,7 @@ def _split_route_for(n: int, flags: Flags, batch: int, device) -> str:
     return select_split_impl(n, batch)
 
 
+@trace.setup_span("plan")
 def plan_dft_1d_split(n: int, direction=FORWARD, flags: Flags = Flags.ESTIMATE,
                       batch: int = 1, device="cuda") -> Plan:
     """Plan for split re/im float32 planes [..., n]. ESTIMATE picks the
@@ -325,6 +338,7 @@ def _real_plan(kind: str, n: int, route: str, flags: Flags) -> Plan:
     return Plan(kind, n, direction, "float32", algorithm, PlanConfig(flags=flags), fn)
 
 
+@trace.setup_span("plan")
 def plan_r2c_1d_split(n: int, flags: Flags = Flags.ESTIMATE,
                       batch: int = 1, device="cuda") -> Plan:
     """Real-to-complex plan: real float32 [..., n] in, the (re, im) pair
@@ -335,6 +349,7 @@ def plan_r2c_1d_split(n: int, flags: Flags = Flags.ESTIMATE,
     return _real_plan("r2c_split", n, _real_route(n, flags, batch, device), flags)
 
 
+@trace.setup_span("plan")
 def plan_c2r_1d_split(n: int, flags: Flags = Flags.ESTIMATE,
                       batch: int = 1, device="cuda") -> Plan:
     """Complex-to-real plan, the inverse of `plan_r2c_1d_split`: the
@@ -344,6 +359,7 @@ def plan_c2r_1d_split(n: int, flags: Flags = Flags.ESTIMATE,
     return _real_plan("c2r_split", n, _real_route(n, flags, batch, device), flags)
 
 
+@trace.setup_span("plan")
 def plan_dft_1d_native(n: int, direction=FORWARD) -> Plan:
     """A plan on the host's native float64 FFT (native/fft64.cpp through
     `fftlab_torch.native.fft64`): complex128 numpy [..., n] in and out (a
@@ -416,6 +432,7 @@ def _complex_from_jax(algorithm: str, n, direction, kind: str) -> Plan:
                       PlanConfig(algorithm=algos[0] if len(algos) == 1 else None), algos)
 
 
+@trace.setup_span("plan")
 def plan_from_jax(route: str, n, direction: int = FORWARD,
                   kind: str = "c2c_split") -> Plan:
     """This package's plan for a JAX plan, read as plain values:

@@ -46,6 +46,7 @@ import os
 import torch
 
 from fftlab_torch.core.types import FORWARD
+from fftlab_torch.utils import trace
 
 ROUTES = ("smem_rows", "two_pass", "three_pass", "stage_pipeline", "einsum")
 
@@ -74,33 +75,17 @@ def select_split_impl(n: int, batch: int = 1) -> str:
     return "einsum"
 
 
-def run_route(route: str, xr: torch.Tensor, xi: torch.Tensor, direction,
-              scale: float | None = None):
-    """Execute a split-plane FFT through a named route. `scale` multiplies
-    the output; the kernel routes fold it into their last stage, the
-    einsum route multiplies after."""
-    if route not in ROUTES:
-        raise ValueError(f"unknown route {route!r}; want one of {ROUTES}")
-    if route == "smem_rows":
-        from fftlab_torch.kernels.fft_vmem import fft_split_rows
+def _pipeline_entry(xr: torch.Tensor, xi: torch.Tensor, direction, *, scale=None):
+    from fftlab_torch.kernels.stage_fused import fft_split_pipeline, pipeline_factors
 
-        return fft_split_rows(xr, xi, direction, scale=scale)
-    if route == "two_pass":
-        from fftlab_torch.kernels.fourstep_vmem import fft_split_large
+    n = int(xr.shape[-1])
+    B = math.prod(xr.shape[:-1])
+    yr, yi = fft_split_pipeline(xr.reshape(B, n), xi.reshape(B, n), direction,
+                                pipeline_factors(n), scale=scale)
+    return yr.reshape(xr.shape), yi.reshape(xi.shape)
 
-        return fft_split_large(xr, xi, direction, scale=scale)
-    if route == "three_pass":
-        from fftlab_torch.kernels.threestep_vmem import fft_split_huge
 
-        return fft_split_huge(xr, xi, direction, scale=scale)
-    if route == "stage_pipeline":
-        from fftlab_torch.kernels.stage_fused import fft_split_pipeline, pipeline_factors
-
-        n = int(xr.shape[-1])
-        B = math.prod(xr.shape[:-1])
-        yr, yi = fft_split_pipeline(xr.reshape(B, n), xi.reshape(B, n), direction,
-                                    pipeline_factors(n), scale=scale)
-        return yr.reshape(xr.shape), yi.reshape(xi.shape)
+def _einsum_entry(xr: torch.Tensor, xi: torch.Tensor, direction, *, scale=None):
     from fftlab_torch.algos.split_stockham import fft_split
     from fftlab_torch.plan.split_tuning import best_leaf
 
@@ -111,13 +96,66 @@ def run_route(route: str, xr: torch.Tensor, xi: torch.Tensor, direction,
     return yr * scale, yi * scale
 
 
-def fft_split_auto(xr: torch.Tensor, xi: torch.Tensor, direction=None):
-    """Split-plane FFT through the route `select_split_impl` picks."""
+def _route_entry(route: str):
+    """The entry of a named route: fn(xr, xi, direction, *, scale)."""
+    if route not in ROUTES:
+        raise ValueError(f"unknown route {route!r}; want one of {ROUTES}")
+    if route == "smem_rows":
+        from fftlab_torch.kernels.fft_vmem import fft_split_rows
+
+        return fft_split_rows
+    if route == "two_pass":
+        from fftlab_torch.kernels.fourstep_vmem import fft_split_large
+
+        return fft_split_large
+    if route == "three_pass":
+        from fftlab_torch.kernels.threestep_vmem import fft_split_huge
+
+        return fft_split_huge
+    if route == "stage_pipeline":
+        return _pipeline_entry
+    return _einsum_entry
+
+
+def run_route(route: str, xr: torch.Tensor, xi: torch.Tensor, direction,
+              scale: float | None = None):
+    """Execute a split-plane FFT through a named route. `scale` multiplies
+    the output; the kernel routes fold it into their last stage, the
+    einsum route multiplies after. While the recorder is on, the body is
+    the span `dispatch` and the route's entry the span `wrapper` under it
+    (utils/trace.py)."""
+    if not trace.on():
+        return _route_entry(route)(xr, xi, direction, scale=scale)
+    dispatch = trace.begin("dispatch")
+    try:
+        entry = _route_entry(route)
+        wrapper = trace.begin("wrapper")
+        try:
+            return entry(xr, xi, direction, scale=scale)
+        finally:
+            trace.end(wrapper)
+    finally:
+        trace.end(dispatch)
+
+
+def _split_auto(xr: torch.Tensor, xi: torch.Tensor, direction):
     if direction is None:
         direction = FORWARD
     n = int(xr.shape[-1])
     return run_route(select_split_impl(n, math.prod(xr.shape[:-1])),
                      xr, xi, direction)
+
+
+def fft_split_auto(xr: torch.Tensor, xi: torch.Tensor, direction=None):
+    """Split-plane FFT through the route `select_split_impl` picks; the
+    recorder's root span `execute` while it is on."""
+    if not trace.on():
+        return _split_auto(xr, xi, direction)
+    rec = trace.begin("execute")
+    try:
+        return _split_auto(xr, xi, direction)
+    finally:
+        trace.end(rec)
 
 
 def select_filter_impl(n: int) -> str:
@@ -134,6 +172,26 @@ def select_filter_impl(n: int) -> str:
     return "einsum"
 
 
+def _filter_entry(n: int, permuted):
+    """The sandwich entry of the route `select_filter_impl` picks for n:
+    fn(xr, xi, hr, hi)."""
+    route = select_filter_impl(n)
+    if route == "smem_rows":
+        from fftlab_torch.kernels.fft_vmem import pallas_spectral_filter
+
+        return pallas_spectral_filter
+    if route == "two_pass":
+        from fftlab_torch.kernels.fourstep_vmem import spectral_filter_large
+
+        return spectral_filter_large
+    from fftlab_torch.algos.split_stockham import spectral_filter_split_fused
+
+    if permuted is None:
+        return spectral_filter_split_fused
+    return lambda xr, xi, hr, hi: spectral_filter_split_fused(xr, xi, *permuted,
+                                                              h_permuted=True)
+
+
 def spectral_filter_auto(xr: torch.Tensor, xi: torch.Tensor, hr, hi,
                          permuted=None):
     """ifft(fft(x) * H), 1/n scaled, on split planes [..., n] through the
@@ -143,18 +201,20 @@ def spectral_filter_auto(xr: torch.Tensor, xi: torch.Tensor, hr, hi,
     hr, hi: the n-bin response in natural bin order, numpy or a tensor.
     `permuted` optionally gives a digit-reversed copy (hr_p, hi_p) for the
     einsum route (`split_stockham.permute_response`), so a cached
-    plan-time constant is not permuted again on every call."""
-    from fftlab_torch.algos.split_stockham import spectral_filter_split_fused
-
-    route = select_filter_impl(int(xr.shape[-1]))
-    if route == "smem_rows":
-        from fftlab_torch.kernels.fft_vmem import pallas_spectral_filter
-
-        return pallas_spectral_filter(xr, xi, hr, hi)
-    if route == "two_pass":
-        from fftlab_torch.kernels.fourstep_vmem import spectral_filter_large
-
-        return spectral_filter_large(xr, xi, hr, hi)
-    if permuted is not None:
-        return spectral_filter_split_fused(xr, xi, *permuted, h_permuted=True)
-    return spectral_filter_split_fused(xr, xi, hr, hi)
+    plan-time constant is not permuted again on every call. While the
+    recorder is on: the root span `execute`, `dispatch` under it, and the
+    route's entry as `wrapper` (utils/trace.py)."""
+    if not trace.on():
+        return _filter_entry(int(xr.shape[-1]), permuted)(xr, xi, hr, hi)
+    root = trace.begin("execute")
+    dispatch = trace.begin("dispatch")
+    try:
+        entry = _filter_entry(int(xr.shape[-1]), permuted)
+        wrapper = trace.begin("wrapper")
+        try:
+            return entry(xr, xi, hr, hi)
+        finally:
+            trace.end(wrapper)
+    finally:
+        trace.end(dispatch)
+        trace.end(root)

@@ -218,6 +218,58 @@ def test_filter_path_launches_kernels(no_tf32, n, kernels):
     assert snr_db(cplx(yr, yi), _sandwich_oracle(xr, xi, hr, torch.zeros_like(hr))) >= gate
 
 
+def test_profiled_calls_record_their_launches(no_tf32):
+    """Under a torch.profiler profile of CUDA activity alone (the
+    benchmark's traced slice), the recorder is on: a two-pass c2c call and
+    a sandwich call each give execute -> dispatch -> wrapper, one launch
+    span a LAUNCHES count with the children checks, alloc, tables and call
+    in order, end to end, and self times that add up to the root."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from fftlab_torch.utils import trace
+
+    n = 1 << 20
+    xr, xi = _cuda_pair(39, (4, n))
+    hr, hi = _cuda_pair(40, (n,))
+    plan = fftlab_torch.plan_dft_1d_split(n)
+    plan.execute((xr, xi))
+    fftlab_torch.spectral_filter_auto(xr, xi, hr, hi)
+    torch.cuda.synchronize()
+    trace.clear()
+    before = _launches()
+    with profile(activities=[ProfilerActivity.CUDA]):
+        assert trace.on()
+        got = plan.execute((xr, xi))
+        fftlab_torch.spectral_filter_auto(xr, xi, hr, hi)
+        torch.cuda.synchronize()
+    assert not trace.on()
+    delta = {k: v - before[k] for k, v in _launches().items() if v != before[k]}
+    assert delta == {"fourstep_pass1": 3, "fourstep_pass2": 1, "fourstep_pass2_sandwich": 1}
+    assert snr_db(cplx(*got), oracle(xr.cpu(), xi.cpu(), -1)) >= 120.0
+    spans = trace.spans()
+    kids = lambda i: [j for j, s in enumerate(spans) if s[3] == i]  # noqa: E731
+    launches = [i for i, s in enumerate(spans) if s[0] in delta]
+    assert [spans[i][0] for i in launches] == [
+        "fourstep_pass1", "fourstep_pass2", "fourstep_pass1", "fourstep_pass2_sandwich",
+        "fourstep_pass1"]
+    for i in launches:
+        ch = kids(i)
+        assert [spans[j][0] for j in ch] == list(trace.PHASES)
+        assert spans[ch[0]][1] == spans[i][1] and spans[ch[-1]][2] == spans[i][2]
+        assert all(spans[a][2] == spans[b][1] for a, b in zip(ch, ch[1:]))
+        assert spans[spans[i][3]][0] == "wrapper"
+    roots = [i for i, s in enumerate(spans) if s[3] < 0]
+    assert [spans[i][0] for i in roots] == ["execute", "execute"]
+    for r in roots:
+        call = [i for i, s in enumerate(spans) if s[4] == spans[r][4]]
+        assert [spans[i][0] for i in call[:3]] == ["execute", "dispatch", "wrapper"]
+        self_ns = sum((spans[i][2] - spans[i][1]) - sum(spans[j][2] - spans[j][1]
+                                                        for j in kids(i)) for i in call)
+        assert self_ns == spans[r][2] - spans[r][1]
+        assert all(spans[spans[i][3]][1] <= spans[i][1] and
+                   spans[i][2] <= spans[spans[i][3]][2] for i in call if i != r)
+
+
 def test_bluestein_launches_the_sandwich(no_tf32):
     n = 500009
     xr, xi = planes(n, (2, n))

@@ -214,11 +214,25 @@ def test_span_waits_only_for_a_card():
 
 
 def test_profiler_trace_writes_a_chrome_trace(tmp_path):
+    from fftlab_torch.plan.api import plan_dft_1d_split
+
+    plan = plan_dft_1d_split(1024, device="cpu")
+    x = (torch.randn(2, 1024), torch.randn(2, 1024))
     with trace.profiler_trace(str(tmp_path / "log")) as prof:
         with trace.annotate("fftlab_region"):
             torch.fft.fft(torch.randn(4, 256, dtype=torch.complex64))
+            plan.execute(x)
     path = tmp_path / "log" / trace.TRACE_FILE
     assert path.stat().st_size > 0
     events = json.loads(path.read_text())["traceEvents"]
     assert any(e.get("name") == "fftlab_region" for e in events)
     assert any(e.key == "fftlab_region" for e in prof.key_averages())
+    # fftlab's spans of the block, merged in as a process of their own,
+    # inside the profiler's own range of the block
+    pid = next(e["pid"] for e in events
+               if e.get("ph") == "M" and e.get("args", {}).get("name") == "fftlab")
+    ours = {e["name"]: e for e in events if e.get("pid") == pid and e.get("ph") == "X"}
+    assert set(ours) >= {"execute", "dispatch", "wrapper"}
+    region = next(e for e in events if e.get("name") == "fftlab_region" and "dur" in e)
+    ex = ours["execute"]
+    assert region["ts"] <= ex["ts"] and ex["ts"] + ex["dur"] <= region["ts"] + region["dur"]
