@@ -20,10 +20,11 @@ taps in 2K frames; the two-pass sandwich `spectral_filter_large` at
 2048/512, 4096/1024 and 16384/4096 (one-sided), beside `torch.stft`;
 `fft_rows` at 256 x 16384 beside `torch.fft.fft`; and the other
 register-engine kernels (csrc/fft_reg.cuh): the two-pass pair at
-16 x 2^20, its packed-real and interleaved modes at 8 x 2^21 and the
-three passes of the huge-n FFT at 1 x 2^24; and the stage pipeline at
-16 x 2^20 (`fft_split_pipeline`, factors (128, 64, 128)) with its two
-stages as `fused_stage` calls. Each is timed both ways of
+16 x 2^20, pass 1 also at 4 x 2^21, its packed-real and interleaved modes
+and the fused r2c (`rfft_resident`) at 8 x 2^21 and the three passes of
+the huge-n FFT at 1 x 2^24, passes A and B also at 4 x 2^22; and the
+stage pipeline at 16 x 2^20 (`fft_split_pipeline`, factors (128, 64,
+128)) with its two stages as `fused_stage` calls. Each is timed both ways of
 chip_smoke.py's `time_ms`: 10 back-to-back calls between CUDA events,
 and a CUDA graph of the 10 calls (the device time alone).
 """
@@ -40,8 +41,10 @@ STFT_N = 1 << 22
 STFT_CASES = ((256, 128), (2048, 512), (4096, 1024), (16384, 4096))
 ROWS_SHAPE = (256, 16384)
 PAIR_SHAPE = (16, 1 << 20)
+PASS1_21_SHAPE = (4, 1 << 21)
 REAL_SHAPE = (8, 1 << 21)
 HUGE_SHAPE = (1, 1 << 24)
+HUGE_22_SHAPE = (4, 1 << 22)
 PIPELINE_SHAPE = (16, 1 << 20)
 FILTER_ROWS_SHAPES = ((256, 16384), (64, 1024))
 OS_N = 1 << 23
@@ -62,7 +65,7 @@ def worker(tree: str) -> dict:
     import numpy as np
 
     from fftlab_torch.kernels import (_build, fft_vmem, fourstep_vmem, os_filter_vmem,
-                                      stage_fused, stft_vmem, threestep_vmem)
+                                      rfft_resident, stage_fused, stft_vmem, threestep_vmem)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     _build.load_library()
@@ -113,10 +116,13 @@ def worker(tree: str) -> dict:
     mid = fourstep_vmem.fourstep_pass1(xr, xi)
     cases["fourstep_pass1 16 x 2^20"] = lambda: fourstep_vmem.fourstep_pass1(xr, xi)
     cases["fourstep_pass2 16 x 2^20"] = lambda: fourstep_vmem.fourstep_pass2(*mid)
+    wr, wi = planes(*PASS1_21_SHAPE)
+    cases["fourstep_pass1 4 x 2^21"] = lambda: fourstep_vmem.fourstep_pass1(wr, wi)
     x = torch.randn(*REAL_SHAPE, generator=gen, device=dev)
     pmid = fourstep_vmem.fourstep_pass1(*planes(REAL_SHAPE[0], REAL_SHAPE[1] // 2), INVERSE)
     n_real = REAL_SHAPE[1]
     cases["fourstep_pass1_packed 8 x 2^21"] = lambda: fourstep_vmem.fourstep_pass1_packed(x)
+    cases["rfft_resident 8 x 2^21"] = lambda: rfft_resident.rfft_resident(x)
     cases["fourstep_pass2_interleaved 8 x 2^21"] = (
         lambda: fourstep_vmem.fourstep_pass2_interleaved(*pmid, INVERSE, 2.0 / n_real))
     hr, hi = planes(*HUGE_SHAPE)
@@ -125,6 +131,10 @@ def worker(tree: str) -> dict:
     cases["threestep_pass_a 1 x 2^24"] = lambda: threestep_vmem.threestep_pass_a(hr, hi)
     cases["threestep_pass_b 1 x 2^24"] = lambda: threestep_vmem.threestep_pass_b(*a)
     cases["threestep_pass_c 1 x 2^24"] = lambda: threestep_vmem.threestep_pass_c(*b)
+    gr, gi = planes(*HUGE_22_SHAPE)
+    ga = threestep_vmem.threestep_pass_a(gr, gi)
+    cases["threestep_pass_a 4 x 2^22"] = lambda: threestep_vmem.threestep_pass_a(gr, gi)
+    cases["threestep_pass_b 4 x 2^22"] = lambda: threestep_vmem.threestep_pass_b(*ga)
     B, n = PIPELINE_SHAPE
     factors = stage_fused.pipeline_factors(n)
     r1, r2 = factors[0], factors[1]

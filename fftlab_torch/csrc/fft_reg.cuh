@@ -294,6 +294,11 @@ __device__ __forceinline__ void twiddle(float2 (&v)[N], int o, const float2* __r
   }
 }
 
+// The default of `Engine::run`'s `after_load`: nothing.
+struct NoWork {
+  __device__ __forceinline__ void operator()() const {}
+};
+
 // Butterfly j and transform t of slot i of this thread, in a pass whose
 // transforms have 2^log_j butterflies.
 __device__ __forceinline__ void slot_of(int i, int g, int log_j, int& j, int& t) {
@@ -365,7 +370,7 @@ struct Engine {
   // The last pass (radix kLastR, ns = L/kLastR), after the exchange of the
   // radix-16 pass before it (at 2^log_ns). Output r of butterfly j of
   // transform t is element j + r*L/R, times `scale`, through
-  // `store(t, e, value)`. The epilogue's loads (H, the rank-1 twiddle)
+  // `store(t, e, value)`. The epilogue's loads (H, a twiddle factor)
   // are kept to a few outputs at a time, in loops the compiler does not
   // unroll: a radix-8, 4 or 2 pass runs one slot at a time, and a radix-16
   // pass (one slot) runs its DFT's second stage and its stores one group
@@ -445,11 +450,16 @@ struct Engine {
 
   // The whole transform: inputs through `load(t, e)`, outputs times
   // `scale` through `store(t, e, value)`; `tw` is the twiddle table of L.
-  template <class Load, class Store>
+  // `after_load()` runs once the first pass's loads are issued, before any
+  // barrier: a caller's own loads there wait beside them, and what it puts
+  // in shared memory outside the planes is readable by every thread from
+  // the first exchange on.
+  template <class Load, class Store, class AfterLoad = NoWork>
   __device__ __forceinline__ void run(const float2* __restrict__ tw, float scale, Load load,
-                                      Store store) const {
+                                      Store store, AfterLoad after_load = {}) const {
     float2 v[kP];
     load_first(v, load);
+    after_load();
     dft<16>(v, 0, sign);  // ns = 1: no twiddles
     int log_ns = 0;
     int g_w = g_first;

@@ -37,9 +37,16 @@
 //   It loads x[b, j1, c*W .. c*W+W) for every j1 (W floats = 32 or 64
 //   contiguous bytes per j1 at W = 8 or 16), runs the length-L1 FFT down
 //   each column in registers and shared memory, multiplies by
-//   W_n^{k1*j2} in the rank-1 form A[j2/16, k1] * P[k1, j2 mod 16]
-//   (fourstep_vmem._rank1_twiddle_np, float64-built tables), and writes
-//   the row-major (B, L1, L2) intermediate.
+//   W_n^{k1*j2}, and writes the row-major (B, L1, L2) intermediate. At
+//   L1 >= 512 the twiddle is S[k1 mod U, j2] * S[U + k1 div U, j2] (U =
+//   2^ceil(log2 L1 / 2); fourstep_vmem._staged_twiddle_np, a float64-built
+//   table of U + L1/U rows): the block's W columns of S (4 KB at L1 =
+//   1024, W = 8) are staged in shared memory beside the first pass's
+//   loads, and the store reads both factors there. At L1 <= 256 it is
+//   the rank-1 A[j2/16, k1] * P[k1, j2 mod 16]
+//   (fourstep_vmem._rank1_twiddle_np), read straight by the store: P
+//   (L1 x 16, 32 KB at most) stays in L1, and S would cost a block more
+//   table than A's row does (`column_tile`).
 // Pass 2: one block per (b, tile of R consecutive rows k1). It loads R
 //   whole rows, runs the length-L2 FFT along each with the output scale
 //   folded into the last pass, and stores element (k2, k1) at
@@ -125,7 +132,9 @@
 // safely, and the grid is checked against INT_MAX at launch. Pass A's
 // rank-1 factor A is (F2F3/16, F1) float2, 32 MB at 2^26; each block reads
 // its own F1 entries, so the table costs 0.5 byte per point (3% of the
-// pass's 16).
+// pass's 16). The staged table S would cost 8*(U + F1/U)/F1 bytes a point,
+// 1.5 at F1 = 128 and 1 at 256: on an H100 pass A read 2-7% slower with it
+// at 2^22..2^26, and the two-pass pass 1 at L1 = 128 3.6%.
 //
 // Bound on this card: device memory. Each pass reads and writes the
 // signal once (16 bytes per point per pass, 268 MB at 16 x 2^20 or at
@@ -135,7 +144,7 @@
 // columns per row; pass 2: 32 consecutive floats of one row per warp),
 // the passes exchange through padded shared-memory planes (2 exchanges
 // at L = 512..2048, 1 at 128..256), and the last pass stores straight
-// from registers: pass 1 with the rank-1 twiddle, pass 2 with the scale,
+// from registers: pass 1 with the cross twiddle, pass 2 with the scale,
 // the corner turn (runs of 8 consecutive k1 per k2) or the interleave.
 // The sandwich mode reads and writes the signal once too, and H (8 bytes
 // a point of one batch row, L2-resident across batch rows) once a batch
@@ -158,6 +167,23 @@ constexpr int kLogPadTiles = 4;
 // The rank-1 twiddle tables are built at a width of 16 columns
 // (kernels/fourstep_vmem.py PASS1_WIDTH): A is (L2/16, L1), P is (L1, 16).
 constexpr int kLogTableWidth = 4;
+
+// Pass 1's staged twiddle (`column_tile`), from L1 = 2^kLogStagedMin
+// (kernels/fourstep_vmem.py STAGED_MIN_L1): W_n^{k1*j2} = S[k1 mod U, j2] *
+// S[U + k1 div U, j2], U = 2^staged_log_u, S of staged_rows(log_l1) rows
+// (kernels/fourstep_vmem.py `_staged_twiddle_np`). U near sqrt(L1) keeps a
+// block's share of S, W*(U + L1/U) values, at its least. From there P
+// (L1 x 16 float2, 64 KB at 512) no longer stays in L1 beside the planes,
+// and the store's loads of A and P from L2 cost 8-11% of the pass on an
+// H100; below it P stays, and S would bring a block more table than A's
+// row does.
+constexpr int kLogStagedMin = 9;
+
+__host__ __device__ constexpr int staged_log_u(int log_l1) { return (log_l1 + 1) >> 1; }
+
+__host__ __device__ constexpr int staged_rows(int log_l1) {
+  return (1 << staged_log_u(log_l1)) + (1 << (log_l1 - staged_log_u(log_l1)));
+}
 
 // The most threads a tile of length-2^kLogL transforms takes (T <= 16).
 template <int kLogL>
@@ -247,17 +273,30 @@ __device__ __forceinline__ void stage_tile(const float* __restrict__ xr,
 }
 
 // Pass 1 in the other modes: a block takes W = 2^log_w consecutive
-// columns of one batch row.
+// columns of one batch row. The twiddled modes (all but kNoTwiddle) at
+// L1 >= 2^kLogStagedMin stage the block's W columns of S (`staged_rows`)
+// in shared memory past the exchange planes, row q's column t at q*W +
+// (t ^ ((q << g) & (W - 1))): every load is issued beside the first
+// pass's, and the store multiplies by two shared-memory reads. The last
+// pass gives a warp 32/2^g neighbouring k1 of 2^g neighbouring columns,
+// so its reads of the first factor are 256 contiguous bytes (at W = 16
+// the XOR puts odd rows' halves on the other 16 banks) and of the second
+// one row's 2^g values. At shorter L1 the store reads A[j2/16, k1] *
+// P[k1, j2 mod 16] itself.
 template <int kMode, int kLogL1>
 __device__ __forceinline__ void column_tile(const float* __restrict__ xr,
                                             const float* __restrict__ xi, float* __restrict__ mr,
                                             float* __restrict__ mi,
                                             const float2* __restrict__ tw1,
                                             const float2* __restrict__ a_tab,
-                                            const float2* __restrict__ p_tab, int log_l2,
+                                            const float2* __restrict__ p_tab,
+                                            const float2* __restrict__ s_tab, int log_l2,
                                             int log_w, int log_f1, const Geometry& geo,
                                             float sign) {
   constexpr int log_l1 = kLogL1;
+  constexpr bool kStaged = kMode != kNoTwiddle && kLogL1 >= kLogStagedMin;
+  constexpr int log_u = staged_log_u(kLogL1);
+  constexpr int kRows = staged_rows(kLogL1);
   const int log_c = log_l2 - log_w;
   const size_t b = blockIdx.x >> log_c;
   const int j2_0 = (blockIdx.x & ((1 << log_c) - 1)) << log_w;  // first column of the tile
@@ -271,29 +310,45 @@ __device__ __forceinline__ void column_tile(const float* __restrict__ xr,
   const int log_out_row = kMode == kSwapStore ? log_f1 + log_l2 : log_l2;
   float* __restrict__ outr = mr + out0;
   float* __restrict__ outi = mi + out0;
-  // W_n^{k1*j2} = A[j2 / 16, k1] * P[k1, j2 mod 16]
-  const float2* __restrict__ a_c = a_tab + (static_cast<size_t>(j2_0 >> kLogTableWidth) << log_l1);
-  const float2* __restrict__ p_c = p_tab + (j2_0 & ((1 << kLogTableWidth) - 1));
   const int g = run_bits(log_w);
   const Engine<kLogL1, kLogPadTiles> engine{make_tile(log_w, geo), g, g, sign};
-  engine.run(
-      tw1, 1.0f,
-      [&](int t, int j1) {
-        const int at = (j1 << log_l2) + t;
-        if constexpr (kMode == kPackedReal) {
-          return __ldg(reinterpret_cast<const float2*>(xr) + col0 + at);
-        } else {
-          return make_float2(__ldg(xr + col0 + at), __ldg(xi + col0 + at));
-        }
-      },
-      [&](int t, int k1, float2 y) {
-        if constexpr (kMode != kNoTwiddle) {
-          y = cmul(y, cmul(__ldg(a_c + k1), __ldg(p_c + (k1 << kLogTableWidth) + t)));
-        }
-        const int at = (k1 << log_out_row) + t;
-        outr[at] = y.x;
-        outi[at] = y.y;
-      });
+  // W_n^{k1*j2} = A[j2 / 16, k1] * P[k1, j2 mod 16] below 2^kLogStagedMin
+  const float2* __restrict__ a_c = a_tab + (static_cast<size_t>(j2_0 >> kLogTableWidth) << log_l1);
+  const float2* __restrict__ p_c = p_tab + (j2_0 & ((1 << kLogTableWidth) - 1));
+  // the staged columns of S, past the planes' 2*W*stride floats
+  float2* const staged = smem_tile() + (geo.stride << log_w);
+  const int swizzle = (1 << log_w) - 1;
+  const auto staged_at = [&](int q, int t) { return (q << log_w) + (t ^ ((q << g) & swizzle)); };
+  const auto load = [&](int t, int j1) {
+    const int at = (j1 << log_l2) + t;
+    if constexpr (kMode == kPackedReal) {
+      return __ldg(reinterpret_cast<const float2*>(xr) + col0 + at);
+    } else {
+      return make_float2(__ldg(xr + col0 + at), __ldg(xi + col0 + at));
+    }
+  };
+  const auto store = [&](int t, int k1, float2 y) {
+    if constexpr (kStaged) {
+      y = cmul(y, cmul(staged[staged_at(k1 & ((1 << log_u) - 1), t)],
+                       staged[staged_at((1 << log_u) + (k1 >> log_u), t)]));
+    } else if constexpr (kMode != kNoTwiddle) {
+      y = cmul(y, cmul(__ldg(a_c + k1), __ldg(p_c + (k1 << kLogTableWidth) + t)));
+    }
+    const int at = (k1 << log_out_row) + t;
+    outr[at] = y.x;
+    outi[at] = y.y;
+  };
+  // S's rows by pairs of columns: one 16-byte load and store each
+  engine.run(tw1, 1.0f, load, store, [&] {
+    if constexpr (kStaged) {
+      for (int i = threadIdx.x; i < kRows << (log_w - 1); i += blockDim.x) {
+        const int q = i >> (log_w - 1);
+        const int t = (i << 1) & swizzle;
+        *reinterpret_cast<float4*>(staged + staged_at(q, t)) = __ldg(
+            reinterpret_cast<const float4*>(s_tab + (static_cast<size_t>(q) << log_l2) + j2_0 + t));
+      }
+    }
+  });
 }
 
 template <int kMode, int kLogL1>
@@ -302,13 +357,14 @@ __global__ void __launch_bounds__(pass1_threads<kMode, kLogL1>(),
 fourstep_pass1_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
                       float* __restrict__ mr, float* __restrict__ mi,
                       const float2* __restrict__ tw1, const float2* __restrict__ a_tab,
-                      const float2* __restrict__ p_tab, int log_l2, int log_w, int log_f1,
-                      Geometry geo, float sign, long long rows, int log_g) {
+                      const float2* __restrict__ p_tab, const float2* __restrict__ s_tab,
+                      int log_l2, int log_w, int log_f1, Geometry geo, float sign, long long rows,
+                      int log_g) {
   if constexpr (kMode == kStage) {
     stage_tile<kLogL1>(xr, xi, mr, mi, tw1, a_tab, p_tab, log_l2, log_f1, geo, sign, rows, log_g);
   } else {
-    column_tile<kMode, kLogL1>(xr, xi, mr, mi, tw1, a_tab, p_tab, log_l2, log_w, log_f1, geo,
-                               sign);
+    column_tile<kMode, kLogL1>(xr, xi, mr, mi, tw1, a_tab, p_tab, s_tab, log_l2, log_w, log_f1,
+                               geo, sign);
   }
 }
 
@@ -479,39 +535,50 @@ cudaError_t launch(Kernel kernel, long long grid, const Geometry& geo, void* str
 }
 
 // batch: rows of L1*L2 the kernel transforms (for kSwapStore, F1 times
-// the caller's batch).
+// the caller's batch). A twiddled mode takes A and P below
+// 2^kLogStagedMin, else S, and then its shared memory holds the planes and
+// the block's staged_rows x W values of S.
 template <int kMode>
 int launch_pass1(const float* xr, const float* xi, float* mr, float* mi, const void* tw1,
-                 const void* a_tab, const void* p_tab, long long batch, int log_l1, int log_l2,
-                 int log_w, int log_f1, Geometry geo, int direction, void* stream) {
+                 const void* a_tab, const void* p_tab, const void* s_tab, long long batch,
+                 int log_l1, int log_l2, int log_w, int log_f1, Geometry geo, int direction,
+                 void* stream) {
+  const bool staged = kMode != kNoTwiddle && log_l1 >= kLogStagedMin;
   const long long blocks = batch << (log_l2 - log_w);
   if (!valid_geometry(geo, log_l1, log_w, kLogPadTiles) || log_w > kLogTableWidth ||
       log_w < 2 || log_l2 < kLogTableWidth || log_l2 > 26 || batch < 1 || blocks > INT_MAX ||
       log_f1 < 0 || (batch & ((1LL << log_f1) - 1)) != 0 ||
-      (direction != 1 && direction != -1)) {
+      (direction != 1 && direction != -1) ||
+      (staged &&
+       (s_tab == nullptr || geo.smem < ((8LL * (geo.stride + staged_rows(log_l1))) << log_w))) ||
+      (kMode != kNoTwiddle && !staged && (a_tab == nullptr || p_tab == nullptr))) {
     return cudaErrorInvalidValue;
   }
   return dispatch<7, 10>(log_l1, [&](auto log_l1_c) {
     return launch(fourstep_pass1_kernel<kMode, decltype(log_l1_c)::value>, blocks, geo, stream,
                   xr, xi, mr, mi, static_cast<const float2*>(tw1),
-                  static_cast<const float2*>(a_tab), static_cast<const float2*>(p_tab), log_l2,
-                  log_w, log_f1, geo, static_cast<float>(direction), batch, 0);
+                  static_cast<const float2*>(a_tab), static_cast<const float2*>(p_tab),
+                  static_cast<const float2*>(s_tab), log_l2, log_w, log_f1, geo,
+                  static_cast<float>(direction), batch, 0);
   });
 }
 
 }  // namespace
 
 // Pass 1. x: [batch, L1*L2] float32 planes; m: the (batch, L1, L2)
-// intermediate planes; tw1: the engine's twiddle table for L1; a_tab:
-// (L2/16, L1) and p_tab: (L1, 16) float2 rank-1 twiddle factors; W =
+// intermediate planes; tw1: the engine's twiddle table for L1; W_n^{k1*j2}
+// below L1 = 2^kLogStagedMin as a_tab: (L2/16, L1) and p_tab: (L1, 16)
+// float2 rank-1 factors, from it as s_tab: the (staged_rows(log_l1), L2)
+// float2 table S (`column_tile`; the other tables may be null); W =
 // 2^log_w <= 16 columns per block; geo: the launch geometry of
 // kernels/fourstep_vmem.py `pass1_geometry`. Returns a cudaError_t.
 extern "C" int fftlab_fourstep_pass1(const float* xr, const float* xi, float* mr, float* mi,
                                      const void* tw1, const void* a_tab, const void* p_tab,
-                                     long long batch, int log_l1, int log_l2, int log_w,
-                                     Geometry geo, int direction, void* stream) {
-  return launch_pass1<kPlainLoad>(xr, xi, mr, mi, tw1, a_tab, p_tab, batch, log_l1, log_l2,
-                                  log_w, 0, geo, direction, stream);
+                                     const void* s_tab, long long batch, int log_l1,
+                                     int log_l2, int log_w, Geometry geo, int direction,
+                                     void* stream) {
+  return launch_pass1<kPlainLoad>(xr, xi, mr, mi, tw1, a_tab, p_tab, s_tab, batch, log_l1,
+                                  log_l2, log_w, 0, geo, direction, stream);
 }
 
 // Pass 1 with no twiddle (kNoTwiddle): the column FFTs alone, stored at
@@ -521,8 +588,8 @@ extern "C" int fftlab_fourstep_pass1_no_twiddle(const float* xr, const float* xi
                                                 float* mi, const void* tw1, long long batch,
                                                 int log_l1, int log_l2, int log_w, Geometry geo,
                                                 int direction, void* stream) {
-  return launch_pass1<kNoTwiddle>(xr, xi, mr, mi, tw1, nullptr, nullptr, batch, log_l1, log_l2,
-                                  log_w, 0, geo, direction, stream);
+  return launch_pass1<kNoTwiddle>(xr, xi, mr, mi, tw1, nullptr, nullptr, nullptr, batch, log_l1,
+                                  log_l2, log_w, 0, geo, direction, stream);
 }
 
 // Pass 1 of a packed real signal. x: [batch, 2*L1*L2] float32 (8-byte
@@ -530,11 +597,11 @@ extern "C" int fftlab_fourstep_pass1_no_twiddle(const float* xr, const float* xi
 // fftlab_fourstep_pass1. Returns a cudaError_t.
 extern "C" int fftlab_fourstep_pass1_packed(const float* x, float* mr, float* mi,
                                             const void* tw1, const void* a_tab,
-                                            const void* p_tab, long long batch, int log_l1,
-                                            int log_l2, int log_w, Geometry geo, int direction,
-                                            void* stream) {
-  return launch_pass1<kPackedReal>(x, nullptr, mr, mi, tw1, a_tab, p_tab, batch, log_l1, log_l2,
-                                   log_w, 0, geo, direction, stream);
+                                            const void* p_tab, const void* s_tab,
+                                            long long batch, int log_l1, int log_l2, int log_w,
+                                            Geometry geo, int direction, void* stream) {
+  return launch_pass1<kPackedReal>(x, nullptr, mr, mi, tw1, a_tab, p_tab, s_tab, batch, log_l1,
+                                   log_l2, log_w, 0, geo, direction, stream);
 }
 
 // Pass B of the three-pass FFT: pass 1 of batch*F1 rows of L1*L2 (row
@@ -543,11 +610,12 @@ extern "C" int fftlab_fourstep_pass1_packed(const float* x, float* mr, float* mi
 // store. Planes and tables as fftlab_fourstep_pass1. Returns a cudaError_t.
 extern "C" int fftlab_fourstep_pass1_swap(const float* xr, const float* xi, float* mr, float* mi,
                                           const void* tw1, const void* a_tab, const void* p_tab,
-                                          long long batch, int log_f1, int log_l1, int log_l2,
-                                          int log_w, Geometry geo, int direction, void* stream) {
+                                          const void* s_tab, long long batch, int log_f1,
+                                          int log_l1, int log_l2, int log_w, Geometry geo,
+                                          int direction, void* stream) {
   if (batch < 1 || log_f1 < 0 || log_f1 > 20) return cudaErrorInvalidValue;
-  return launch_pass1<kSwapStore>(xr, xi, mr, mi, tw1, a_tab, p_tab, batch << log_f1, log_l1,
-                                  log_l2, log_w, log_f1, geo, direction, stream);
+  return launch_pass1<kSwapStore>(xr, xi, mr, mi, tw1, a_tab, p_tab, s_tab, batch << log_f1,
+                                  log_l1, log_l2, log_w, log_f1, geo, direction, stream);
 }
 
 namespace {
@@ -626,8 +694,9 @@ extern "C" int fftlab_fourstep_pass2_interleaved(const float* mr, const float* m
 // x: [rows, L1*L2] float32 planes, L1 = 2^log_l1 in 2..128, L2 =
 // 2^log_l2 >= 16; y: the same shape, output row k1 of input row
 // o*F1 + k1a stored at row (o, k1, k1a), F1 = 2^log_f1 dividing rows
-// (F1 = 1: the plain pass-1 store); tw1, a_tab, p_tab: as
-// fftlab_fourstep_pass1 (A and P of ones: no twiddle); G = 2^log_g rows
+// (F1 = 1: the plain pass-1 store); tw1: the engine's twiddle table for
+// L1; a_tab (L2/16, L1) and p_tab (L1, 16): W_n^{k1*j2} in rank-1 form
+// (A and P of ones: no twiddle); G = 2^log_g rows
 // of 16 columns per block; geo: the launch geometry of
 // kernels/fourstep_vmem.py `stage_geometry`. Returns a cudaError_t.
 extern "C" int fftlab_fused_stage(const float* xr, const float* xi, float* yr, float* yi,
@@ -646,8 +715,9 @@ extern "C" int fftlab_fused_stage(const float* xr, const float* xi, float* yr, f
   return dispatch<1, 7>(log_l1, [&](auto log_l1_c) {
     return launch(fourstep_pass1_kernel<kStage, decltype(log_l1_c)::value>, blocks, geo, stream,
                   xr, xi, yr, yi, static_cast<const float2*>(tw1),
-                  static_cast<const float2*>(a_tab), static_cast<const float2*>(p_tab), log_l2,
-                  kLogTableWidth, log_f1, geo, static_cast<float>(direction), rows, log_g);
+                  static_cast<const float2*>(a_tab), static_cast<const float2*>(p_tab), nullptr,
+                  log_l2, kLogTableWidth, log_f1, geo, static_cast<float>(direction), rows,
+                  log_g);
   });
 }
 

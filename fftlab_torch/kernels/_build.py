@@ -61,9 +61,9 @@ class StftLayout(ctypes.Structure):
 SIGNATURES = {
     # xr, xi, yr, yi, tw, batch, log_n, geometry, direction, scale, stream
     "fftlab_fft_rows": (_P, _P, _P, _P, _P, _LL, _I, _G, _I, _F, _P),
-    # xr, xi, mr, mi, tw1, a_tab, p_tab, batch, log_l1, log_l2, log_w,
+    # xr, xi, mr, mi, tw1, a_tab, p_tab, s_tab, batch, log_l1, log_l2, log_w,
     # geometry, direction, stream
-    "fftlab_fourstep_pass1": (_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _G, _I, _P),
+    "fftlab_fourstep_pass1": (_P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _G, _I, _P),
     # xr, xi, mr, mi, tw1, batch, log_l1, log_l2, log_w, geometry,
     # direction, stream
     "fftlab_fourstep_pass1_no_twiddle": (_P, _P, _P, _P, _P, _LL, _I, _I, _I, _G, _I, _P),
@@ -81,9 +81,9 @@ SIGNATURES = {
     # log_t, geometry, scale, stream
     "fftlab_os_filter": (_P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _I, _I, _G,
                          _F, _P),
-    # x, mr, mi, tw1, a_tab, p_tab, batch, log_l1, log_l2, log_w, geometry,
-    # direction, stream
-    "fftlab_fourstep_pass1_packed": (_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _G, _I,
+    # x, mr, mi, tw1, a_tab, p_tab, s_tab, batch, log_l1, log_l2, log_w,
+    # geometry, direction, stream
+    "fftlab_fourstep_pass1_packed": (_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _G, _I,
                                      _P),
     # mr, mi, y, tw2, batch, log_l1, log_l2, log_r, geometry, direction,
     # scale, stream
@@ -101,9 +101,9 @@ SIGNATURES = {
     # geometry, layout, stream
     "fftlab_stft_frames": (_P, _LL, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _G, StftLayout,
                            _P),
-    # xr, xi, mr, mi, tw1, a_tab, p_tab, batch, log_f1, log_l1, log_l2, log_w,
-    # geometry, direction, stream
-    "fftlab_fourstep_pass1_swap": (_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _G,
+    # xr, xi, mr, mi, tw1, a_tab, p_tab, s_tab, batch, log_f1, log_l1, log_l2,
+    # log_w, geometry, direction, stream
+    "fftlab_fourstep_pass1_swap": (_P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _G,
                                    _I, _P),
     # xr, xi, yr, yi, tw1, a_tab, p_tab, rows, log_f1, log_l1, log_l2, log_g,
     # geometry, direction, stream

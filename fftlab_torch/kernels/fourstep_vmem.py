@@ -13,10 +13,11 @@ On a CUDA tensor the hand-written kernels `fourstep_pass1` and
 `fourstep_pass2` (csrc/fourstep.cu) run, on the register engine of
 csrc/fft_reg.cuh at the launch geometry of `pass1_geometry` and
 `pass2_geometry`. On a CPU tensor the plain version runs: the JAX
-kernel's math in tensor ops with the same tables,
-the length-L FFT as the fa*fb contraction pair of `_col_fft_vmem` and
-the pass-1 twiddle in the rank-1 form A[c, k1]*P[k1, l] of
-`_rank1_twiddle_np`. Forward unscaled, inverse 1/n; `scale` multiplies
+kernel's math in tensor ops, the length-L FFT as the fa*fb contraction
+pair of `_col_fft_vmem`, and the pass-1 twiddle as the kernel forms it:
+the rank-1 A[c, k1]*P[k1, l] of `_rank1_twiddle_np` below STAGED_MIN_L1,
+S[k1 mod U, j2]*S[U + k1 div U, j2] of `_staged_twiddle_np` from it.
+Forward unscaled, inverse 1/n; `scale` multiplies
 the output on top and is folded into pass 2 only. `fft_split_large_ad`
 is `fft_split_large` with its adjoint for autograd (kernels/_ad.py;
 fftlab/kernels/fourstep_vmem.py:858).
@@ -96,6 +97,10 @@ MAX_N = 1 << 21
 # Columns of the pass-1 rank-1 twiddle tables (csrc/fourstep.cu
 # kLogTableWidth): a pass-1 block of W <= 16 columns reads its part.
 PASS1_WIDTH = 16
+# The shortest L1 whose twiddled pass 1 stages its W columns of S in shared
+# memory (csrc/fourstep.cu kLogStagedMin); below, its store reads the
+# rank-1 A and P.
+STAGED_MIN_L1 = 512
 # Values of a tile that lets two blocks share an SM (8K values: 512
 # threads and 70 KB of exchange planes each).
 SHARED_TILE = 8192
@@ -117,6 +122,11 @@ SANDWICH_ROWS = {256: 16, 512: 8, 1024: 4, 2048: 8}
 LAUNCHES = {"fourstep_pass1": 0, "fourstep_pass2": 0,
             "fourstep_pass2_sandwich": 0, "fourstep_pass1_packed": 0,
             "fourstep_pass2_interleaved": 0}
+# Launches of pass 1 in a twiddled mode (plain, packed, swap store) at
+# L1 >= STAGED_MIN_L1, whose store reads W_n^{k1*j2} from the block's
+# staged columns of S, by any wrapper (this module's,
+# kernels/threestep_vmem.py's).
+trace.COUNTS.setdefault("pass1_staged_twiddle", 0)
 
 def supported_large(n: int) -> bool:
     return is_power_of_two(n) and MIN_N <= n <= MAX_N
@@ -136,15 +146,22 @@ def _split_factors(L: int) -> tuple[int, int]:
     return fa, L // fa
 
 
-def pass1_geometry(L1: int, L2: int, width: int | None = None) -> TileGeometry:
+def pass1_geometry(L1: int, L2: int, width: int | None = None,
+                   twiddle: bool = True) -> TileGeometry:
     """The launch of pass 1 at sides (L1, L2): W columns of length L1 per
     block, W = 16 (64-byte runs per row) where the tile stays within
     SHARED_TILE, else 8 (32-byte runs, two blocks per SM at L1 = 1024).
-    `width` overrides W, for the geometry A/B of chip_smoke.py."""
+    `width` overrides W, for the geometry A/B of chip_smoke.py. With
+    `twiddle` (every mode but the one with no twiddle) from STAGED_MIN_L1
+    the shared memory holds the block's W columns of S past the planes
+    (`staged_rows`)."""
     W = width or (16 if 16 * L1 <= SHARED_TILE else 8)
     if W > min(PASS1_WIDTH, L2):
         raise ValueError(f"pass 1 takes W <= {min(PASS1_WIDTH, L2)} columns; got {W}")
-    return tile_geometry(L1, W)
+    geo = tile_geometry(L1, W)
+    if not (twiddle and L1 >= STAGED_MIN_L1):
+        return geo
+    return dataclasses.replace(geo, smem=geo.smem + 8 * W * staged_rows(L1))
 
 
 def pass2_geometry(L1: int, L2: int, rows: int | None = None) -> TileGeometry:
@@ -219,6 +236,31 @@ def _col_fft_tables(L: int, direction: Direction, scale: float | None = None):
             c(tw.real), c(tw.imag))
 
 
+def staged_split(L1: int) -> int:
+    """U of pass 1's staged twiddle, k1 = u + U*v (csrc/fourstep.cu
+    `staged_log_u`): 2^ceil(log2(L1)/2), where a block's share of S, W*(U +
+    L1/U) values, is least."""
+    return 1 << ((log2_int(L1) + 1) // 2)
+
+
+def staged_rows(L1: int) -> int:
+    """Rows of pass 1's staged table S: U + L1/U."""
+    U = staged_split(L1)
+    return U + L1 // U
+
+
+def _staged_twiddle_np(L1: int, L2: int, direction: Direction) -> np.ndarray:
+    """Pass 1's twiddle W_n^{k1*j2} split along k1 = u + U*v (U =
+    `staged_split(L1)`): the (U + L1/U, L2) table S of rows S[u, j2] =
+    W_n^{u*j2} and S[U + v, j2] = W_n^{U*v*j2}, in float64, so that
+    W_n^{k1*j2} = S[k1 mod U, j2] * S[U + k1 div U, j2]."""
+    n = L1 * L2
+    U = staged_split(L1)
+    j2 = np.arange(L2, dtype=np.int64)[None, :]
+    k = np.concatenate([np.arange(U, dtype=np.int64), U * np.arange(L1 // U, dtype=np.int64)])
+    return np.exp(2j * np.pi * float(int(direction)) / n * ((k[:, None] * j2) % n))
+
+
 def _rank1_twiddle_np(L1: int, L2: int, W: int, direction: Direction):
     """The pass-1 twiddle W_n^{k1*j2} split along j2 = c*W + l:
     A[c, k1] = W_n^{k1*c*W},  P[k1, l] = W_n^{k1*l}  (both float64).
@@ -268,6 +310,23 @@ def _plain_col_tables(L: int, direction: Direction, scale: float,
 
 @trace.table_cache(maxsize=32)
 def _plain_pass1_twiddle(L1: int, L2: int, direction: Direction,
+                         device: torch.device):
+    """W_{L1*L2}^{k1*j2} as (L1, L2) planes from pass 1's factors, rounded
+    to float32 and multiplied in float32 as the kernel multiplies them:
+    the rank-1 ones below STAGED_MIN_L1, S[k1 mod U, j2] * S[U + k1 div U,
+    j2] from it."""
+    if L1 < STAGED_MIN_L1:
+        return _plain_rank1_twiddle(L1, L2, direction, device)
+    S = _staged_twiddle_np(L1, L2, direction)
+    Sr, Si = (torch.from_numpy(a.astype(np.float32)).to(device) for a in (S.real, S.imag))
+    U = staged_split(L1)
+    k1 = torch.arange(L1, device=device)
+    Br, Bi, Cr, Ci = Sr[k1 % U], Si[k1 % U], Sr[U + k1 // U], Si[U + k1 // U]
+    return Br * Cr - Bi * Ci, Br * Ci + Bi * Cr
+
+
+@trace.table_cache(maxsize=32)
+def _plain_rank1_twiddle(L1: int, L2: int, direction: Direction,
                          device: torch.device):
     """W_{L1*L2}^{k1*j2} as (L1, L2) planes from the rank-1 factors,
     multiplied in float32 as the kernel multiplies them."""
@@ -325,6 +384,14 @@ def fourstep_pass2_plain(mr: torch.Tensor, mi: torch.Tensor, direction=FORWARD,
     """Plain version of pass 2: intermediate [B, n] planes -> natural-order
     spectrum; `scale` is the whole output scale."""
     return pass2_plain(mr, mi, direction, scale, *_split_sides(int(mr.shape[-1])))
+
+
+@trace.table_cache(maxsize=32)
+def _pass1_staged_tables(L1: int, L2: int, direction: Direction, device: torch.device):
+    """Pass 1's tables where it stages S (from STAGED_MIN_L1): the engine's
+    twiddles of L1 and S (`_staged_twiddle_np`)."""
+    return (complex_table(pass_twiddle_np(L1, direction), device),
+            complex_table(_staged_twiddle_np(L1, L2, direction), device))
 
 
 @trace.table_cache(maxsize=32)
@@ -408,8 +475,9 @@ def _launch_pass1(name: str, xr, xi, direction, sides: tuple[int, int] | None,
     `twiddle` False (planes, no swap) launches the mode with no twiddle
     (`fftlab_fourstep_pass1_no_twiddle`). The launch adds one to
     `counts[name]`, the LAUNCHES of the module whose wrapper it serves,
-    and, while the recorder is on, records its span `name` with the
-    phases checks, alloc, tables and call (utils/trace.py)."""
+    and to COUNTS["pass1_staged_twiddle"] where it stages S, and, while
+    the recorder is on, records its span `name` with the phases checks,
+    alloc, tables and call (utils/trace.py)."""
     rec = trace.on()
     t0 = rec and trace.now()
     direction = Direction(int(direction))
@@ -425,9 +493,14 @@ def _launch_pass1(name: str, xr, xi, direction, sides: tuple[int, int] | None,
     mr = torch.empty(B, L1 * L2, device=xr.device)
     mi = torch.empty_like(mr)
     t2 = rec and trace.now()
-    geo = geometry or pass1_geometry(L1, L2)
-    tw1, a_tab, p_tab = _pass1_tables(L1, L2, direction, xr.device)
-    tabs = (tw1.data_ptr(), a_tab.data_ptr(), p_tab.data_ptr())
+    geo = geometry or pass1_geometry(L1, L2, twiddle=twiddle)
+    staged = twiddle and L1 >= STAGED_MIN_L1
+    if staged:
+        tw1, s_tab = _pass1_staged_tables(L1, L2, direction, xr.device)
+        tabs = (tw1.data_ptr(), None, None, s_tab.data_ptr())
+    else:
+        tw1, a_tab, p_tab = _pass1_tables(L1, L2, direction, xr.device)
+        tabs = (tw1.data_ptr(), a_tab.data_ptr(), p_tab.data_ptr(), None)
     logs = (log2_int(L1), log2_int(L2), log2_int(geo.T), geo.c_struct())
     t3 = rec and trace.now()
     lib = _build.load_library()
@@ -449,6 +522,8 @@ def _launch_pass1(name: str, xr, xi, direction, sides: tuple[int, int] | None,
                                            mi.data_ptr(), *tabs, B, *logs, *tail)
     _build.check(lib, name, rc)
     counts[name] += 1
+    if staged:
+        trace.COUNTS["pass1_staged_twiddle"] += 1
     if rec:
         trace.launch(name, t0, t1, t2, t3, trace.now())
     return mr, mi
@@ -611,7 +686,7 @@ def fourstep_pass2_sandwich_plain(mr: torch.Tensor, mi: torch.Tensor,
                       _plain_col_tables(L2, INVERSE, 1.0, mr.device), fa, fb)
     zr, zi = yr.transpose(1, 2), yi.transpose(1, 2)  # (B, L1 = k1, L2 = j2)
     # the kernel's table products with 1/n (a power of two) folded in: exact
-    wr, wi = (w / n for w in _plain_pass1_twiddle(L1, L2, INVERSE, mr.device))
+    wr, wi = (w / n for w in _plain_rank1_twiddle(L1, L2, INVERSE, mr.device))
     return (zr * wr - zi * wi).reshape(B, n), (zr * wi + zi * wr).reshape(B, n)
 
 

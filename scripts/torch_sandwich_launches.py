@@ -10,8 +10,8 @@ limit:
   R of 2, 4, 8 and 16 whose tile fits, in turns (a b c ... c b a), each R
   first checked against the plain version (>= 110 dB), and the inverse
   pass 1 in its mode with no twiddle;
-- the inverse pass 1 through the plain pass-1 kernel with rank-1 tables of
-  ones, the form the no-twiddle mode replaces;
+- the inverse pass 1 through the plain pass-1 kernel with twiddle tables
+  of ones, the form the no-twiddle mode replaces;
 after two seconds of sandwiches at 16 x 2^20, which bring the card to its
 clocks.
 
@@ -49,20 +49,22 @@ def snr_db(got, want) -> float:
 
 
 def pass1_with_ones(xr, xi, sides):
-    """The inverse pass 1 as the plain pass-1 kernel with A and P of ones."""
+    """The inverse pass 1 as the plain pass-1 kernel with A, P and S of
+    ones (it reads A and P, or S from L1 = STAGED_MIN_L1)."""
     L1, L2 = sides
     lib = _build.load_library()
     geo = fourstep_vmem.pass1_geometry(L1, L2)
     tw1 = fourstep_vmem._pass1_tables(L1, L2, INVERSE, xr.device)[0]
     a_tab = complex_table(np.ones((L2 // fourstep_vmem.PASS1_WIDTH, L1)), xr.device)
     p_tab = complex_table(np.ones((L1, fourstep_vmem.PASS1_WIDTH)), xr.device)
+    s_tab = complex_table(np.ones((fourstep_vmem.staged_rows(L1), L2)), xr.device)
     mr, mi = torch.empty_like(xr), torch.empty_like(xi)
 
     def launch():
         rc = lib.fftlab_fourstep_pass1(
             xr.data_ptr(), xi.data_ptr(), mr.data_ptr(), mi.data_ptr(), tw1.data_ptr(),
-            a_tab.data_ptr(), p_tab.data_ptr(), xr.shape[0], log2_int(L1), log2_int(L2),
-            log2_int(geo.T), geo.c_struct(), int(INVERSE), stream_of(xr))
+            a_tab.data_ptr(), p_tab.data_ptr(), s_tab.data_ptr(), xr.shape[0], log2_int(L1),
+            log2_int(L2), log2_int(geo.T), geo.c_struct(), int(INVERSE), stream_of(xr))
         _build.check(lib, "fourstep_pass1", rc)
     return launch
 

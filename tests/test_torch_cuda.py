@@ -863,6 +863,106 @@ def test_engine_three_pass_sides(no_tf32, n, direction, scale):
     assert snr_db(cplx(*c), _card_oracle(xr, xi, direction, eff)) >= 120.0
 
 
+def _pass1_sides():
+    """(L1, L2, F1) of every twiddled pass-1 launch the wrappers make: the
+    two-pass window's sides, and the three-pass sides at 2^24, pass A and
+    pass B with its swap F1 (F1 = 2 where the swap store is tried at
+    another side)."""
+    F1, F2, F3 = threestep_vmem._split_three(1 << 24)
+    return ([(*fourstep_vmem._split_sides(1 << e), 2) for e in range(15, 22)]
+            + [(F1, F2 * F3, 2), (F2, F3, F1)])
+
+
+PASS1_SIDES = _pass1_sides()
+
+
+def _pass1_oracle(xr, xi, direction, L1, L2):
+    """Pass 1 in float64 on the card (an oracle only): the length-L1 FFT
+    down each column of the (B, L1, L2) rows, times W_n^{k1*j2}, as
+    complex128 numpy [B, n]."""
+    B, n = xr.shape
+    z = torch.complex(xr.double(), xi.double()).reshape(B, L1, L2)
+    y = torch.fft.fft(z, dim=1) if direction == -1 else torch.fft.ifft(z, dim=1) * L1
+    k1 = torch.arange(L1, device=z.device)[:, None]
+    j2 = torch.arange(L2, device=z.device)[None, :]
+    w = torch.exp((2j * np.pi * direction / n) * ((k1 * j2) % n).double())
+    return (y * w).reshape(B, n).cpu().numpy()
+
+
+@pytest.mark.parametrize("L1,L2,F1", PASS1_SIDES, ids=[f"{a}x{b}-F{f}" for a, b, f in PASS1_SIDES])
+@pytest.mark.parametrize("direction", [-1, 1])
+def test_pass1_twiddled_modes_at_every_side(no_tf32, L1, L2, F1, direction):
+    """Pass 1's three twiddled modes, plain load, packed real load and swap
+    store, whose store reads W_n^{k1*j2} from the block's staged columns
+    of S from L1 = STAGED_MIN_L1 and from A and P below, against the plain
+    version (>= 110 dB) and float64 (>= 120 dB); each launch that stages S
+    counts one in COUNTS["pass1_staged_twiddle"], the mode with no twiddle
+    none."""
+    from fftlab_torch.utils import trace
+
+    n, B = L1 * L2, max(F1, 2)
+    _, xc = _real(L1 + L2 + F1, (B, 2 * n))
+    xr, xi = xc[:, 0::2].contiguous(), xc[:, 1::2].contiguous()
+    sides, counts = (L1, L2), dict.fromkeys(("plain", "packed", "swap", "none"), 0)
+    staged = trace.COUNTS["pass1_staged_twiddle"]
+    plain = cplx(*fourstep_vmem.pass1_plain(xr, xi, direction, L1, L2))
+    want = _pass1_oracle(xr, xi, direction, L1, L2)
+    launch = fourstep_vmem._launch_pass1
+    for mode, got in (("plain", launch("plain", xr, xi, direction, sides, counts)),
+                      ("packed", launch("packed", xc, None, direction, sides, counts))):
+        assert snr_db(cplx(*got), plain) >= 110.0, mode
+        assert snr_db(cplx(*got), want) >= 120.0, mode
+    # input row o*F1 + k1a, output row k1 -> row (o, k1, k1a)
+    swapped = lambda a: a.reshape(B // F1, F1, L1, L2).swapaxes(1, 2).reshape(B, n)  # noqa: E731
+    got = cplx(*launch("swap", xr, xi, direction, sides, counts, swap=F1))
+    assert snr_db(got, swapped(plain)) >= 110.0
+    assert snr_db(got, swapped(want)) >= 120.0
+    want_staged = 3 if L1 >= fourstep_vmem.STAGED_MIN_L1 else 0
+    assert trace.COUNTS["pass1_staged_twiddle"] - staged == want_staged
+    got = cplx(*launch("none", xr, xi, direction, sides, counts, twiddle=False))
+    assert snr_db(got, cplx(*fourstep_vmem.pass1_plain(xr, xi, direction, L1, L2, False))) >= 110.0
+    assert trace.COUNTS["pass1_staged_twiddle"] - staged == want_staged
+    assert counts == dict.fromkeys(counts, 1)
+
+
+def test_staged_twiddle_counted_on_the_paths(no_tf32):
+    """COUNTS["pass1_staged_twiddle"] counts every pass-1 launch of a path
+    that stages S (twiddled, L1 >= STAGED_MIN_L1): at 2^20 and 2^21 the
+    c2c route's pass 1 (as many as LAUNCHES["fourstep_pass1"]), one of the
+    sandwich's two (its inverse pass 1 takes no twiddle), the fused r2c's
+    packed pass 1 and the fused c2r's pass 1; at 2^26 the three-pass FFT's
+    pass B (L1 = F2 = 512), not its pass A (F1 = 256)."""
+    from fftlab_torch.utils import trace
+
+    def counted(fn):
+        staged, before = trace.COUNTS["pass1_staged_twiddle"], _launches()
+        fn()
+        torch.cuda.synchronize()
+        after = _launches()
+        return (trace.COUNTS["pass1_staged_twiddle"] - staged,
+                {k: v - before[k] for k, v in after.items() if v != before[k]})
+
+    n = 1 << 20
+    xr, xi = _cuda_pair(44, (4, n))
+    hr, hi = _cuda_pair(45, (n,))
+    plan = fftlab_torch.plan_dft_1d_split(n, batch=4)
+    assert plan.algorithm == "two_pass"
+    assert counted(lambda: plan.execute((xr, xi))) == (
+        1, {"fourstep_pass1": 1, "fourstep_pass2": 1})
+    assert counted(lambda: fftlab_torch.spectral_filter_auto(xr, xi, hr, hi)) == (
+        1, {"fourstep_pass1": 2, "fourstep_pass2_sandwich": 1})
+    _, xc = _real(46, (2, 1 << 21))
+    X = rfft_resident.rfft_resident(xc)
+    assert counted(lambda: rfft_resident.rfft_resident(xc)) == (
+        1, {"fourstep_pass1_packed": 1, "fourstep_pass2": 1, "herm_unpack": 1})
+    assert counted(lambda: rfft_resident.irfft_resident(*X)) == (
+        1, {"herm_repack": 1, "fourstep_pass1": 1, "fourstep_pass2_interleaved": 1})
+    ur, ui = _cuda_pair(47, (1, 1 << 26))
+    assert threestep_vmem._split_three(1 << 26) == (256, 512, 512)
+    assert counted(lambda: threestep_vmem.fft_split_huge(ur, ui)) == (
+        1, {"threestep_pass_a": 1, "threestep_pass_b": 1, "threestep_pass_c": 1})
+
+
 # ---------------------------------------------------------------- the complex API
 
 REGISTRY_SIZES = {"mixed_radix": 3000, "four_step": 3000, "bluestein": 4099,

@@ -85,7 +85,11 @@ def test_launch_geometry(window, n):
         # tiles of up to 8K values let two blocks share an SM
         if geo.T * L <= fourstep_vmem.SHARED_TILE:
             assert 2 * geo.smem <= MAX_SMEM and 2 * geo.threads <= 2048
-        assert geo.smem == 8 * geo.T * geo.stride
+        # pass 1 (every launch here twiddles) stages its W columns of S
+        # from STAGED_MIN_L1
+        staged = (8 * geo.T * fourstep_vmem.staged_rows(L)
+                  if role == "columns" and L >= fourstep_vmem.STAGED_MIN_L1 else 0)
+        assert geo.smem == 8 * geo.T * geo.stride + staged
 
 
 def _slots(L, T, R, g, threads):
@@ -285,6 +289,96 @@ def test_exchange_layout_bank_conflicts(role, L, T, g_first, g):
                 worst = max(worst, int(_wavefronts(a.T.reshape(-1, 32)).max()))
         ns *= R
     assert worst <= (1 if T == 1 or L >= 512 or role == "stage" else 2)
+
+
+# ------------------------------------------------ pass 1's staged twiddle
+
+# A block's shared memory on the H100 is at most 227 KB of an SM's 228 KB,
+# with 1 KB reserved for each block.
+SM_SMEM = 233472
+BLOCK_RESERVE = 1024
+# The most a pass-1 block stages of S.
+STAGED_BUDGET = 8192
+# (L1, W): every pass-1 column length that stages S (from STAGED_MIN_L1)
+# at the W of `pass1_geometry` and the other W of chip_smoke.py's geometry
+# A/B
+STAGED = [(1 << e, W) for e in range(9, 11) for W in (8, 16)]
+
+
+def _staged_at(q, t, log_w, g):
+    """Where a pass-1 block keeps column t of row q of S, in float2s past
+    the planes (csrc/fourstep.cu `column_tile`)."""
+    return (q << log_w) + (t ^ ((q << g) & ((1 << log_w) - 1)))
+
+
+@pytest.mark.parametrize("L1,W", STAGED, ids=[f"L{L}-W{W}" for L, W in STAGED])
+def test_pass1_staged_twiddle_slots(L1, W):
+    """A float64 model of pass 1's twiddled store (csrc/fourstep.cu
+    `column_tile`) at a block that is neither the first nor the last: its
+    copy of S's rows, by pairs of columns (i -> row i >> (log_w - 1),
+    column (2i) mod W), into the staged layout, and the engine's last pass
+    (fft_reg.cuh `last`, slot mapping g = run_bits(log_w)): output r of
+    butterfly j of transform t is k1 = j + r*L1/R of column j2_0 + t, and
+    reads rows k1 mod U and U + k1 div U. Every output reads only what the
+    block staged, and the product of the two is W_n^{k1*j2}; the staged
+    bytes stay within STAGED_BUDGET, and at W = 8 and L1 = 1024 two blocks
+    fit an SM; every half-warp's read of either factor takes one
+    wavefront (an 8-byte read takes two a warp at least)."""
+    L2 = 2048
+    n = L1 * L2
+    geo = fourstep_vmem.pass1_geometry(L1, L2, W)
+    U, rows = fourstep_vmem.staged_split(L1), fourstep_vmem.staged_rows(L1)
+    assert U * U in (L1, 2 * L1) and rows == U + L1 // U
+    log_w, g = W.bit_length() - 1, min(3, W.bit_length() - 1)
+    assert geo.smem == 8 * W * geo.stride + 8 * W * rows <= MAX_SMEM
+    assert 8 * W * rows <= STAGED_BUDGET
+    if (L1, W) == (1024, 8):
+        assert 2 * (geo.smem + BLOCK_RESERVE) <= SM_SMEM and geo.threads == 512
+    S = fourstep_vmem._staged_twiddle_np(L1, L2, -1)
+    assert S.shape == (rows, L2)
+    j2_0 = 5 * W
+    staged = np.full(W * rows, np.nan + 0j)
+    for i in range(rows * W // 2):
+        q, t = i >> (log_w - 1), (2 * i) % W
+        at = _staged_at(q, t, log_w, g)
+        assert at % 2 == 0  # a 16-byte store
+        staged[at:at + 2] = S[q, j2_0 + t:j2_0 + t + 2]
+    assert not np.isnan(staged).any()
+    R = geo.schedule[-1]
+    j, t = _slots(L1, W, R, g, geo.threads)  # (threads, slots)
+    for r in range(R):
+        k1 = j + r * (L1 // R)
+        b_at, c_at = _staged_at(k1 % U, t, log_w, g), _staged_at(U + k1 // U, t, log_w, g)
+        want = np.exp(-2j * np.pi * (k1 * (j2_0 + t) % n) / n)
+        assert np.max(np.abs(staged[b_at] * staged[c_at] - want)) <= 1e-12
+        for at in (b_at, c_at):
+            floats = np.stack([2 * at.T, 2 * at.T + 1], -1).reshape(-1, 32)  # half-warps
+            assert _wavefronts(floats).max() == 1
+
+
+@pytest.mark.parametrize("n", [1 << 18, 1 << 20, 1 << 21], ids=lambda n: f"2^{n.bit_length() - 1}")
+@pytest.mark.parametrize("direction", [-1, 1])
+def test_pass1_staged_twiddle_rounding(n, direction):
+    """The two factors of pass 1's staged twiddle (two-pass sizes with L1 =
+    512 and 1024) rounded to float32, as the wrapper's table holds them,
+    multiplied as the kernel's `cmul` does (fma(a.x, b.x, -a.y*b.y),
+    fma(a.x, b.y, a.y*b.x)): within 2 ulp of float32 below 1 (2^-24, where
+    the components of W lie) of the float64 W_n^{k1*j2} at every (k1,
+    j2)."""
+    L1, L2 = fourstep_vmem._split_sides(n)
+    assert L1 >= fourstep_vmem.STAGED_MIN_L1
+    U = fourstep_vmem.staged_split(L1)
+    S = fourstep_vmem._staged_twiddle_np(L1, L2, direction)
+    k1 = np.arange(L1)
+    b, c = S[k1 % U], S[U + k1 // U]
+    br, bi, cr, ci = (x.astype(np.float32) for x in (b.real, b.imag, c.real, c.imag))
+    f64 = np.float64
+    re = (f64(br) * f64(cr) - f64(bi * ci)).astype(np.float32)
+    im = (f64(br) * f64(ci) + f64(bi * cr)).astype(np.float32)
+    want = np.exp(2j * np.pi * direction * ((k1[:, None] * np.arange(L2)[None, :]) % n) / n)
+    ulp = 2.0 ** -24
+    assert np.abs(re - want.real).max() <= 2 * ulp
+    assert np.abs(im - want.imag).max() <= 2 * ulp
 
 
 # ------------------------------------------------- the filter sandwiches
