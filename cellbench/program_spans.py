@@ -14,10 +14,15 @@ The recorder stamps `time.time_ns()`; the slice is in microseconds less
 the trace's `baseTimeNanoseconds`, which a reader is not given. Each
 call's `execute` root lies inside the harness's `entry` span of the same
 call, so each pair bounds the base from both sides; `program_slice`
-pairs the last roots with the slice's entry spans in order, and gives
-nothing where the bounds cross (the clocks disagree), are wider than
-MAX_BASE_WIDTH_NS, or the roots at or after the slice's start are not
-its calls (the roots of its warm calls fall before it).
+pairs the last roots with the slice's entry spans in order (the roots of
+its warm calls come before them), and gives nothing where the slice's
+calls and entry spans differ in number or the bounds cross: the roots do
+not nest in the entries under one base, so they are not the slice's
+calls. The readers take durations on the recorder's own clock, so the
+width of the base's interval limits nothing. No reader sets the spans
+against the device's operations: the profiler's device times sit tens to
+hundreds of microseconds off the host's clock in some slices, and it
+drops records now and then.
 """
 
 from __future__ import annotations
@@ -29,7 +34,6 @@ import sys
 RECORDER = "fftlab_torch.utils.trace"
 ROOT = "execute"
 CALL = "call"
-MAX_BASE_WIDTH_NS = 2000.0
 
 
 @dataclasses.dataclass
@@ -93,16 +97,14 @@ def program_slice(sl, spans: list) -> ProgramSlice | None:
     entries = sorted((s, e) for name, s, e in sl.host_spans if name == "entry")
     roots = sorted(((s, e, call) for name, s, e, parent, call in spans
                     if parent < 0 and name == ROOT and e > 0), key=lambda r: r[0])
-    if not entries or len(roots) < len(entries):
+    if not entries or len(entries) != sl.calls or len(roots) < len(entries):
         return None
-    lo, hi = base_interval([r[:2] for r in roots[-len(entries):]], entries)
-    if lo > hi or hi - lo > MAX_BASE_WIDTH_NS:
+    inside = roots[-len(entries):]
+    lo, hi = base_interval([r[:2] for r in inside], entries)
+    if lo > hi:
         return None
-    ref, off = roots[-len(entries)][0], 0.5 * (lo + hi)
+    ref, off = inside[0][0], 0.5 * (lo + hi)
     us = lambda ns: (ns - ref - off) / 1e3  # noqa: E731
-    inside = [r for r in roots if us(r[0]) >= sl.t0]
-    if len(inside) != sl.calls:
-        return None
     index = {r[2]: k for k, r in enumerate(inside)}
     launches = []
     for name, s, e, parent, call in spans:
@@ -124,25 +126,6 @@ def read(record) -> ProgramSlice | None:
 
 def median(values: list):
     return statistics.median(values) if values else None
-
-
-def host_bound_idle_us(sl, launches: list) -> float | None:
-    """Microseconds of the slice in which the card was idle waiting for a
-    kernel the host had not launched yet: of the gap before the slice's
-    k-th device operation, the part before the end of its k-th `call`
-    span. None unless the operations and the launches pair by order and
-    each operation's name starts with its launch's kernel."""
-    ops = sl.device_ops
-    if not ops or len(ops) != len(launches):
-        return None
-    if any(not name.startswith(ln.kernel) for (name, _, _), ln in zip(ops, launches)):
-        return None
-    total, free = 0.0, sl.t0
-    for (_, s, f), ln in zip(ops, launches):
-        if s > free:
-            total += max(0.0, min(s, ln.call_end) - free)
-        free = max(free, f)
-    return total
 
 
 def setup_roots_s(spans: list) -> float | None:

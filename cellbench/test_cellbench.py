@@ -3,14 +3,21 @@
     python -m pytest cellbench -q
 
 The harness runs here on a copy of the benchmark whose configurations
-and mixes are cut to a size the CPU holds (n = 2^15, two rows); the
-program then runs each kernel's plain version, as it does for a CPU
-tensor. Times read here are the CPU's and are never reported.
+and mixes are cut to a size the CPU holds (two rows; each configuration
+at the least of n, n/2, n/4, ... at which the program still takes its
+`route`); the program then runs each kernel's plain version, as it does
+for a CPU tensor. Times read here are the CPU's and are never reported.
+
+A configuration's `cpu_test`, read only here: `breaks`,
+"<module>:<function>", the function under the entry that produces what
+the timed path returns, which the fault tests replace.
 """
 
 import hashlib
+import importlib
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -53,25 +60,90 @@ SINGLE = {
 ALL_CELLS = CELLS + [w["name"] for w in SINGLE["workloads"]]
 
 
-def _small(root: Path) -> Path:
-    """A copy of the benchmark at `root` with the single-row cells added,
-    every configuration at n = 2^15 and every mix at two rows or fewer."""
-    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+def _cpu_test(cfg: dict) -> dict:
+    """The configuration's `cpu_test`; a configuration without it is
+    refused, never broken at a function guessed here."""
+    if "cpu_test" not in cfg:
+        raise ValueError(
+            f"configuration {cfg.get('name')!r} has no \"cpu_test\" key: give it "
+            f"{{\"breaks\": \"<module>:<function>\"}}")
+    return cfg["cpu_test"]
+
+
+def _breaks(cfg: dict) -> tuple:
+    """(module, name) of the function the fault tests replace."""
+    module, _, name = _cpu_test(cfg)["breaks"].partition(":")
+    return importlib.import_module(module), name
+
+
+def _north_star_db(kind: str) -> int:
+    """ROADMAP's north star, SNR against a float64 oracle: above 120 dB,
+    above 110 for r2c, c2r and STFT."""
+    return 110 if kind.split("_")[0] in ("r2c", "c2r", "stft") else 120
+
+
+def _checkout(root: Path, src: Path = ROOT) -> Path:
+    """A copy in `root` of the benchmark at `src`: BENCHMARK.json and
+    cellbench/ without its tests."""
+    root.mkdir(parents=True, exist_ok=True)
+    shutil.copy(src / "BENCHMARK.json", root / "BENCHMARK.json")
+    shutil.copytree(src / "cellbench", root / "cellbench",
+                    ignore=shutil.ignore_patterns("__pycache__", "test_*"))
+    return root
+
+
+def _cpu_n(root: Path, bench: dict, entry: dict) -> int:
+    """The least of n, n/2, n/4, ... (while whole) at which the program
+    builds every cell of the configuration `entry` on its `route`."""
+    cfg = harness.load_json(root / entry["file"])
+    program = harness.load_module(root, "program", cfg["kind"])
+    reference = harness.load_module(root, "reference", cfg["kind"])
+    mixes = [harness.load_cell(root, w["name"]).traffic
+             for w in bench["workloads"] if w["config"] == entry["name"]]
+    sizes = [int(cfg["n"])]
+    while sizes[-1] % 2 == 0:
+        sizes.append(sizes[-1] // 2)
+    for n in reversed(sizes):
+        c = {**cfg, "n": n}
+        consts = reference.make_constants(c, torch.Generator().manual_seed(0), "cpu")
+        if all(program.build(c, t, consts, "cpu")[1] == cfg["route"] for t in mixes):
+            return n
+    raise ValueError(f"configuration {entry['name']!r}: the program takes route "
+                     f"{cfg['route']!r} at none of n, n/2, n/4, ...")
+
+
+def _small(root: Path, src: Path = ROOT) -> Path:
+    """A copy in `root` of the benchmark at `src` with the single-row cells
+    added, every mix at two rows or fewer and each configuration at the
+    least size on its route (`_cpu_n`)."""
+    _checkout(root, src)
+    bench = json.loads((root / "BENCHMARK.json").read_text())
     for key, entries in SINGLE.items():
         bench[key] += entries
     (root / "BENCHMARK.json").write_text(json.dumps(bench))
-    shutil.copytree(HERE, root / "cellbench",
-                    ignore=shutil.ignore_patterns("__pycache__", "test_*"))
-    for f in (root / "cellbench" / "configs").glob("*.json"):
-        cfg = json.loads(f.read_text())
-        cfg["n"] = 2**15
-        f.write_text(json.dumps(cfg))
     for f in (root / "cellbench" / "traffic").glob("*.json"):
         t = json.loads(f.read_text())
         t.update(rows=min(t["rows"], 2), pool_calls=2, check_calls=2, slice_calls=3,
                  slice_warm_calls=1)
         f.write_text(json.dumps(t))
+    sizes = {e["file"]: _cpu_n(root, bench, e) for e in bench["configs"]}
+    for file, n in sizes.items():
+        cfg = harness.load_json(root / file)
+        (root / file).write_text(json.dumps({**cfg, "n": n}))
     return root
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _threads_shared_among_workers():
+    """Each pytest-xdist worker takes its share of torch's threads. Four
+    workers each at the default, one thread a core, ran a single-row call
+    some 70 times slower than one process did, fewer than the two calls a
+    synced mix's p95 needs in a 0.2 s window."""
+    threads = torch.get_num_threads()
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    torch.set_num_threads(max(1, threads // workers))
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")
@@ -260,27 +332,33 @@ NAME = re.compile(r"[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}\Z")
 UNIT = re.compile(r"[A-Za-z0-9_/%.\-]{1,16}\Z")
 
 
-def test_names_and_units():
-    metrics = BENCH["end_to_end"] + BENCH["per_layer"]
-    names = [m["name"] for m in metrics] + CELLS + [c["name"] for c in BENCH["configs"]]
+def _names_and_units(bench: dict):
+    metrics = bench["end_to_end"] + bench["per_layer"]
+    cells = [w["name"] for w in bench["workloads"]]
+    names = [m["name"] for m in metrics] + cells + [c["name"] for c in bench["configs"]]
     assert len(set(names)) == len(names)
-    for name in names + [w["traffic"] for w in BENCH["workloads"]]:
+    for name in names + [w["traffic"] for w in bench["workloads"]]:
         assert NAME.match(name), name
     for m in metrics:
         assert UNIT.match(m["unit"]) and len(m["unit"]) <= 16, m["unit"]
         assert m["better"] in ("lower", "higher")
-    for text in ([c["source"] for c in BENCH["configs"]] + [c["why"] for c in BENCH["configs"]]
-                 + [w["why"] for w in BENCH["workloads"]] + [m["layer"] for m in BENCH["per_layer"]]):
+    for text in ([c["source"] for c in bench["configs"]] + [c["why"] for c in bench["configs"]]
+                 + [w["why"] for w in bench["workloads"]] + [m["layer"] for m in bench["per_layer"]]):
         assert 1 <= len(text) <= 200 and "\n" not in text and "\t" not in text, text
 
 
-def test_cells_and_metrics_hang_together():
-    e2e = {m["name"]: m for m in BENCH["end_to_end"]}
+def test_names_and_units():
+    _names_and_units(BENCH)
+
+
+def _hangs_together(root: Path):
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    e2e = {m["name"]: m for m in bench["end_to_end"]}
     assert "setup_s" in e2e and e2e["setup_s"]["bound"] <= 0.25
-    for m in BENCH["end_to_end"]:
+    for m in bench["end_to_end"]:
         assert 0.01 <= m["bound"] <= 0.25 and m["source"] in ("host_clock", "device_trace")
-    for cell in CELLS:
-        c = harness.load_cell(ROOT, cell)
+    for cell in [w["name"] for w in bench["workloads"]]:
+        c = harness.load_cell(root, cell)
         reported = {m["name"] for m in c.end_to_end}
         assert "setup_s" in reported and len(reported) >= 2
         assert c.per_layer
@@ -289,47 +367,92 @@ def test_cells_and_metrics_hang_together():
         for m in c.end_to_end + c.per_layer:
             assert harness.NAME.match(m["name"])
         for m in c.per_layer:
-            assert (HERE / "metrics" / f"{m['name']}.py").is_file()
-        cfg = next(x for x in BENCH["configs"] if x["name"] == c.config["name"])
+            assert (root / "cellbench" / "metrics" / f"{m['name']}.py").is_file()
+        cfg = next(x for x in bench["configs"] if x["name"] == c.config["name"])
         assert cfg["reduced"] == c.config["reduced"]
         assert cfg["source"] == c.config["source"]
 
 
+def test_cells_and_metrics_hang_together():
+    _hangs_together(ROOT)
+
+
+@pytest.mark.parametrize("file", [c["file"] for c in BENCH["configs"]])
+def test_each_configuration_names_its_cpu_test(file):
+    cfg = json.loads((ROOT / file).read_text())
+    t = _cpu_test(cfg)
+    assert set(t) == {"breaks"}, t
+    module, name = _breaks(cfg)
+    assert callable(getattr(module, name, None)), t["breaks"]
+
+
+def test_a_configuration_without_cpu_test_is_refused(tmp_path, monkeypatch):
+    src = _checkout(tmp_path / "src")
+    cfg = src / "cellbench" / "configs" / "c2c_1m.json"
+    cfg.write_text(json.dumps({k: v for k, v in json.loads(cfg.read_text()).items()
+                               if k != "cpu_test"}))
+    small = _small(tmp_path / "small", src)
+    with pytest.raises(ValueError, match="'c2c_1m' has no \"cpu_test\" key"):
+        _broken_is_not_correct(small, "c2c_1m.bulk16", "unchanged", monkeypatch)
+
+
 # -- the harness on the CPU ----------------------------------------------
 
-@pytest.mark.parametrize("cell", ALL_CELLS)
-def test_program_is_correct(small, cell):
-    r = _run(small, cell)
+def _is_correct(root, cell):
+    r = _run(root, cell)
     assert r["correct"] and r["failed"] == 0 and r["attempted"] > 0
-    assert list(r)[-1] == "checks" and r["checks"]["worst_row_snr_db"]["value"] > 120
-    c = harness.load_cell(small, cell)
+    c = harness.load_cell(root, cell)
+    check = r["checks"]["worst_row_snr_db"]
+    assert list(r)[-1] == "checks" and check["limit"] >= _north_star_db(c.config["kind"])
+    assert check["value"] > check["limit"]
     assert set(r["metrics"]) == {m["name"] for m in c.end_to_end}
 
 
-@pytest.mark.parametrize("cell", ALL_CELLS)
-def test_traced_run(small, cell):
-    r = _run(small, cell, trace=True)
+def _traced_is_correct(root, cell):
+    r = _run(root, cell, trace=True)
     assert r["correct"]
-    c = harness.load_cell(small, cell)
+    c = harness.load_cell(root, cell)
     assert set(r["metrics"]) <= {m["name"] for m in c.per_layer}
     if cell.endswith(".single"):
         assert r["metrics"]["host_us.single"]["value"] > 0
 
 
-@pytest.mark.parametrize("cell", ALL_CELLS)
-def test_control_is_not_correct(small, cell):
-    r = _run(small, cell, control=True)
+def _control_is_not_correct(root, cell):
+    r = _run(root, cell, control=True)
     assert not r["correct"]
     assert 50 < r["checks"]["worst_row_snr_db"]["value"] < 90
 
 
-def _unchanged(xr, xi, *a, **k):
-    return xr, xi
+@pytest.mark.parametrize("cell", ALL_CELLS)
+def test_program_is_correct(small, cell):
+    _is_correct(small, cell)
+
+
+@pytest.mark.parametrize("cell", ALL_CELLS)
+def test_traced_run(small, cell):
+    _traced_is_correct(small, cell)
+
+
+@pytest.mark.parametrize("cell", ALL_CELLS)
+def test_control_is_not_correct(small, cell):
+    _control_is_not_correct(small, cell)
+
+
+def _input_planes(args):
+    """The entry's input planes: (xr, xi), or one real plane beside zeros."""
+    x = args[0]
+    if len(args) > 1 and torch.is_tensor(args[1]) and args[1].shape == x.shape:
+        return x, args[1]
+    return x, torch.zeros_like(x)
+
+
+def _unchanged(*a, **k):
+    return _input_planes(a)
 
 
 def _half_batch(run):
-    def fault(xr, xi, *a, **k):
-        yr, yi = run(xr, xi, *a, **k)
+    def fault(*a, **k):
+        yr, yi = run(*a, **k)
         yr, yi = yr.clone(), yi.clone()
         yr[yr.shape[0] // 2:], yi[yi.shape[0] // 2:] = 0, 0
         return yr, yi
@@ -337,32 +460,43 @@ def _half_batch(run):
 
 
 def _altered(run):
-    def fault(xr, xi, *a, **k):
-        yr, yi = run(xr, xi, *a, **k)
+    def fault(*a, **k):
+        yr, yi = run(*a, **k)
         yr = yr.clone()
         yr[..., 1] = 0
         return yr, yi
     return fault
 
 
+FAULTS = ["unchanged", "half_batch", "altered"]
+
+
+def _applies(root, cell, fault) -> bool:
+    return fault != "half_batch" or harness.load_cell(root, cell).traffic["rows"] > 1
+
+
+def _broken_is_not_correct(root, cell, fault, monkeypatch):
+    """The function the configuration's `cpu_test.breaks` names, replaced
+    by `fault`."""
+    module, name = _breaks(harness.load_cell(root, cell).config)
+    run = getattr(module, name)
+    broken = {"unchanged": _unchanged, "half_batch": _half_batch(run),
+              "altered": _altered(run)}[fault]
+    monkeypatch.setattr(module, name, broken)
+    r = _run(root, cell)
+    assert not r["correct"] and r["failed"] > 0
+
+
 @pytest.mark.parametrize("cell", ALL_CELLS)
-@pytest.mark.parametrize("fault", ["unchanged", "half_batch", "altered"])
+@pytest.mark.parametrize("fault", FAULTS)
 def test_a_broken_program_is_not_correct(small, cell, fault, monkeypatch):
     """The timed path broken underneath the entry: a transform that returns
     its input unchanged, one that leaves half the batch out, one that
     alters an answer where it is produced. (One card: no exchange between
     cards to leave out.)"""
-    from fftlab_torch.kernels import fourstep_vmem
-
-    name = "spectral_filter_large" if cell.startswith("filter") else "fft_split_large"
-    if fault == "half_batch" and cell.endswith(".single"):
+    if not _applies(small, cell, fault):
         pytest.skip("a single-row mix has no half batch to leave out")
-    run = getattr(fourstep_vmem, name)
-    broken = {"unchanged": _unchanged, "half_batch": _half_batch(run),
-              "altered": _altered(run)}[fault]
-    monkeypatch.setattr(fourstep_vmem, name, broken)
-    r = _run(small, cell)
-    assert not r["correct"] and r["failed"] > 0
+    _broken_is_not_correct(small, cell, fault, monkeypatch)
 
 
 def test_refusals(small, monkeypatch):
@@ -436,3 +570,185 @@ def test_new_files_are_found_by_name(tmp_path):
     assert r["correct"] and r["metrics"]["calls_seen.burst"]["value"] == r["attempted"]
     after = _digests(root)
     assert {k: after[k] for k in before} == before  # no file that was there changed
+
+
+# A test-only kind, r2c_probe, as a configuration that brings a kind
+# would: its program, reference and work count are new files, found by
+# the kind's name. The probes' names are their own, and `_join` takes the
+# next free one where a name is already there, so that no cell a later
+# change adds can meet a probe.
+R2C_PROGRAM = '''"""The r2c cells' entry into fftlab_torch: a real-to-complex plan made
+with the ESTIMATE flags, executed on each call's real plane."""
+
+
+def build(config, traffic, consts, device):
+    """(call, route): call(xr, xi) -> (yr, yi), the n/2+1 one-sided bins
+    of xr (xi, which the harness draws for every kind, is not read)."""
+    from fftlab_torch.plan.api import plan_r2c_1d_split
+    from fftlab_torch.plan.flags import Flags
+
+    if traffic["direction"] != "forward":
+        raise ValueError(f"an r2c runs forward; got {traffic['direction']!r}")
+    plan = plan_r2c_1d_split(int(config["n"]), flags=Flags.ESTIMATE,
+                             batch=int(traffic["rows"]), device=device)
+    execute = plan.execute
+
+    def call(xr, xi):
+        return execute(xr)
+
+    return call, plan.algorithm
+'''
+
+R2C_REFERENCE = '''"""Plain reference of the batched r2c FFT: torch.fft.rfft in complex128
+on the real float32 plane, its n/2+1 one-sided bins. The control is the
+first n/2+1 bins of the c2c transform in TF32 with a zero imaginary
+plane."""
+
+import torch
+
+from cellbench.reference.tf32 import dft_tf32
+
+
+def make_constants(config, gen, device):
+    return {}
+
+
+def _forward_only(direction):
+    if direction != "forward":
+        raise ValueError(f"an r2c runs forward; got direction {direction!r}")
+
+
+def reference(xr, xi, consts, config, direction):
+    """complex128 [rows, n/2+1]."""
+    _forward_only(direction)
+    return torch.fft.rfft(xr.double())
+
+
+def control(xr, xi, consts, config, direction):
+    """float32 planes [rows, n/2+1] of the same transform in TF32."""
+    _forward_only(direction)
+    yr, yi = dft_tf32(xr, torch.zeros_like(xr))
+    h = xr.shape[-1] // 2 + 1
+    return yr[..., :h], yi[..., :h]
+'''
+
+R2C_WORK = '''"""Work of one call of a batched r2c FFT: n real float32 samples read
+and n/2+1 complex bins written a row (8n + 8 bytes), and benchFFT's
+2.5 n log2 n flops a row."""
+
+import math
+
+
+def work(config, traffic):
+    n, rows = int(config["n"]), int(traffic["rows"])
+    return {"bytes": rows * (8 * n + 8), "flops": rows * 5 * n * int(math.log2(n)) // 2}
+'''
+
+PROBES = {
+    # a new kind on a route of its own
+    "new_kind": {
+        "config": {"name": "r2c_probe", "kind": "r2c_probe", "n": 2**21,
+                   "route": "rfft_resident",
+                   "cpu_test": {"breaks": "fftlab_torch.kernels.rfft_resident:rfft_resident"},
+                   "source": "fftlab bench.py bench_rfft (:755): 8 x 2^21 real rows",
+                   "contract": {"worst_row_snr_db": 110},
+                   "contract_why": "ROADMAP north star: above 110 dB for r2c/c2r and STFT",
+                   "reduced": []},
+        "traffic": {"name": "probe8", "rows": 8, "pattern": "pipelined", "pool_calls": 4,
+                    "direction": "forward", "check_calls": 8, "slice_calls": 256,
+                    "slice_warm_calls": 4},
+        "files": {"program": R2C_PROGRAM, "reference": R2C_REFERENCE, "work": R2C_WORK},
+        "work": {"bytes": 8 * (8 * 2**21 + 8), "flops": 8 * 5 * 2**21 * 21 // 2},
+    },
+    # a second route of a kind already there
+    "new_route": {
+        "config": {"name": "c2c_probe", "kind": "c2c", "n": 2**24, "route": "three_pass",
+                   "cpu_test": {"breaks": "fftlab_torch.kernels.threestep_vmem:fft_split_huge"},
+                   "source": "fftlab bench.py (:479): 1 x 2^24 c2c on the three-pass route",
+                   "contract": {"worst_row_snr_db": 120},
+                   "contract_why": "ROADMAP north star: above 120 dB for the c2c kernels",
+                   "reduced": []},
+        "traffic": {"name": "probe1", "rows": 1, "pattern": "pipelined", "pool_calls": 2,
+                    "direction": "forward", "check_calls": 4, "slice_calls": 64,
+                    "slice_warm_calls": 4},
+        "files": {},
+        "work": {"bytes": 16 * 2**24, "flops": 5 * 2**24 * 24},
+    },
+}
+
+
+def _fresh(name: str, taken: set) -> str:
+    """`name`, or `name` with the least of _2, _3, ... that is not taken."""
+    k, fresh = 1, name
+    while fresh in taken:
+        k += 1
+        fresh = f"{name}_{k}"
+    return fresh
+
+
+def _join(src: Path, probe: dict) -> str:
+    """`probe` added to the benchmark at `src` as a later change adds a
+    configuration: new files and appended entries, each under a name that
+    is not yet taken there. Returns the new cell's name."""
+    d = src / "cellbench"
+    stems = lambda *folders: {f.stem for x in folders for f in (d / x).iterdir()}
+    bench = json.loads((src / "BENCHMARK.json").read_text())
+    config = _fresh(probe["config"]["name"],
+                    stems("configs") | {c["name"] for c in bench["configs"]})
+    mix = _fresh(probe["traffic"]["name"], stems("traffic"))
+    kind = probe["config"]["kind"]
+    if probe["files"]:
+        kind = _fresh(kind, stems(*probe["files"]))
+        for folder, text in probe["files"].items():
+            (d / folder / f"{kind}.py").write_text(text)
+    cell = f"{config}.{mix}"
+    (d / "configs" / f"{config}.json").write_text(
+        json.dumps({**probe["config"], "name": config, "kind": kind}))
+    (d / "traffic" / f"{mix}.json").write_text(json.dumps({**probe["traffic"], "name": mix}))
+    bench["configs"].append({"name": config, "source": probe["config"]["source"],
+                             "file": f"cellbench/configs/{config}.json", "reduced": [],
+                             "why": "a new configuration"})
+    bench["workloads"].append({"name": cell, "config": config, "traffic": mix, "chips": 1,
+                               "why": "a new cell"})
+    for m in bench["end_to_end"] + bench["per_layer"]:
+        if "workloads" in m:
+            m["workloads"].append(cell)
+    (src / "BENCHMARK.json").write_text(json.dumps(bench))
+    return cell
+
+
+@pytest.mark.parametrize("probe, names_taken", [
+    ("new_kind", False), ("new_kind", True), ("new_route", False)])
+def test_a_new_kind_joins_with_new_files(tmp_path, probe, names_taken, monkeypatch):
+    """A configuration, mix and kind added as a later change adds them:
+    new files and appended entries in a copy of the benchmark, and not a
+    byte of a file that was there. The new cell then passes every check
+    the cells above pass, at the least size on its route and with its own
+    function broken. With `names_taken`, the copy already holds a cell,
+    configuration, mix and kind of the probe's names, as after a later
+    change that took them."""
+    src = _checkout(tmp_path / "src")
+    if names_taken:
+        taken = _join(src, PROBES[probe])
+    before = _digests(src)
+    cell = _join(src, PROBES[probe])
+    after = _digests(src)
+    assert {k: after[k] for k in before} == before  # no file that was there changed
+    if names_taken:
+        assert cell != taken
+    _names_and_units(json.loads((src / "BENCHMARK.json").read_text()))
+    _hangs_together(src)
+    c = harness.load_cell(src, cell)
+    assert harness.load_module(src, "work", c.config["kind"]).work(c.config, c.traffic) \
+        == PROBES[probe]["work"]
+
+    small = _small(tmp_path / "small", src)
+    if names_taken:
+        _is_correct(small, taken)
+    _is_correct(small, cell)
+    _traced_is_correct(small, cell)
+    _control_is_not_correct(small, cell)
+    for fault in FAULTS:
+        if _applies(small, cell, fault):
+            with monkeypatch.context() as mp:
+                _broken_is_not_correct(small, cell, fault, mp)
