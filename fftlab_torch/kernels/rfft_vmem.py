@@ -23,6 +23,10 @@ stack for the interleave, the unpaired full-range unpack of
 rfft_vmem.py:217-223 with the Nyquist bin appended as
 rfft_vmem.py:283-286 appends it, and the paired repack in tensor ops.
 The paired and unpaired unpacks agree to float32 rounding.
+
+Each launch adds one to LAUNCHES and, while the recorder is on, records
+its span with the phases checks, alloc, tables and call (utils/trace.py),
+as the two-pass launches do.
 """
 
 from __future__ import annotations
@@ -150,9 +154,10 @@ def pack_real(x: torch.Tensor):
     B, n = x.shape
     if n % 2:
         raise ValueError(f"pack_real takes an even length; got {n}")
+    t1 = rec and trace.now()
     zr = torch.empty(B, n // 2, device=x.device)
     zi = torch.empty_like(zr)
-    t3 = rec and trace.now()
+    t3 = rec and trace.now()  # no table
     lib = _build.load_library()
     with torch.cuda.device(x.device):
         rc = lib.fftlab_pack_real(x.data_ptr(), zr.data_ptr(), zi.data_ptr(),
@@ -160,7 +165,7 @@ def pack_real(x: torch.Tensor):
     _build.check(lib, "pack_real", rc)
     LAUNCHES["pack_real"] += 1
     if rec:
-        trace.launch_call("pack_real", t0, t3, trace.now())
+        trace.launch("pack_real", t0, t1, t3, t3, trace.now())
     return zr, zi
 
 
@@ -172,8 +177,9 @@ def interleave(zr: torch.Tensor, zi: torch.Tensor) -> torch.Tensor:
     check_planes(zr, zi, "interleave")
     _check_launch("interleave", zr, zi)
     B, m = zr.shape
+    t1 = rec and trace.now()
     x = torch.empty(B, 2 * m, device=zr.device)
-    t3 = rec and trace.now()
+    t3 = rec and trace.now()  # no table
     lib = _build.load_library()
     with torch.cuda.device(zr.device):
         rc = lib.fftlab_interleave(zr.data_ptr(), zi.data_ptr(), x.data_ptr(),
@@ -181,7 +187,7 @@ def interleave(zr: torch.Tensor, zi: torch.Tensor) -> torch.Tensor:
     _build.check(lib, "interleave", rc)
     LAUNCHES["interleave"] += 1
     if rec:
-        trace.launch_call("interleave", t0, t3, trace.now())
+        trace.launch("interleave", t0, t1, t3, t3, trace.now())
     return x
 
 
@@ -196,8 +202,10 @@ def herm_unpack(zr: torch.Tensor, zi: torch.Tensor, scale: float = 1.0):
     B, m = zr.shape
     if m < 2 or m % 2:
         raise ValueError(f"herm_unpack takes an even half size m >= 2; got {m}")
+    t1 = rec and trace.now()
     xr = torch.empty(B, m + 1, device=zr.device)
     xi = torch.empty_like(xr)
+    t2 = rec and trace.now()
     tw = _pair_twiddle(2 * m, Direction.FORWARD, zr.device)
     t3 = rec and trace.now()
     lib = _build.load_library()
@@ -208,7 +216,7 @@ def herm_unpack(zr: torch.Tensor, zi: torch.Tensor, scale: float = 1.0):
     _build.check(lib, "herm_unpack", rc)
     LAUNCHES["herm_unpack"] += 1
     if rec:
-        trace.launch_call("herm_unpack", t0, t3, trace.now())
+        trace.launch("herm_unpack", t0, t1, t2, t3, trace.now())
     return xr, xi
 
 
@@ -224,8 +232,10 @@ def herm_repack(xr: torch.Tensor, xi: torch.Tensor):
     m = h - 1
     if m < 2 or m % 2:
         raise ValueError(f"herm_repack takes m+1 bins with m even, m >= 2; got {h}")
+    t1 = rec and trace.now()
     zr = torch.empty(B, m, device=xr.device)
     zi = torch.empty_like(zr)
+    t2 = rec and trace.now()
     tw = _pair_twiddle(2 * m, Direction.INVERSE, xr.device)
     t3 = rec and trace.now()
     lib = _build.load_library()
@@ -235,7 +245,7 @@ def herm_repack(xr: torch.Tensor, xi: torch.Tensor):
     _build.check(lib, "herm_repack", rc)
     LAUNCHES["herm_repack"] += 1
     if rec:
-        trace.launch_call("herm_repack", t0, t3, trace.now())
+        trace.launch("herm_repack", t0, t1, t2, t3, trace.now())
     return zr, zi
 
 

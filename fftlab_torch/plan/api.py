@@ -309,16 +309,33 @@ def _real_route(n: int, flags: Flags, batch: int, device) -> str:
     return _split_route_for_half(n, flags, batch, device)
 
 
+def _wrapper_span(entry: Callable) -> Callable:
+    """`entry` as a route's entry: while the recorder is on, its call is
+    the span `wrapper` (utils/trace.py), as `run_route` records the
+    entry of a c2c route."""
+    def fn(x):
+        if not trace.on():
+            return entry(x)
+        rec = trace.begin("wrapper")
+        try:
+            return entry(x)
+        finally:
+            trace.end(rec)
+
+    return fn
+
+
 def _real_plan(kind: str, n: int, route: str, flags: Flags) -> Plan:
-    """An r2c or c2r plan over `route`: the fused kernels or
-    rfft_split/irfft_split with the half-size transform on that route."""
+    """An r2c or c2r plan over `route`: the fused kernels, their entry the
+    span `wrapper` under `execute`, or rfft_split/irfft_split with the
+    half-size transform on that route (which `run_route` records)."""
     from fftlab_torch.algos.split_stockham import irfft_split, rfft_split
     from fftlab_torch.kernels.rfft_resident import irfft_resident, rfft_resident
 
     if kind == "r2c_split":
         direction, name = FORWARD, "rfft"
         if route == _RESIDENT:
-            fn = rfft_resident
+            fn = _wrapper_span(rfft_resident)
         elif n % 2 or n < 4:
             fn = rfft_split
         else:
@@ -327,7 +344,7 @@ def _real_plan(kind: str, n: int, route: str, flags: Flags) -> Plan:
     else:
         direction, name = INVERSE, "irfft"
         if route == _RESIDENT:
-            fn = lambda pair: irfft_resident(*pair)
+            fn = _wrapper_span(lambda pair: irfft_resident(*pair))
         elif n % 2 or n < 4:
             fn = lambda pair: irfft_split(*pair, n=n)
         else:

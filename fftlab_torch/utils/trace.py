@@ -32,7 +32,9 @@ a new `call` id, which every span under it shares. The spans of a call:
 
     execute        the root: Plan.execute, spectral_filter_auto,
                    fft_split_auto (a public call inside another is a child)
-      dispatch     route selection and the branch to the route
+      dispatch     route selection and the branch to the route (a fused
+                   r2c/c2r plan chose its route when it was made: no
+                   dispatch, its `wrapper` is right under `execute`)
         wrapper    the route's entry: reshapes, plane checks, the response
                    planes, the scale
           <kernel> one a launch, named by its LAUNCHES key, with children
@@ -42,10 +44,13 @@ a new `call` id, which every span under it shares. The spans of a call:
             call   the device guard, the stream, the ctypes entry and its
                    error check
 
-The launch helpers off the two-pass path record the launch and `call`
-only. A `span` block records too while the recorder is on. The buffer
-keeps CAPACITY records (a launch and its children are one); past that,
-spans are dropped and counted. `clear()` empties it.
+The two- and three-pass launches, the sandwich's and the real-signal
+path's (`pack_real`, `interleave`, `herm_unpack`, `herm_repack`) record
+all four phases; the other launch helpers (`fft_rows`, `filter_rows`,
+`os_filter`, `stft_frames`, the stage pipeline's) record the launch and
+`call` only. A `span` block records too while the recorder is on. The
+buffer keeps CAPACITY records (a launch and its children are one); past
+that, spans are dropped and counted. `clear()` empties it.
 
 Set-up spans are recorded whether or not the recorder is on, since each
 happens once a process or a shape, in their own list (`setup_spans()`,

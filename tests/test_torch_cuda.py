@@ -270,6 +270,76 @@ def test_profiled_calls_record_their_launches(no_tf32):
                    spans[i][2] <= spans[spans[i][3]][2] for i in call if i != r)
 
 
+# The launches of a fused r2c and c2r call, in order.
+FUSED_REAL = {"r2c": ("fourstep_pass1_packed", "fourstep_pass2", "herm_unpack"),
+              "c2r": ("herm_repack", "fourstep_pass1", "fourstep_pass2_interleaved")}
+
+
+def _launch_has_its_phases(spans, i):
+    """Span i is a launch whose children are checks, alloc, tables and
+    call, back to back from its start to its end."""
+    from fftlab_torch.utils import trace
+
+    ch = [j for j, s in enumerate(spans) if s[3] == i]
+    assert [spans[j][0] for j in ch] == list(trace.PHASES), spans[i][0]
+    assert spans[ch[0]][1] == spans[i][1] and spans[ch[-1]][2] == spans[i][2]
+    assert all(spans[a][2] == spans[b][1] for a, b in zip(ch, ch[1:]))
+
+
+@pytest.mark.parametrize("kind", ["r2c", "c2r"])
+def test_profiled_fused_real_calls_record_their_launches(no_tf32, kind):
+    """Under a profile of CUDA activity alone, a fused r2c or c2r call at
+    2^21 (the benchmark's r2c route) gives execute -> wrapper and its
+    three launches under the wrapper, each a LAUNCHES count with all four
+    phases."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from fftlab_torch.utils import trace
+
+    n = 1 << 21
+    x, xc = _real(43, (2, n))
+    r2c = fftlab_torch.plan_r2c_1d_split(n, batch=2)
+    plan = r2c if kind == "r2c" else fftlab_torch.plan_c2r_1d_split(n, batch=2)
+    arg = xc if kind == "r2c" else r2c.execute(xc)
+    plan.execute(arg)
+    torch.cuda.synchronize()
+    trace.clear()
+    before = _launches()
+    with profile(activities=[ProfilerActivity.CUDA]):
+        got = plan.execute(arg)
+        torch.cuda.synchronize()
+    delta = {k: v - before[k] for k, v in _launches().items() if v != before[k]}
+    assert delta == dict.fromkeys(FUSED_REAL[kind], 1)
+    spans = trace.spans()
+    assert [(s[0], s[3]) for s in spans[:2]] == [("execute", -1), ("wrapper", 0)]
+    assert [s[0] for s in spans if s[3] < 0] == ["execute"]
+    launches = [i for i, s in enumerate(spans) if s[0] in delta]
+    assert [spans[i][0] for i in launches] == list(FUSED_REAL[kind])
+    for i in launches:
+        assert spans[i][3] == 1
+        _launch_has_its_phases(spans, i)
+    if kind == "r2c":
+        assert snr_db(cplx(*got), np.fft.rfft(x.astype(np.float64), axis=-1)) >= 110.0
+    else:
+        assert snr_db(got.cpu().numpy(), x.astype(np.float64)) >= 110.0
+
+
+def test_pack_and_interleave_record_their_phases():
+    from fftlab_torch.utils import trace
+
+    x, xc = _real(44, (2, 1 << 16))
+    trace.clear()
+    with trace.recording():
+        y = rfft_vmem.interleave(*rfft_vmem.pack_real(xc))
+    spans = trace.spans()
+    launches = [i for i, s in enumerate(spans) if s[3] < 0]
+    assert [spans[i][0] for i in launches] == ["pack_real", "interleave"]
+    for i in launches:
+        _launch_has_its_phases(spans, i)
+    trace.clear()
+    assert torch.equal(y, xc)
+
+
 def test_bluestein_launches_the_sandwich(no_tf32):
     n = 500009
     xr, xi = planes(n, (2, n))

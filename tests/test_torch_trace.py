@@ -1,7 +1,8 @@
 """fftlab_torch's span recorder on the CPU (fftlab_torch/utils/trace.py):
 off by default, reading no clock; on under `recording()` and under a
 torch.profiler profile, with the spans of a call nested as execute ->
-dispatch -> wrapper and a public call inside another as a child; the
+dispatch -> wrapper (execute -> wrapper on a fused r2c/c2r plan) and a
+public call inside another as a child; the
 bounded buffer; the set-up spans and counters of the library, the
 tables, the plans and the import. The launch spans, which only a card's
 launch helpers record, are tested in tests/test_torch_cuda.py."""
@@ -136,6 +137,43 @@ def test_fft_split_auto_is_a_root():
     with trace.recording():
         fft_split_auto(*x)
     assert [s[0] for s in trace.spans()] == ["execute", "dispatch", "wrapper"]
+
+
+def _real_plan_and_input(kind):
+    """A fused r2c or c2r plan at 2^16 (route `resident`), 2 rows, and its
+    input."""
+    from fftlab_torch.plan.api import plan_c2r_1d_split, plan_r2c_1d_split
+
+    n = 1 << 16
+    x = _pair(n)[0]
+    r2c = plan_r2c_1d_split(n, batch=2, device="cpu")
+    assert r2c.algorithm == "rfft_resident"
+    if kind == "r2c":
+        return r2c, x
+    c2r = plan_c2r_1d_split(n, batch=2, device="cpu")
+    assert c2r.algorithm == "irfft_resident"
+    return c2r, r2c.execute(x)
+
+
+@pytest.mark.parametrize("kind", ["r2c", "c2r"])
+def test_a_fused_real_call_is_execute_wrapper(kind, monkeypatch):
+    """The fused r2c/c2r route chose its kernels when the plan was made:
+    its entry is the span `wrapper` right under `execute`, recorded while
+    the recorder is on; off, the call reads no clock."""
+    plan, x = _real_plan_and_input(kind)
+    want = plan.execute(x)  # the tables' first builds
+    with trace.recording():
+        got = plan.execute(x)
+    spans = trace.spans()
+    assert [(s[0], s[3]) for s in spans] == [("execute", -1), ("wrapper", 0)]
+    assert spans[0][1] <= spans[1][1] <= spans[1][2] <= spans[0][2]
+    assert len({s[4] for s in spans}) == 1
+    same = zip(got, want) if kind == "r2c" else [(got, want)]
+    assert all(torch.equal(a, b) for a, b in same)
+    trace.clear()
+    monkeypatch.setattr(trace, "now", _no_clock)
+    plan.execute(x)
+    assert trace.spans() == []
 
 
 def test_the_buffer_is_bounded_and_counts_what_it_drops(monkeypatch):
