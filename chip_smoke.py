@@ -1906,6 +1906,7 @@ def main() -> int:
               | {f"fourstep_pass1_kernel<{m}, {e}>" for m in range(3) for e in range(7, 11)}
               | {f"fourstep_pass2_kernel<{m}, {e}>" for m in range(2) for e in range(7, 12)}
               | {f"fourstep_pass2_sandwich_kernel<{e}>" for e in range(7, 12)}
+              | {f"fourstep_pass2_unpack_kernel<{e}>" for e in range(8, 11)}
               | {f"fourstep_pass1_kernel<3, {e}>" for e in range(1, 8)}  # the stages
               | {f"fourstep_pass1_kernel<4, {e}>" for e in range(7, 11)}  # no twiddle
               | {f"fourstep_pass2_kernel<2, {e}>" for e in range(7, 12)}  # the leaves
@@ -2131,6 +2132,18 @@ def main() -> int:
         check("fourstep_pass1_packed vs plain", s1, GATE_PLAIN_DB)
         check("fourstep_pass2_interleaved vs plain", s2, GATE_PLAIN_DB)
         check("packed two-pass vs oracle", s_oracle, GATE_ORACLE_DB["real"])
+    # pass 2's unpack mode on the packed pass 1 of the fused path's signal
+    mid = fourstep_vmem.fourstep_pass1_packed(x)
+    got = fourstep_vmem.fourstep_pass2_unpack(*mid, 0.5)
+    plain = rfft_resident.fourstep_pass2_unpack_plain(*mid, 0.5)
+    want = [0.5 * t for t in rfft_oracle(x)]
+    torch.cuda.synchronize()
+    err["fourstep_pass2_unpack"] = max_abs(got, plain)
+    s_plain, s_oracle = snr_db(got, plain), snr_db(got, want)
+    print(f"check fourstep_pass2_unpack {B} x {n // 2} (scale 0.5): vs plain {s_plain:.1f} dB, "
+          f"vs oracle {s_oracle:.1f} dB")
+    check("fourstep_pass2_unpack vs plain", s_plain, GATE_PLAIN_DB)
+    check("fourstep_pass2_unpack vs oracle", s_oracle, GATE_ORACLE_DB["real"])
     sig = reals(1, STFT_N)[0]
     err["stft_frames"] = 0.0
     for fft_size, hop in STFT_CASES:
@@ -2439,7 +2452,7 @@ def main() -> int:
             and c2r2.algorithm == "irfft_split[two_pass]",
             f"2^22 real routes {r2c2.algorithm}, {c2r2.algorithm}")
     for name in ("fourstep_pass1_packed", "fourstep_pass2_interleaved", "fourstep_pass1",
-                 "fourstep_pass2", "pack_real", "interleave", "herm_unpack",
+                 "fourstep_pass2", "fourstep_pass2_unpack", "pack_real", "interleave", "herm_unpack",
                  "herm_repack", "stft_frames"):
         require(real_launches[name] > 0,
                 f"kernel {name} was not launched on the real-signal path")
@@ -2873,6 +2886,10 @@ def main() -> int:
         lambda: fourstep_vmem.fourstep_pass1_packed_plain(x))
     ms["fourstep_pass2_interleaved"] = time_ms(
         lambda: fourstep_vmem.fourstep_pass2_interleaved(*mid, INVERSE, 2.0 / n))
+    packed = fourstep_vmem.fourstep_pass1_packed(x)
+    ms["fourstep_pass2_unpack"] = time_ms(lambda: fourstep_vmem.fourstep_pass2_unpack(*packed))
+    ms["fourstep_pass2_unpack_plain"] = time_ms(
+        lambda: rfft_resident.fourstep_pass2_unpack_plain(*packed))
     ms["fourstep_pass2_interleaved_plain"] = time_ms(
         lambda: fourstep_vmem.fourstep_pass2_interleaved_plain(*mid, INVERSE, 2.0 / n))
     ms["rfft_fused_plain"] = time_ms(lambda: rfft_resident.rfft_resident_plain(x))
@@ -2882,11 +2899,10 @@ def main() -> int:
     ms["cufft_irfft"] = time_ms(lambda: torch.fft.irfft(xc, n))
     ms["stack_interleave"] = time_ms(lambda: torch.stack([zr, zi], dim=-1))
 
-    # the A/B of ROADMAP K6: the fused r2c (3 launches) against the
+    # the A/B of ROADMAP K6: the fused r2c (2 launches) against the
     # pipeline (4 launches), in turns on the same card
     def fused():
-        return rfft_vmem.herm_unpack(*fourstep_vmem.fourstep_pass2(
-            *fourstep_vmem.fourstep_pass1_packed(x)))
+        return fourstep_vmem.fourstep_pass2_unpack(*fourstep_vmem.fourstep_pass1_packed(x))
 
     def pipeline():
         return rfft_vmem.herm_unpack(*fourstep_vmem.fourstep_pass2(
@@ -2907,7 +2923,8 @@ def main() -> int:
         ("pack_real", "pack_real_plain", "interleave", "interleave_plain", "herm_unpack",
          "herm_unpack_plain", "herm_repack", "herm_repack_plain", "fourstep_pass1_packed",
          "fourstep_pass1_packed_plain", "fourstep_pass2_interleaved",
-         "fourstep_pass2_interleaved_plain", "rfft_fused", "rfft_fused_plain",
+         "fourstep_pass2_interleaved_plain", "fourstep_pass2_unpack",
+         "fourstep_pass2_unpack_plain", "rfft_fused", "rfft_fused_plain",
          "rfft_pipeline", "irfft_fused", "irfft_fused_plain", "cufft_rfft",
          "cufft_irfft", "stack_interleave"), RFFT_SHAPE))
     # the geometry A/B of the two-pass kernels, in turns on the same card:
@@ -3164,6 +3181,9 @@ def main() -> int:
         ("fourstep_pass2_interleaved", "fourstep.cu", "fftlab/kernels/rfft_resident.py:485",
          "fftlab/kernels/rfft_vmem.py:126", real_launches, "fourstep_pass2_interleaved",
          None, 8 * Nreal, 5 * bins_half * lg(h2)),
+        ("fourstep_pass2_unpack", "fourstep.cu", "fftlab/kernels/rfft_resident.py:284",
+         "fftlab/kernels/rfft_vmem.py:250", real_launches, "fourstep_pass2_unpack", None,
+         16 * bins_half + 8 * RFFT_SHAPE[0], 5 * bins_half * lg(h2) + 10 * bins_half),
         ("stft_frames", "real.cu", "fftlab/kernels/stft_vmem.py:77",
          "fftlab/kernels/stft_vmem.py:174", real_launches, f"stft_frames_{fft_size}_{hop}",
          f"cufft_stft_{fft_size}_{hop}", 4 * STFT_N + 8 * st_frames * st_bins,

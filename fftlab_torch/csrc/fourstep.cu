@@ -1,10 +1,10 @@
 // fourstep_pass1 / fourstep_pass2 / fourstep_pass2_sandwich /
-// fourstep_pass1_packed / fourstep_pass2_interleaved / fourstep_pass1_swap
-// / fused_stage / stage_leaf: the two-pass four-step FFT for power-of-two
-// n = L1*L2 in 2^15..2^21 (L1 <= L2, L1 <= 1024), the FFT -> H -> IFFT
-// sandwich on it, its real-signal load and store modes, the three passes
-// of the huge-n FFT (2^21..2^26), and the stages and leaf of the stage
-// pipeline.
+// fourstep_pass1_packed / fourstep_pass2_interleaved / fourstep_pass2_unpack
+// / fourstep_pass1_swap / fused_stage / stage_leaf: the two-pass four-step
+// FFT for power-of-two n = L1*L2 in 2^15..2^21 (L1 <= L2, L1 <= 1024), the
+// FFT -> H -> IFFT sandwich on it, its real-signal load and store modes,
+// the three passes of the huge-n FFT (2^21..2^26), and the stages and leaf
+// of the stage pipeline.
 //
 // Replaces two TPU kernels that compute one transform:
 //   fftlab/kernels/resident_vmem.py `_fft_resident_v6_impl` (one VMEM
@@ -81,9 +81,41 @@
 // reads the real row x[b, 0..2m) as float2 pairs, complex element j =
 // (x[2j], x[2j+1]), so W columns are 8*W contiguous bytes per j1;
 // pass 2 with kInterleaved stores element k as the float2
-// (x[2k], x[2k+1]) of a real row. The fused r2c is pass 1 (packed),
-// pass 2, herm_unpack (real.cu): three launches; the c2r is herm_repack,
-// pass 1, pass 2 (interleaved) with 1/m in its scale.
+// (x[2k], x[2k+1]) of a real row. The fused r2c is pass 1 (packed) and
+// pass 2's unpack mode (fourstep_pass2_unpack), which does the Hermitian
+// unpack of herm_unpack (real.cu) in its epilogue: two launches, and the
+// half-size spectrum Z never reaches device memory. The c2r is
+// herm_repack, pass 1, pass 2 (interleaved) with 1/m in its scale.
+// Pass 2's unpack mode: bin k = k2*L1 + k1 and its mirror m - k =
+//   (L2-1-k2)*L1 + (L1-k1) lie in rows k1 and L1 - k1 (k1 != 0); rows 0 and
+//   L1/2 each pair with themselves (k2 with L2 - k2, and with L2-1-k2).
+//   Block b*(L1/R) + c takes the R/2 rows k1 = c*R/2 + u (u < R/2), all
+//   below L1/2, as transforms u of its tile, and their mirrors L1 - k1 as
+//   transforms R/2 + u (block 0 holds row L1/2 in the place of row 0's
+//   mirror): every row once, and each pair (k, m-k) in one block. It loads
+//   the R rows as pass 2 does and runs the forward length-L2 FFT with its
+//   spectrum left in the exchange planes (sandwich.cuh
+//   `forward_in_place`); then each thread unpacks kP/2 pairs from its own
+//   planes (unpack_pair, hermitian.cuh; a warp on 32 consecutive k2 of one
+//   row) with w = W_n^k = W_n^{k1} * W_{2*L2}^{k2} (one value a row times
+//   a table of L2, float64-built and rounded to float32).
+//   A block alone owns runs of R/2 consecutive k1 of each k2: stored
+//   straight, its bins took 0.38 ms at 16 x 2^20 (R = 8) on an H100, where
+//   the same kernel storing 32 consecutive floats a warp took 0.11. So the
+//   blocks of 32 consecutive low rows (C = 64/R blocks, R = 8 or 16) make a
+//   thread block cluster. Each block writes its outputs, 128 contiguous
+//   bytes a warp, into the shared memory of the block that stores their k2
+//   (distributed shared memory): the X[k] at once, into a staging area past
+//   that block's planes, and the X[m-k], after a cluster barrier (every
+//   block's planes read), in the place of its planes. No block writes into
+//   a peer before every block of the cluster has started: each arrives on
+//   the cluster barrier at its entry and waits on it after its row FFTs,
+//   which hide the wait. After a second barrier each block stores the
+//   bins of its L2/C elements k2, a warp 32 consecutive k1 of one k2
+//   (descending for m - k). The Nyquist bin X[m]
+//   goes out at once from the thread of k = 0. At 16 x 2^20 on an H100 the
+//   DSMEM writes cost about 0.03 ms of the kernel's 0.17, the barriers and
+//   staging about as much, the stores 0.05 (PERF.md §6).
 //
 // The three-pass FFT, n = F1*F2*F3 (threestep_vmem._split_three), replaces
 // fftlab/kernels/threestep_vmem.py `_fft_huge_impl` (pallas_call at :204,
@@ -145,7 +177,8 @@
 // the passes exchange through padded shared-memory planes (2 exchanges
 // at L = 512..2048, 1 at 128..256), and the last pass stores straight
 // from registers: pass 1 with the cross twiddle, pass 2 with the scale,
-// the corner turn (runs of 8 consecutive k1 per k2) or the interleave.
+// the corner turn (runs of 8 consecutive k1 per k2) or the interleave;
+// pass 2's unpack mode stores from its epilogue.
 // The sandwich mode reads and writes the signal once too, and H (8 bytes
 // a point of one batch row, L2-resident across batch rows) once a batch
 // row. The geometry (W or R, threads, shared bytes, schedule) comes from
@@ -156,9 +189,48 @@
 
 #include <climits>
 
+#include <cooperative_groups.h>
+
+#include "hermitian.cuh"
 #include "sandwich.cuh"
 
 using namespace fftlab;
+
+// The thread block cluster of pass 2's unpack mode: a barrier of all its
+// threads, whose shared-memory writes before it every thread of the
+// cluster sees after it; the same barrier split in two, an arrival and
+// the wait for every thread's arrival, with work between; and a pointer
+// into the shared memory of block `rank` of the cluster
+// (cooperative_groups, sm_90). A block may touch a peer's shared memory
+// only once every block of the cluster has started, which a barrier
+// passed by all of them shows.
+__device__ __forceinline__ void cluster_sync() { cooperative_groups::this_cluster().sync(); }
+
+__device__ __forceinline__ void cluster_arrive() {
+  cooperative_groups::this_cluster().barrier_arrive();
+}
+
+__device__ __forceinline__ void cluster_wait() { cooperative_groups::this_cluster().barrier_wait(); }
+
+__device__ __forceinline__ float* cluster_peer(float* p, int rank) {
+  return cooperative_groups::this_cluster().map_shared_rank(p, rank);
+}
+
+// Pass 2's unpack mode: a cluster holds 2^kLogUnpackRun consecutive rows
+// k1 below L1/2 (and their mirrors), so a warp stores 32 consecutive bins
+// (kernels/fourstep_vmem.py UNPACK_RUN). At R = 2^log_r rows a block, a
+// cluster is 2^unpack_log_cluster(log_r) blocks, and each of them stores
+// L2/C elements k2 from staging areas of rows of unpack_pitch floats (S =
+// L2/C + 1, odd; fourstep_vmem.unpack_pitch).
+constexpr int kLogUnpackRun = 5;
+
+__host__ __device__ constexpr int unpack_log_cluster(int log_r) {
+  return kLogUnpackRun - (log_r - 1);
+}
+
+__host__ __device__ constexpr int unpack_pitch(int log_l2, int log_r) {
+  return (1 << (log_l2 - unpack_log_cluster(log_r))) + 1;
+}
 
 // One pad float every 16, and a row stride of L + L/16 + 4: the tiles'
 // exchanges (fft_reg.cuh).
@@ -519,6 +591,141 @@ fourstep_pass2_sandwich_kernel(float* mr, float* mi, const float2* __restrict__ 
       });
 }
 
+// Pass 2's unpack mode (the comment at the top of this file): block
+// b*(L1/R) + c of the (batch, L1, L2) intermediate m, rows c*R/2 + u and
+// their mirrors, into bins 0..M of the one-sided planes x ([batch, M + 1],
+// M = L1*L2), in clusters of 2^kLogUnpackRun/(R/2) blocks; shared memory:
+// the exchange planes, then the low staging area (`fftlab_fourstep_pass2_unpack`).
+// tw2: the engine's forward twiddle table of L2; utw: W_{2*L2}^{k2} for
+// k2 < L2, then W_{2M}^{k1} for k1 <= L1/2; h: half the output scale.
+template <int kLogL2>
+__global__ void __launch_bounds__(tile_threads<kLogL2>(), blocks_per_sm<tile_threads<kLogL2>()>())
+fourstep_pass2_unpack_kernel(const float* __restrict__ mr, const float* __restrict__ mi,
+                             float* __restrict__ xr, float* __restrict__ xi,
+                             const float2* __restrict__ tw2, const float2* __restrict__ utw,
+                             int log_l1, int log_r, Geometry geo, float h) {
+  constexpr int log_l2 = kLogL2;
+  constexpr int L2 = 1 << kLogL2;
+  const int log_u = log_r - 1;  // R/2 = 2^log_u rows below L1/2, and their mirrors
+  const int half = 1 << log_u;
+  const int log_g = log_l1 - log_r;
+  const int l1 = 1 << log_l1;
+  const int m = l1 << log_l2;
+  const int c = blockIdx.x & ((1 << log_g) - 1);
+  const int k1_0 = c << log_u;
+  // 64-bit block bases, 32-bit offsets inside a row of L1*L2 <= 2^26
+  const size_t b = blockIdx.x >> log_g;
+  const size_t in0 = b << (log_l1 + log_l2);
+  float* __restrict__ yr = xr + b * (m + 1);
+  float* __restrict__ yi = xi + b * (m + 1);
+  const Tile x = make_tile(log_r, geo);
+  // The epilogue writes into the peers' staging areas; the row FFTs hide
+  // the wait for every block of the cluster to have started.
+  cluster_arrive();
+  // R whole rows: a warp reads 32 consecutive floats of one row
+  const int z = forward_in_place<kLogL2, kLogPadTiles>(x, tw2, run_bits(log_r), [&](int t, int e) {
+    const int lo = k1_0 + (t & (half - 1));
+    const int k1 = t < half ? lo : (lo == 0 ? l1 >> 1 : l1 - lo);
+    const int at = (k1 << log_l2) + e;
+    return make_float2(__ldg(mr + in0 + at), __ldg(mi + in0 + at));
+  });
+  // The cluster's 2^kLogUnpackRun low rows k1 = k1_c + v (block v / (R/2)
+  // of the cluster holds row v as transform v mod R/2) and their mirrors;
+  // block `rank` of the cluster stores the bins of elements k2_r .. k2_r +
+  // L2/C - 1 of them from two staging areas, each a re and an im plane of
+  // 32 rows v of S = L2/C + 1 floats (bin (v, k2) at v*S + k2 - k2_r; S
+  // odd: the store's reads of 32 rows v of one k2 take one wavefront):
+  // the low bins X[k2*L1 + k1_c + v] past the exchange planes, written as
+  // soon as they are computed, and the high bins X[k2*L1 + L1 - k1_c - v]
+  // (of row L1/2 for v = 0 in the first cluster) in the place of the
+  // planes, once every block of the cluster has read its own.
+  const int log_c = unpack_log_cluster(log_r);  // blocks a cluster
+  const int log_kr = log_l2 - log_c;            // elements k2 a block stores
+  const int stage = unpack_pitch(log_l2, log_r);  // S
+  const int rank = c & ((1 << log_c) - 1);
+  const int k1_c = (c >> log_c) << kLogUnpackRun;
+  float* const high = x.re;
+  float* const low = x.re + ((2 * geo.stride) << log_r);
+  // X[k] and X[m-k] from Z[k] (element k2 of transform t_lo, row k1) and
+  // Z[m-k] (element e_hi of transform t_hi)
+  const auto pair = [&](int t_lo, int k2, int k1, int t_hi, int e_hi) {
+    const int a = padded<kLogPadTiles>(x, t_lo, k2);
+    const int d = padded<kLogPadTiles>(x, t_hi, e_hi);
+    return unpack_pair(make_float2(x.re[a], x.im[a]), make_float2(x.re[d], x.im[d]),
+                       cmul(__ldg(utw + L2 + k1), __ldg(utw + k2)), h);
+  };
+  // bin (v, k2) of the staging area `area` (low or high) of the block
+  // that stores k2
+  const auto put = [&](float* area, int v, int k2, float2 val) {
+    float* dst = cluster_peer(area, k2 >> log_kr) + v * stage + (k2 & ((1 << log_kr) - 1));
+    dst[0] = val.x;
+    dst[stage << kLogUnpackRun] = val.y;
+  };
+  // Pair p = s + i*threads of this block: row u = p / L2 (transform u,
+  // k1 = k1_0 + u, cluster row v = rank*R/2 + u), element k2 = p mod L2,
+  // so a warp holds 32 consecutive k2 of one row (kP/2 pairs a thread):
+  // X[k] is low bin (v, k2), X[m-k] high bin (v, L2-1-k2). In block 0 row
+  // 0 pairs k2 with L2 - k2 (low bins (0, k2) and (0, L2 - k2); X[0]
+  // with the Nyquist bin, which goes out at once) and row L1/2
+  // (transform R/2) k2' = k2 - L2/2 with L2-1-k2' (high bins of v = 0).
+  const int s = threadIdx.x + z;
+  const auto row_of = [&](int i) { return (s + i * blockDim.x) >> log_l2; };
+  const auto k2_of = [&](int i) { return (s + i * blockDim.x) & (L2 - 1); };
+  float2 hi_val[kP / 2];  // the outputs bound for the high staging areas
+  UnpackPair row_half;    // block 0: a pair of row L1/2 (at most one a thread)
+  cluster_wait();         // every block of the cluster has started
+  for (int i = 0; i < kP / 2; ++i) {
+    const int u = row_of(i), k2 = k2_of(i);
+    if (k1_0 + u != 0) {
+      const UnpackPair o = pair(u, k2, k1_0 + u, half + u, L2 - 1 - k2);
+      put(low, (rank << log_u) + u, k2, o.low);
+      hi_val[i] = o.high;
+    } else if (k2 < L2 / 2) {
+      const UnpackPair o = pair(0, k2, 0, 0, (L2 - k2) & (L2 - 1));
+      put(low, 0, k2, o.low);
+      if (k2 == 0) {
+        yr[m] = o.high.x;
+        yi[m] = o.high.y;
+      } else {
+        put(low, 0, L2 - k2, o.high);
+      }
+    } else {
+      row_half = pair(half, k2 - L2 / 2, l1 >> 1, half, L2 - 1 - (k2 - L2 / 2));
+    }
+  }
+  if (k1_0 == 0 && s == 0) {  // bin m/2: row 0's element L2/2, its own mirror
+    const int a = padded<kLogPadTiles>(x, 0, L2 / 2);
+    const float2 zm = make_float2(x.re[a], x.im[a]);
+    put(low, 0, L2 / 2, unpack_pair(zm, zm, cmul(__ldg(utw + L2), __ldg(utw + L2 / 2)), h).low);
+  }
+  cluster_sync();  // every block's planes read: the high staging areas are free
+#pragma unroll
+  for (int i = 0; i < kP / 2; ++i) {
+    const int u = row_of(i), k2 = k2_of(i);
+    if (k1_0 + u != 0) {
+      put(high, (rank << log_u) + u, L2 - 1 - k2, hi_val[i]);
+    } else if (k2 >= L2 / 2) {
+      put(high, 0, k2 - L2 / 2, row_half.low);
+      put(high, 0, L2 - 1 - (k2 - L2 / 2), row_half.high);
+    }
+  }
+  cluster_sync();  // every bin of this block's elements staged
+  // bin (v, k2): thread s takes v = s mod 32, so a warp stores 32
+  // consecutive k1 of one k2 (descending for the high bins)
+  const int v = s & ((1 << kLogUnpackRun) - 1);
+  const int hi_k1 = (k1_c == 0 && v == 0) ? l1 >> 1 : l1 - k1_c - v;
+  for (int i = s >> kLogUnpackRun; i < 1 << log_kr; i += blockDim.x >> kLogUnpackRun) {
+    const int k2 = (rank << log_kr) + i;
+    const int at = v * stage + i;
+    const int lo = (k2 << log_l1) + k1_c + v;
+    const int hi = (k2 << log_l1) + hi_k1;
+    yr[lo] = low[at];
+    yi[lo] = low[at + (stage << kLogUnpackRun)];
+    yr[hi] = high[at];
+    yi[hi] = high[at + (stage << kLogUnpackRun)];
+  }
+}
+
 namespace {
 
 // Set a kernel's shared memory and launch it on `grid` blocks of the
@@ -532,6 +739,28 @@ cudaError_t launch(Kernel kernel, long long grid, const Geometry& geo, void* str
   kernel<<<static_cast<unsigned>(grid), geo.threads, geo.smem,
            static_cast<cudaStream_t>(stream)>>>(args...);
   return cudaGetLastError();
+}
+
+// `launch` in clusters of `cluster` consecutive blocks.
+template <class... Params, class... Args>
+cudaError_t launch_cluster(void (*kernel)(Params...), long long grid, int cluster,
+                           const Geometry& geo, void* stream, Args... args) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, geo.smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(static_cast<unsigned>(grid));
+  config.blockDim = dim3(geo.threads);
+  config.dynamicSmemBytes = geo.smem;
+  config.stream = static_cast<cudaStream_t>(stream);
+  config.attrs = attr;
+  config.numAttrs = 1;
+  return cudaLaunchKernelEx(&config, kernel, static_cast<Params>(args)...);
 }
 
 // batch: rows of L1*L2 the kernel transforms (for kSwapStore, F1 times
@@ -688,6 +917,35 @@ extern "C" int fftlab_fourstep_pass2_interleaved(const float* mr, const float* m
                                                  int direction, float scale, void* stream) {
   return launch_pass2<kInterleaved>(mr, mi, y, nullptr, tw2, batch, log_l1, log_l2, log_r, geo,
                                     direction, scale, stream);
+}
+
+// Pass 2's unpack mode, the fused r2c's last launch (forward only). m: the
+// (batch, L1, L2) intermediate planes of the packed pass 1; x: [batch,
+// L1*L2 + 1] one-sided output planes, bins 0..L1*L2, times `scale`; tw2:
+// the engine's forward twiddle table for L2; utw: L2 + L1/2 + 1 float2,
+// W_{2*L2}^{k2} (k2 < L2), then W_n^{k1} (k1 <= L1/2, n = 2*L1*L2); R =
+// 2^log_r rows per block, 8 or 16, in clusters of 64/R blocks (L1 >= 64);
+// geo: the launch geometry of kernels/fourstep_vmem.py
+// `pass2_unpack_geometry`, its shared memory the planes and the low
+// staging area. Returns a cudaError_t.
+extern "C" int fftlab_fourstep_pass2_unpack(const float* mr, const float* mi, float* xr,
+                                            float* xi, const void* tw2, const void* utw,
+                                            long long batch, int log_l1, int log_l2, int log_r,
+                                            Geometry geo, float scale, void* stream) {
+  const long long blocks = batch << (log_l1 - log_r);
+  if (utw == nullptr || !valid_geometry(geo, log_l2, log_r, kLogPadTiles) || log_r < 3 ||
+      log_l1 < kLogUnpackRun + 1 || log_l1 + log_l2 > 26 || batch < 1 || blocks > INT_MAX) {
+    return cudaErrorInvalidValue;
+  }
+  // the low staging area past the planes: 2 planes of 2^kLogUnpackRun rows
+  const long long low_area = (8LL * unpack_pitch(log_l2, log_r)) << kLogUnpackRun;
+  if (geo.smem < ((8LL * geo.stride) << log_r) + low_area) return cudaErrorInvalidValue;
+  return dispatch<8, 10>(log_l2, [&](auto log_l2_c) {
+    return launch_cluster(fourstep_pass2_unpack_kernel<decltype(log_l2_c)::value>, blocks,
+                          1 << unpack_log_cluster(log_r), geo, stream, mr, mi, xr, xi,
+                          static_cast<const float2*>(tw2), static_cast<const float2*>(utw),
+                          log_l1, log_r, geo, 0.5f * scale);
+  });
 }
 
 // One stage of the stage pipeline: pass 1 in kStage mode (`stage_tile`).

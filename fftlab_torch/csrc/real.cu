@@ -56,7 +56,7 @@
 #include <climits>
 #include <cstdint>
 
-#include "fft_reg.cuh"
+#include "hermitian.cuh"
 
 using namespace fftlab;
 
@@ -95,24 +95,6 @@ interleave_kernel(const float* __restrict__ zr, const float* __restrict__ zi,
        j += stride) {
     x[j] = make_float2(zr[j], zi[j]);
   }
-}
-
-// The paired Hermitian unpack of one pair (k, m-k), k = 0..m/2, h = 0.5
-// times the output scale, w = W_n^k:
-//   E = h*(Z[k] + conj(Z[m-k])),  O = -i*h*(Z[k] - conj(Z[m-k])),
-//   X[k] = E + w*O,  X[m-k] = conj(E - w*O)
-// (for k = 0, Z[m-k] is Z[0] and X[m-k] is the Nyquist bin X[m]).
-struct UnpackPair {
-  float2 low;   // X[k]
-  float2 high;  // X[m-k]
-};
-
-__device__ __forceinline__ UnpackPair unpack_pair(float2 zl, float2 zh, float2 w, float h) {
-  const float er = h * (zl.x + zh.x);
-  const float ei = h * (zl.y - zh.y);
-  const float2 o = make_float2(h * (zl.y + zh.y), -h * (zl.x - zh.x));
-  const float2 wo = cmul(o, w);
-  return {make_float2(er + wo.x, ei + wo.y), make_float2(er - wo.x, wo.y - ei)};
 }
 
 // Z [rows, m] planes -> X [rows, m+1] planes, bins 0..m. One thread per

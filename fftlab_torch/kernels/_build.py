@@ -89,6 +89,9 @@ SIGNATURES = {
     # scale, stream
     "fftlab_fourstep_pass2_interleaved": (_P, _P, _P, _P, _LL, _I, _I, _I, _G, _I, _F,
                                           _P),
+    # mr, mi, xr, xi, tw2, utw, batch, log_l1, log_l2, log_r, geometry,
+    # scale, stream
+    "fftlab_fourstep_pass2_unpack": (_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _G, _F, _P),
     # x, zr, zi, total, stream
     "fftlab_pack_real": (_P, _P, _P, _LL, _P),
     # zr, zi, x, total, stream

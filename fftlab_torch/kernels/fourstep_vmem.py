@@ -26,7 +26,11 @@ The real-signal modes fuse K7's pack and interleave into the passes:
 `fourstep_pass1_packed` reads a real [B, 2n] row as float2 pairs,
 complex element j = (x[2j], x[2j+1]), and `fourstep_pass2_interleaved`
 stores bin k as the float2 (y[2k], y[2k+1]) of a real [B, 2n] row; they
-make the fused r2c/c2r of kernels/rfft_resident.py. `rfft_split_large`
+make the fused r2c/c2r of kernels/rfft_resident.py with pass 2's unpack
+mode, `fourstep_pass2_unpack`: the length-L2 FFTs of rows k1 and L1 - k1
+in one block, whose epilogue does K7's Hermitian unpack (`herm_unpack`)
+on bins k and m - k and stores the one-sided [B, m+1] spectrum, so the
+half-size spectrum never reaches device memory. `rfft_split_large`
 and `irfft_split_large` run the half-size transform of a real signal on
 these passes, or on the three-pass kernel above 2^21
 (fftlab/kernels/fourstep_vmem.py:797-847).
@@ -118,10 +122,19 @@ STAGE_SLACK = {32: 4, 64: 2, 128: 2}
 # within 4.2% of each other over four runs and 8 won three.
 SANDWICH_ROWS = {256: 16, 512: 8, 1024: 4, 2048: 8}
 
+# Consecutive rows k1 below L1/2 that a cluster of the unpack mode holds
+# (csrc/fourstep.cu kLogUnpackRun): a warp stores 32 consecutive bins.
+UNPACK_RUN = 32
+# Rows R of a block of the unpack mode at each L2 of the fused r2c's window
+# (kernels/rfft_resident.py; csrc/fourstep.cu's dispatch), the faster of 8
+# and 16 on an H100 at 2^24 points (scripts/torch_r2c_pass2_sweep.py;
+# PERF.md §6).
+UNPACK_ROWS = {256: 16, 512: 8, 1024: 8}
+
 # Launches of the CUDA kernels since the counts were last reset.
 LAUNCHES = {"fourstep_pass1": 0, "fourstep_pass2": 0,
             "fourstep_pass2_sandwich": 0, "fourstep_pass1_packed": 0,
-            "fourstep_pass2_interleaved": 0}
+            "fourstep_pass2_interleaved": 0, "fourstep_pass2_unpack": 0}
 # Launches of pass 1 in a twiddled mode (plain, packed, swap store) at
 # L1 >= STAGED_MIN_L1, whose store reads W_n^{k1*j2} from the block's
 # staged columns of S, by any wrapper (this module's,
@@ -190,6 +203,31 @@ def sandwich_geometry(L1: int, L2: int, rows: int | None = None) -> TileGeometry
     geo = tile_geometry(L2, R)
     stride = L2 + L2 // 16 + 32 // min(R, 8)
     return dataclasses.replace(geo, smem=8 * R * stride, stride=stride)
+
+
+def pass2_unpack_geometry(L1: int, L2: int, rows: int | None = None) -> TileGeometry:
+    """The launch of pass 2's unpack mode at sides (L1, L2): R rows of
+    length L2 per block, R/2 rows below L1/2 and their mirrors L1 - k1, in
+    clusters of UNPACK_RUN/(R/2) blocks (csrc/fourstep.cu
+    `fourstep_pass2_unpack_kernel`), in pass 2's padded tile, R =
+    UNPACK_ROWS[L2]; past the planes, the staging area of the low bins (a
+    re and an im plane of UNPACK_RUN rows of `unpack_pitch` floats). `rows`
+    overrides R, in {8, 16} (at R = 4 a cluster would pass the 8 blocks an
+    H100 takes without asking), for the sweep."""
+    if L2 not in UNPACK_ROWS or L1 < 2 * UNPACK_RUN:
+        raise ValueError(f"the unpack mode takes L2 in {tuple(UNPACK_ROWS)} and L1 >= "
+                         f"{2 * UNPACK_RUN}; got L1 = {L1}, L2 = {L2}")
+    R = rows or UNPACK_ROWS[L2]
+    if R not in (8, 16):
+        raise ValueError(f"the unpack mode takes R in (8, 16); got {R}")
+    geo = tile_geometry(L2, R)
+    return dataclasses.replace(geo, smem=geo.smem + 8 * UNPACK_RUN * unpack_pitch(L2, R))
+
+
+def unpack_pitch(L2: int, R: int) -> int:
+    """S, the row pitch of the unpack mode's staging areas: L2/C + 1 floats
+    (C = 2*UNPACK_RUN/R blocks a cluster), odd."""
+    return L2 * R // (2 * UNPACK_RUN) + 1
 
 
 def stage_geometry(r: int) -> TileGeometry:
@@ -586,6 +624,64 @@ def _launch_pass2(name: str, mr, mi, direction, scale: float,
     if rec:
         trace.launch(name, t0, t1, t2, t3, trace.now())
     return out
+
+
+def _unpack_twiddle_np(L1: int, L2: int) -> np.ndarray:
+    """The unpack mode's twiddle W_n^k, n = 2*L1*L2, k = k2*L1 + k1, as
+    W_n^{k1} * W_{2*L2}^{k2}: the L2 values W_{2*L2}^{k2}, then the L1/2 + 1
+    values W_n^{k1} (k1 <= L1/2, the rows the kernel pairs from), in
+    float64."""
+    col = np.exp(-2j * np.pi * np.arange(L2, dtype=np.float64) / (2 * L2))
+    row = np.exp(-2j * np.pi * np.arange(L1 // 2 + 1, dtype=np.float64) / (2 * L1 * L2))
+    return np.concatenate([col, row])
+
+
+@trace.table_cache(maxsize=32)
+def _unpack_tables(L1: int, L2: int, device: torch.device):
+    """The unpack mode's tables: the engine's forward twiddles of L2, and
+    `_unpack_twiddle_np` rounded to float32."""
+    return (_pass2_twiddle(L2, FORWARD, device),
+            complex_table(_unpack_twiddle_np(L1, L2), device))
+
+
+def fourstep_pass2_unpack(mr: torch.Tensor, mi: torch.Tensor, scale: float = 1.0):
+    """Launch pass 2's unpack mode on the contiguous [B, m] intermediate
+    planes of `fourstep_pass1_packed` (forward): returns the one-sided
+    (re, im) [B, m+1] spectrum of the real [B, 2m] signal, bins 0..m,
+    times `scale`."""
+    return _launch_pass2_unpack(mr, mi, scale, LAUNCHES)
+
+
+def _launch_pass2_unpack(mr, mi, scale: float, counts: dict,
+                         geometry: TileGeometry | None = None):
+    """Launch the unpack mode on contiguous [B, L1*L2] CUDA planes;
+    `counts` and the span as in `_launch_pass1`, `geometry` defaults to
+    `pass2_unpack_geometry`."""
+    rec = trace.on()
+    t0 = rec and trace.now()
+    name = "fourstep_pass2_unpack"
+    sides = _two_pass_sides(mr, name)
+    _check_launch(mr, mi, name, sides)
+    L1, L2 = sides
+    B, m = mr.shape
+    geo = geometry or pass2_unpack_geometry(L1, L2)
+    t1 = rec and trace.now()
+    xr = torch.empty(B, m + 1, device=mr.device)
+    xi = torch.empty_like(xr)
+    t2 = rec and trace.now()
+    tabs = _unpack_tables(L1, L2, mr.device)
+    args = (*(t.data_ptr() for t in tabs), B, log2_int(L1), log2_int(L2), log2_int(geo.T),
+            geo.c_struct(), float(scale))
+    t3 = rec and trace.now()
+    lib = _build.load_library()
+    with torch.cuda.device(mr.device):
+        rc = lib.fftlab_fourstep_pass2_unpack(mr.data_ptr(), mi.data_ptr(), xr.data_ptr(),
+                                              xi.data_ptr(), *args, stream_of(mr))
+    _build.check(lib, name, rc)
+    counts[name] += 1
+    if rec:
+        trace.launch(name, t0, t1, t2, t3, trace.now())
+    return xr, xi
 
 
 def fft_split_large(xr: torch.Tensor, xi: torch.Tensor, direction=FORWARD, *,

@@ -5,11 +5,15 @@ On the TPU each direction is ONE residency: the 8 MB real signal sits
 in VMEM while the pack, the half-size c2c and the Hermitian unpack run
 on it. A Hopper block has 227 KB of shared memory, so, as for the c2c
 (kernels/resident_vmem.py), the transform runs on the two-pass kernels
-and the pack and interleave are fused into their load and store:
+and the pack, the r2c's Hermitian unpack and the interleave are fused
+into their loads and stores:
 
-  rfft_resident   fourstep_pass1_packed -> fourstep_pass2 -> herm_unpack
-                  (three launches; the pipeline of rfft_split takes four:
-                  pack_real -> pass 1 -> pass 2 -> herm_unpack)
+  rfft_resident   fourstep_pass1_packed -> fourstep_pass2_unpack
+                  (two launches: pass 2's unpack mode holds rows k1 and
+                  L1 - k1 in one block and does the Hermitian unpack of
+                  `herm_unpack` in its epilogue; the pipeline of
+                  rfft_split takes four: pack_real -> pass 1 -> pass 2
+                  -> herm_unpack)
   irfft_resident  herm_repack -> fourstep_pass1 -> fourstep_pass2_interleaved
                   with 1/m in pass 2's scale
 
@@ -31,18 +35,13 @@ from fftlab_torch.kernels.fourstep_vmem import (
     fourstep_pass1_packed,
     fourstep_pass1_packed_plain,
     fourstep_pass1_plain,
-    fourstep_pass2,
     fourstep_pass2_interleaved,
     fourstep_pass2_interleaved_plain,
     fourstep_pass2_plain,
+    fourstep_pass2_unpack,
 )
 from fftlab_torch.kernels.resident_vmem import supported_resident
-from fftlab_torch.kernels.rfft_vmem import (
-    herm_repack,
-    herm_repack_plain,
-    herm_unpack,
-    herm_unpack_plain,
-)
+from fftlab_torch.kernels.rfft_vmem import herm_repack, herm_repack_plain, herm_unpack_plain
 
 
 def supported_rfft_resident(n: int) -> bool:
@@ -50,16 +49,23 @@ def supported_rfft_resident(n: int) -> bool:
     return n % 2 == 0 and supported_resident(n // 2)
 
 
+def fourstep_pass2_unpack_plain(mr: torch.Tensor, mi: torch.Tensor, scale: float = 1.0):
+    """Plain version of `fourstep_pass2_unpack`: pass 2 forward, then the
+    unpaired Hermitian unpack of K7 (`herm_unpack_plain`): the
+    intermediate [B, m] planes of the packed pass 1 -> the one-sided
+    [B, m+1] spectrum of the real [B, 2m] signal, times `scale`."""
+    zr, zi = fourstep_pass2_plain(mr, mi)
+    return herm_unpack_plain(zr, zi, 2 * int(mr.shape[-1]), scale)
+
+
 def rfft_resident_plain(x: torch.Tensor, scale: float = 1.0):
     """Plain version of the fused r2c on a real [B, n] signal: pass 1 of
     the strided even/odd views, pass 2, the unpaired unpack."""
-    n = int(x.shape[-1])
-    zr, zi = fourstep_pass2_plain(*fourstep_pass1_packed_plain(x))
-    return herm_unpack_plain(zr, zi, n, scale)
+    return fourstep_pass2_unpack_plain(*fourstep_pass1_packed_plain(x), scale)
 
 
 def _rfft_launches(x: torch.Tensor, scale: float = 1.0):
-    return herm_unpack(*fourstep_pass2(*fourstep_pass1_packed(x)), scale)
+    return fourstep_pass2_unpack(*fourstep_pass1_packed(x), scale)
 
 
 def irfft_resident_plain(xr: torch.Tensor, xi: torch.Tensor, scale: float = 1.0):
@@ -78,7 +84,7 @@ def _irfft_launches(xr: torch.Tensor, xi: torch.Tensor, scale: float = 1.0):
 
 
 def rfft_resident(x: torch.Tensor, scale: float | None = None):
-    """Real [..., n] float32 -> one-sided (re, im) [..., n//2+1]: three
+    """Real [..., n] float32 -> one-sided (re, im) [..., n//2+1]: two
     launches on a CUDA tensor, their plain versions on a CPU tensor.
     `scale` multiplies the spectrum. Requires supported_rfft_resident(n);
     another dtype is refused, not cast."""

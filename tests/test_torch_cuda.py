@@ -271,7 +271,7 @@ def test_profiled_calls_record_their_launches(no_tf32):
 
 
 # The launches of a fused r2c and c2r call, in order.
-FUSED_REAL = {"r2c": ("fourstep_pass1_packed", "fourstep_pass2", "herm_unpack"),
+FUSED_REAL = {"r2c": ("fourstep_pass1_packed", "fourstep_pass2_unpack"),
               "c2r": ("herm_repack", "fourstep_pass1", "fourstep_pass2_interleaved")}
 
 
@@ -290,8 +290,8 @@ def _launch_has_its_phases(spans, i):
 def test_profiled_fused_real_calls_record_their_launches(no_tf32, kind):
     """Under a profile of CUDA activity alone, a fused r2c or c2r call at
     2^21 (the benchmark's r2c route) gives execute -> wrapper and its
-    three launches under the wrapper, each a LAUNCHES count with all four
-    phases."""
+    launches under the wrapper (two for the r2c, three for the c2r), each
+    a LAUNCHES count with all four phases."""
     from torch.profiler import ProfilerActivity, profile
 
     from fftlab_torch.utils import trace
@@ -458,6 +458,57 @@ def test_packed_and_interleaved_passes_match_plain(no_tf32, n, direction):
     assert snr_db(y.cpu().numpy(), want) >= 110.0
 
 
+@pytest.mark.parametrize("m", [1 << e for e in range(15, 21)],
+                         ids=lambda m: f"m2^{m.bit_length() - 1}")
+@pytest.mark.parametrize("batch", [1, 16])
+@pytest.mark.parametrize("scale", [1.0, 0.37])
+def test_pass2_unpack_matches_pass2_and_herm_unpack(no_tf32, m, batch, scale):
+    """Pass 2's unpack mode at every half size m of the fused r2c's window
+    (every (L1, L2) split it takes), against the launches it replaces,
+    `herm_unpack(fourstep_pass2(...))`, on the same packed pass 1, and
+    against float64 np.fft.rfft: the whole spectrum, bins 0, m/2 and m
+    one by one (the imaginary parts of bins 0 and m exactly zero, as
+    herm_unpack gives them), and the rows k1 = 0 and L1/2 that pair with
+    themselves (bins k2*L1 and k2*L1 + L1/2)."""
+    L1, _ = fourstep_vmem._split_sides(m)
+    x, xc = _real(m % 79 + batch, (batch, 2 * m))
+    mid = fourstep_vmem.fourstep_pass1_packed(xc)
+    before = _launches()
+    got = fourstep_vmem.fourstep_pass2_unpack(*mid, scale)
+    after = _launches()
+    assert {k: v - before[k] for k, v in after.items() if v != before[k]} == {
+        "fourstep_pass2_unpack": 1}
+    assert got[0].shape == got[1].shape == (batch, m + 1)
+    g = cplx(*got)
+    assert snr_db(g, cplx(*rfft_vmem.herm_unpack(*fourstep_vmem.fourstep_pass2(*mid),
+                                                  scale))) >= 110.0
+    want = scale * np.fft.rfft(x.astype(np.float64), axis=-1)
+    assert snr_db(g, want) >= 110.0
+    rms = np.sqrt(np.mean(np.abs(want) ** 2))
+    for k in (0, m // 2, m):
+        assert np.abs(g[:, k] - want[:, k]).max() <= 1e-5 * rms, k
+    assert np.all(got[1][:, 0].cpu().numpy() == 0) and np.all(got[1][:, m].cpu().numpy() == 0)
+    for k1 in (0, L1 // 2):
+        assert snr_db(g[:, k1:m:L1], want[:, k1:m:L1]) >= 110.0, k1
+
+
+@pytest.mark.parametrize("m", [1 << 15, 1 << 20], ids=lambda m: f"m2^{m.bit_length() - 1}")
+@pytest.mark.parametrize("rows", [8, 16])
+def test_pass2_unpack_at_each_rows_per_block(no_tf32, m, rows):
+    """The unpack mode at each R it takes (clusters of 8 and of 4 blocks),
+    the other R being the sweep's, against pass 2 plus `herm_unpack`."""
+    L1, L2 = fourstep_vmem._split_sides(m)
+    x, xc = _real(m % 73 + rows, (3, 2 * m))
+    mid = fourstep_vmem.fourstep_pass1_packed(xc)
+    counts = {"fourstep_pass2_unpack": 0}
+    got = fourstep_vmem._launch_pass2_unpack(
+        *mid, 0.5, counts, fourstep_vmem.pass2_unpack_geometry(L1, L2, rows))
+    assert counts == {"fourstep_pass2_unpack": 1}
+    want = rfft_vmem.herm_unpack(*fourstep_vmem.fourstep_pass2(*mid), 0.5)
+    assert snr_db(cplx(*got), cplx(*want)) >= 110.0
+    assert snr_db(cplx(*got), 0.5 * np.fft.rfft(x.astype(np.float64), axis=-1)) >= 110.0
+
+
 @pytest.mark.parametrize("n", [1 << 16, 1 << 21])
 def test_fused_real_transforms_match_plain(no_tf32, n):
     x, xc = _real(n % 89, (4, n))
@@ -467,7 +518,8 @@ def test_fused_real_transforms_match_plain(no_tf32, n):
     y = rfft_resident.irfft_resident(Xr, Xi, scale=2.0)
     after = _launches()
     assert [mid[k] - before[k] for k in
-            ("fourstep_pass1_packed", "fourstep_pass2", "herm_unpack")] == [1, 1, 1]
+            ("fourstep_pass1_packed", "fourstep_pass2_unpack", "fourstep_pass2",
+             "herm_unpack")] == [1, 1, 0, 0]
     assert [after[k] - mid[k] for k in
             ("herm_repack", "fourstep_pass1", "fourstep_pass2_interleaved")] == [1, 1, 1]
     got = cplx(Xr, Xi)
@@ -478,11 +530,14 @@ def test_fused_real_transforms_match_plain(no_tf32, n):
     assert snr_db(y.cpu().numpy(), x.astype(np.float64)) >= 110.0
 
 
-@pytest.mark.parametrize("n,algorithm,kernels", [
-    (1 << 21, "rfft_resident", ("fourstep_pass1_packed", "herm_unpack")),
-    (1 << 22, "rfft_split[two_pass]", ("pack_real", "fourstep_pass1", "herm_unpack")),
-    (16384, "rfft_split[smem_rows]", ("pack_real", "fft_rows", "herm_unpack"))])
-def test_real_plans_launch_kernels(no_tf32, n, algorithm, kernels):
+@pytest.mark.parametrize("n,algorithm,kernels,absent", [
+    (1 << 21, "rfft_resident", ("fourstep_pass1_packed", "fourstep_pass2_unpack"),
+     ("herm_unpack", "fourstep_pass2")),
+    (1 << 22, "rfft_split[two_pass]", ("pack_real", "fourstep_pass1", "herm_unpack"),
+     ("fourstep_pass2_unpack",)),
+    (16384, "rfft_split[smem_rows]", ("pack_real", "fft_rows", "herm_unpack"),
+     ("fourstep_pass2_unpack",))])
+def test_real_plans_launch_kernels(no_tf32, n, algorithm, kernels, absent):
     x, xc = _real(n % 83, (2, n))
     r2c = fftlab_torch.plan_r2c_1d_split(n, batch=2)
     c2r = fftlab_torch.plan_c2r_1d_split(n, batch=2)
@@ -492,6 +547,8 @@ def test_real_plans_launch_kernels(no_tf32, n, algorithm, kernels):
     after = _launches()
     for k in kernels:
         assert after[k] > before[k], k
+    for k in absent:
+        assert after[k] == before[k], k
     assert snr_db(cplx(*X), np.fft.rfft(x.astype(np.float64), axis=-1)) >= 110.0
     y = c2r.execute(X)
     assert _launches()["herm_repack"] > after["herm_repack"]
@@ -612,7 +669,8 @@ def test_real_kernels_refuse_odd_offsets():
 def test_real_path_refuses_other_dtypes_on_the_card():
     x64 = torch.zeros(2, 1 << 16, dtype=torch.float64, device="cuda")
     for fn in (fftlab_torch.rfft_split, rfft_resident.rfft_resident, rfft_vmem.pack_real,
-               lambda x: fftlab_torch.stft_split(x[0], 2048, 512)):
+               lambda x: fftlab_torch.stft_split(x[0], 2048, 512),
+               lambda x: fourstep_vmem.fourstep_pass2_unpack(x, x)):
         with pytest.raises(ValueError, match="float32"):
             fn(x64)
 
@@ -1024,7 +1082,7 @@ def test_staged_twiddle_counted_on_the_paths(no_tf32):
     _, xc = _real(46, (2, 1 << 21))
     X = rfft_resident.rfft_resident(xc)
     assert counted(lambda: rfft_resident.rfft_resident(xc)) == (
-        1, {"fourstep_pass1_packed": 1, "fourstep_pass2": 1, "herm_unpack": 1})
+        1, {"fourstep_pass1_packed": 1, "fourstep_pass2_unpack": 1})
     assert counted(lambda: rfft_resident.irfft_resident(*X)) == (
         1, {"herm_repack": 1, "fourstep_pass1": 1, "fourstep_pass2_interleaved": 1})
     ur, ui = _cuda_pair(47, (1, 1 << 26))

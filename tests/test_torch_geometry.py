@@ -18,6 +18,8 @@ transforms at L >= 512) or at most two (tiles at L <= 256).
 
 import dataclasses
 import math
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -611,3 +613,269 @@ def test_sandwich_mode_indexing(n):
     z = np.fft.ifft(np.fft.fft(m.reshape(B, L1, L2), axis=2) * h.reshape(L2, L1).T, axis=2) * L2
     want = (z * np.exp(2j * np.pi * (k1 * j2 % n) / n) / n).reshape(B, n)
     assert np.max(np.abs(out - want)) <= 1e-6 * np.max(np.abs(want))  # float32 tables
+
+
+# ----------------------------------- pass 2's unpack mode (the fused r2c)
+
+# (L1, L2) of every half size m = 2^15..2^20 of the fused r2c, and each R
+# the unpack mode takes
+UNPACK_SIDES = [fourstep_vmem._split_sides(1 << e) for e in range(15, 21)]
+UNPACK_MODE = [(L1, L2, R) for L1, L2 in UNPACK_SIDES for R in (None, 8, 16)]
+RUN = fourstep_vmem.UNPACK_RUN
+
+
+def _unpack_rows(L1, R, c):
+    """The rows of block c of a batch row in the unpack mode, in the order
+    of its tile's transforms (csrc/fourstep.cu
+    `fourstep_pass2_unpack_kernel`): the R/2 rows k1 = c*R/2 + u below
+    L1/2, then their mirrors L1 - k1, row L1/2 in the place of row 0's."""
+    lo = c * (R // 2) + np.arange(R // 2)
+    return np.concatenate([lo, np.where(lo == 0, L1 // 2, L1 - lo)])
+
+
+def _unpack_cluster(L2, R):
+    """(C, kr, S): blocks a cluster of the unpack mode, elements k2 each
+    block stores, and the staging area's row pitch."""
+    C = RUN // (R // 2)
+    return C, L2 // C, L2 // C + 1
+
+
+@pytest.mark.parametrize("L1,L2,R", UNPACK_MODE,
+                         ids=[f"L{a}x{b}-R{r or 'default'}" for a, b, r in UNPACK_MODE])
+def test_pass2_unpack_rows(L1, L2, R):
+    """The unpack mode's geometry (`pass2_unpack_geometry`) and its block
+    -> rows map: R in (8, 16), by default 16 at L2 = 256 and 8 above, pass
+    2's tile; L1/R blocks a
+    batch row, as pass 2's grid, in clusters of C = 32/(R/2) consecutive
+    blocks (at most the 8 an H100 takes without asking) that hold 32
+    consecutive rows below L1/2 and their mirrors; every row of the
+    intermediate in exactly one block, the low rows below L1/2; every pair
+    of rows (k1, (L1 - k1) mod L1) in one block, so every pair of bins
+    (k, m - k); the tile in a block's 227 KB of shared memory, two blocks
+    an SM where it is at most SHARED_TILE values (with the low staging
+    area), the high staging area (2 planes of 32 rows of S = L2/C + 1
+    floats) within the tile's planes and the low one past them, from a
+    multiple of 32 floats."""
+    geo = fourstep_vmem.pass2_unpack_geometry(L1, L2, R)
+    assert geo.T == (R or fourstep_vmem.UNPACK_ROWS[L2]) == (R or (16 if L2 == 256 else 8))
+    R = geo.T
+    C, kr, S = _unpack_cluster(L2, R)
+    assert S == fourstep_vmem.unpack_pitch(L2, R)
+    assert geo == dataclasses.replace(_common.tile_geometry(L2, R),
+                                      smem=8 * R * geo.stride + 8 * RUN * S)
+    assert geo.L == L2 and geo.threads == R * L2 // 16 <= 1024 and geo.threads % 32 == 0
+    assert geo.smem <= MAX_SMEM
+    if R * L2 <= fourstep_vmem.SHARED_TILE:
+        assert 2 * geo.smem <= MAX_SMEM and 2 * geo.threads <= 2048
+    assert C <= 8 and (L1 // R) % C == 0 and kr >= 32 and S % 2 == 1
+    assert 2 * RUN * S <= 2 * R * geo.stride and (2 * R * geo.stride) % 32 == 0
+    blocks = [_unpack_rows(L1, R, c) for c in range(L1 // R)]
+    assert all(len(rows) == R for rows in blocks)
+    assert all(np.all(rows[: R // 2] < L1 // 2) for rows in blocks)
+    assert np.array_equal(np.sort(np.concatenate(blocks)), np.arange(L1))
+    for q in range(L1 // R // C):  # a cluster's low rows: 32 consecutive k1
+        low = np.concatenate([blocks[q * C + r][: R // 2] for r in range(C)])
+        assert np.array_equal(low, q * RUN + np.arange(RUN))
+    home = {int(k1): c for c, rows in enumerate(blocks) for k1 in rows}
+    assert all(home[k1] == home[(L1 - k1) % L1] for k1 in range(L1))
+    # bins: row k1 holds k = k2*L1 + k1, whose mirror (m - k) % m lies in
+    # row (L1 - k1) % L1
+    m = L1 * L2
+    k = np.arange(m)
+    assert np.array_equal(np.vectorize(home.get)(((m - k) % m) % L1),
+                          np.vectorize(home.get)(k % L1))
+
+
+def test_pass2_unpack_geometry_refuses_what_the_launcher_refuses():
+    with pytest.raises(ValueError, match="R in"):
+        fourstep_vmem.pass2_unpack_geometry(1024, 1024, 4)
+    with pytest.raises(ValueError, match="R in"):
+        fourstep_vmem.pass2_unpack_geometry(1024, 1024, 32)
+    with pytest.raises(ValueError, match="L1 >="):
+        fourstep_vmem.pass2_unpack_geometry(32, 1024)
+    with pytest.raises(ValueError, match="L2 in"):
+        fourstep_vmem.pass2_unpack_geometry(1024, 2048)  # m = 2^21: past the fused r2c
+    assert fourstep_vmem.pass2_unpack_geometry(128, 256).T == 16
+    assert fourstep_vmem.pass2_unpack_geometry(1024, 1024).T == 8
+
+
+def test_pass2_unpack_run_is_the_kernels():
+    """UNPACK_RUN, from which Python sizes the unpack mode's shared memory,
+    is the kernel's own run of rows a cluster (csrc/fourstep.cu
+    kLogUnpackRun, from which the kernel and its launcher take the cluster
+    and the staging areas' pitch)."""
+    src = (Path(fourstep_vmem.__file__).parents[1] / "csrc" / "fourstep.cu").read_text()
+    found = re.findall(r"constexpr int kLogUnpackRun = (\d+);", src)
+    assert len(found) == 1 and 1 << int(found[0]) == RUN
+
+
+def _unpack_accesses(geo):
+    """(access, addresses) of every shared-memory access of the unpack
+    mode: the forward's passes (csrc/sandwich.cuh `forward_in_place`: the
+    first with slot mapping 0, its loads in device memory, the later ones
+    and the in-place last pass with run_bits(R) = 3), the unpack's reads
+    of Z[k] (transform u, element k2) and Z[m-k] (transform R/2 + u,
+    element L2-1-k2) by pair p = s + i*threads (u = p / L2, k2 = p mod L2),
+    its writes into the staging of the block that stores k2 (v*S + k2 mod
+    L2/C), and the store's reads of the staging (v = s mod 32, element i =
+    s / 32 + j*threads/32). Addresses are (warps, 32) floats of one plane."""
+    L, T, threads = geo.L, geo.T, geo.threads
+    g = 3
+    out = []
+    ns = 1
+    n_pass = len(geo.schedule)
+    for p, R in enumerate(geo.schedule):
+        j, t = _slots(L, T, R, 0 if p == 0 else g, threads)
+        last = p == n_pass - 1
+        for r in range(R):
+            load = j + r * (L // R)
+            store = load if last else (j // ns) * ns * R + j % ns + r * ns
+            if p > 0:
+                out.append((f"{'last' if last else p} load", _at(geo, t, load)))
+            out.append((f"{'last' if last else p} store", _at(geo, t, store)))
+        ns *= R
+    pair = np.arange(threads)[:, None] + np.arange(8)[None, :] * threads
+    u, k2 = pair // L, pair % L
+    out.append(("unpack Z[k]", _at(geo, u, k2)))
+    out.append(("unpack Z[m-k]", _at(geo, T // 2 + u, L - 1 - k2)))
+    _, kr, S = _unpack_cluster(L, T)
+    v = u  # rank 0's rows
+    out.append(("stage write", v * S + k2 % kr))
+    out.append(("stage write mirror", v * S + (L - 1 - k2) % kr))
+    s = np.arange(threads)[:, None]
+    i = s // RUN + np.arange(8)[None, :] * (threads // RUN)
+    out.append(("stage read", (s % RUN) * S + i))
+    return [(kind, a.T.reshape(-1, 32)) for kind, a in out]
+
+
+@pytest.mark.parametrize("L1,L2,R", UNPACK_MODE,
+                         ids=[f"L{a}x{b}-R{r or 'default'}" for a, b, r in UNPACK_MODE])
+def test_pass2_unpack_bank_conflicts(L1, L2, R):
+    """Every shared-memory access of the unpack mode takes one wavefront
+    per 32 floats: the FFT's exchanges, but the forward's first store at
+    L2 = 256 (pass 2's own, two); the writes into the staging (32
+    consecutive floats) and the store's reads of the staging (32 rows v of
+    one k2, an odd pitch apart). The unpack's reads take two: a warp on 32
+    consecutive k2 of one row spans 34 floats of the padded row, and the
+    pad's wrap puts one bank twice (as `stft_frames`' unpack). The store
+    puts a warp on 32 consecutive k1 of one k2."""
+    geo = fourstep_vmem.pass2_unpack_geometry(L1, L2, R)
+    worst = {}
+    for kind, addr in _unpack_accesses(geo):
+        worst[kind] = max(worst.get(kind, 0), int(_wavefronts(addr).max()))
+    want = {**dict.fromkeys(worst, 1), "unpack Z[k]": 2, "unpack Z[m-k]": 2}
+    if L2 <= 256:
+        want["0 store"] = 2
+    assert worst == want, worst
+    s = np.arange(geo.threads)
+    i = s // RUN
+    k = (i * L1 + s % RUN).reshape(-1, 32)  # rank 0 of the first cluster
+    assert np.all(np.diff(k, axis=1) == 1)
+
+
+@pytest.mark.parametrize("m,R", [(1 << e, R) for e in range(15, 21) for R in (8, 16)],
+                         ids=lambda a: f"m2^{a.bit_length() - 1}" if a > 16 else f"R{a}")
+def test_pass2_unpack_indexing(m, R):
+    """The unpack mode's epilogue in float64 numpy, cluster by cluster as
+    the kernel runs it: the length-L2 spectra of each block's rows
+    (`_unpack_rows`); pair (u, k2) of row k1 = c*R/2 + u with its mirror
+    (element L2-1-k2 of transform R/2 + u; in block 0 row 0 with its own
+    element (L2 - k2) mod L2 for k2 < L2/2 and row L1/2 with its own
+    element L2-1-k2 after), w = W_n^{k1} * W_{2*L2}^{k2} from the
+    wrapper's float32 table; its outputs written into the staging of the
+    cluster's block that stores their k2 (low bins of cluster row v, high
+    bins of its mirror, row L1/2's as the high bins of v = 0), bin m/2 by
+    the thread of k = 0 and the Nyquist bin straight out; then each block
+    stores its elements k2 for the 32 rows: every bin 0..m once, equal to
+    np.fft.rfft."""
+    L1, L2 = fourstep_vmem._split_sides(m)
+    C, kr, S = _unpack_cluster(L2, R)
+    half = R // 2
+    rng = np.random.default_rng(m + R)
+    x = rng.standard_normal(2 * m)
+    zc = x[0::2] + 1j * x[1::2]
+    # pass 1's rows k1 (the column FFTs over j1, times W_m^{k1*j2}), then
+    # each row's length-L2 spectrum: Z[k2*L1 + k1] = spec[k1, k2]
+    k1, j2 = np.arange(L1)[:, None], np.arange(L2)[None, :]
+    inter = np.fft.fft(zc.reshape(L1, L2), axis=0) * np.exp(-2j * np.pi * k1 * j2 / m)
+    spec = np.fft.fft(inter, axis=1)
+    assert np.allclose(spec.T.ravel(), np.fft.fft(zc))
+    _, utw = fourstep_vmem._unpack_tables(L1, L2, torch.device("cpu"))
+    utw = utw.numpy().astype(np.float64) @ np.array([1, 1j])
+    assert utw.shape == (L2 + L1 // 2 + 1,)
+    h = 0.5
+    out = np.full(m + 1, np.nan, complex)
+    hits = np.zeros(m + 1, int)
+
+    def unpack(zl, zh, w):
+        e, o = h * (zl + np.conj(zh)), -1j * h * (zl - np.conj(zh))
+        return e + w * o, np.conj(e - w * o)
+
+    threads = R * L2 // 16
+    pair = (np.arange(threads)[:, None] + np.arange(8)[None, :] * threads).ravel()
+    u, k2 = pair // L2, pair % L2
+    for cl in range(L1 // R // C):
+        # each block's staging: (low, high) x 32 rows v x S, re and im as one
+        # value; column kr is the pitch's pad
+        stage = np.full((C, 2, RUN, S), np.nan, complex)
+
+        def put(hi, v, k, val):
+            stage[k // kr, hi, v, k % kr] = val
+
+        for rank in range(C):
+            c = cl * C + rank
+            tile = spec[_unpack_rows(L1, R, c)]  # (R, L2)
+            lo = c * half + u
+            v = rank * half + u
+            gen = lo != 0
+            a, b = unpack(tile[u[gen], k2[gen]], tile[half + u[gen], L2 - 1 - k2[gen]],
+                          utw[L2 + lo[gen]] * utw[k2[gen]])
+            put(0, v[gen], k2[gen], a)
+            put(1, v[gen], L2 - 1 - k2[gen], b)
+            if c:
+                continue
+            r0 = ~gen & (k2 < L2 // 2)
+            a, b = unpack(tile[0, k2[r0]], tile[0, (L2 - k2[r0]) % L2], utw[L2] * utw[k2[r0]])
+            put(0, 0, k2[r0], a)
+            nz = k2[r0] != 0
+            put(0, 0, L2 - k2[r0][nz], b[nz])
+            out[m] = b[~nz][0]  # the Nyquist bin, straight out
+            np.add.at(hits, m, 1)
+            rh = ~gen & (k2 >= L2 // 2)
+            k2h = k2[rh] - L2 // 2
+            a, b = unpack(tile[half, k2h], tile[half, L2 - 1 - k2h],
+                          utw[L2 + L1 // 2] * utw[k2h])
+            put(1, 0, k2h, a)
+            put(1, 0, L2 - 1 - k2h, b)
+            zm = tile[0, L2 // 2]
+            put(0, 0, L2 // 2, unpack(zm, zm, utw[L2] * utw[L2 // 2])[0])
+        assert not np.isnan(stage[..., :kr]).any()  # every staged bin written
+        k1_c = cl * RUN
+        vv = np.arange(RUN)
+        hi_k1 = np.where((k1_c == 0) & (vv == 0), L1 // 2, L1 - k1_c - vv)
+        for rank in range(C):
+            for i in range(kr):
+                kk = (rank * kr + i) * L1
+                for hi, at in ((0, kk + k1_c + vv), (1, kk + hi_k1)):
+                    np.add.at(hits, at, 1)
+                    out[at] = stage[rank, hi, vv, i]
+    assert np.all(hits == 1)
+    want = np.fft.rfft(x)  # h = 0.5: scale 1
+    assert np.max(np.abs(out - want)) <= 1e-6 * np.max(np.abs(want))  # float32 tables
+
+
+@pytest.mark.parametrize("m", [1 << e for e in range(15, 21)],
+                         ids=lambda m: f"m2^{m.bit_length() - 1}")
+def test_rfft_resident_plain_matches_numpy(m):
+    """The fused r2c's plain version (pass 1 packed, then the unpack
+    mode's plain version) against float64 np.fft.rfft at every half size
+    of its window."""
+    from fftlab_torch.kernels import rfft_resident
+
+    x = torch.from_numpy(np.random.default_rng(m + 1).standard_normal((2, 2 * m))
+                         .astype(np.float32))
+    Xr, Xi = rfft_resident.rfft_resident_plain(x, 0.5)
+    got = Xr.double().numpy() + 1j * Xi.double().numpy()
+    want = 0.5 * np.fft.rfft(x.double().numpy(), axis=-1)
+    err = np.sum(np.abs(got - want) ** 2) / np.sum(np.abs(want) ** 2)
+    assert 10 * np.log10(1 / err) >= 120.0

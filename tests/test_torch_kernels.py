@@ -234,7 +234,7 @@ def test_ctypes_signatures_match_sources():
         "fftlab_fourstep_pass2", "fftlab_fourstep_pass2_sandwich", "fftlab_filter_rows",
         "fftlab_os_filter",
         "fftlab_fourstep_pass1_packed", "fftlab_fourstep_pass2_interleaved",
-        "fftlab_pack_real", "fftlab_interleave", "fftlab_herm_unpack",
+        "fftlab_fourstep_pass2_unpack", "fftlab_pack_real", "fftlab_interleave", "fftlab_herm_unpack",
         "fftlab_herm_repack", "fftlab_stft_frames", "fftlab_fourstep_pass1_swap",
         "fftlab_fused_stage", "fftlab_stage_leaf"}
     for args in _build.SIGNATURES.values():
