@@ -5,8 +5,9 @@ per source, all started together, and link into one shared library with
 a plain C interface, at first use, into
 `fftlab_torch/_build/<hash of the sources>/`. The library is loaded with
 ctypes; every pointer and the stream are declared `c_void_p`, so none is
-cut to 32 bits. Each C function returns a `cudaError_t`, which
-`check` turns into a RuntimeError.
+cut to 32 bits. Each C function returns a `cudaError_t`. `launch` is
+the one place a kernel is called from Python: the device guard, the
+stream, the call, a RuntimeError for an error, the count and the span.
 
 There is no fallback: a missing nvcc or a failed build raises.
 """
@@ -21,6 +22,8 @@ import re
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 from fftlab_torch.utils import trace
 
@@ -227,8 +230,20 @@ def ptxas_report() -> list[dict]:
     return rows
 
 
-def check(lib: ctypes.CDLL, name: str, rc: int) -> None:
-    """Raise if a kernel entry returned a CUDA error."""
+def launch(entry: str, key: str, counts: dict, like: torch.Tensor, args: tuple,
+           mark=trace.OFF) -> None:
+    """Call `entry` (a SIGNATURES name) with `args` and the current stream
+    of `like`'s device, under its guard; a CUDA error raises a RuntimeError
+    naming `key` (the kernel's LAUNCHES key), else `counts[key]` rises by
+    one. `mark` (`trace.phases()`) starts the `call` phase here; while the
+    recorder is on, the launch is recorded as the span `key`."""
+    mark()
+    lib = load_library()
+    with torch.cuda.device(like.device):
+        rc = getattr(lib, entry)(*args, torch.cuda.current_stream(like.device).cuda_stream)
     if rc != 0:
         msg = lib.fftlab_error_string(rc).decode(errors="replace")
-        raise RuntimeError(f"{name} failed: CUDA error {rc} ({msg})")
+        raise RuntimeError(f"{key} failed: CUDA error {rc} ({msg})")
+    counts[key] += 1
+    if mark is not trace.OFF:
+        trace.launch(key, mark)

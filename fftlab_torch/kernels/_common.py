@@ -172,8 +172,3 @@ def frame_geometry(L: int, T: int) -> TileGeometry:
     chose it over the padded tile, whose exchanges take two wavefronts
     under that slot mapping (tests/test_torch_geometry.py)."""
     return TileGeometry(L, T, radix_schedule(L), T * L // 16, 8 * T * L, FRAME_ROWS, L)
-
-
-def stream_of(t: torch.Tensor) -> int:
-    """PyTorch's current stream on `t`'s device, as a pointer value."""
-    return torch.cuda.current_stream(t.device).cuda_stream

@@ -52,7 +52,6 @@ from fftlab_torch.kernels._common import (
     pass_twiddle_np,
     response_planes,
     rows_of,
-    stream_of,
     tile_geometry,
 )
 from fftlab_torch.utils import trace
@@ -132,28 +131,21 @@ def fft_rows(xr: torch.Tensor, xi: torch.Tensor, direction=FORWARD,
              scale: float = 1.0):
     """Launch the CUDA kernel on contiguous [B, n] float32 planes (pow2 n,
     512 <= n <= 16384); `scale` is the whole output scale."""
-    rec = trace.on()
-    t0 = rec and trace.now()
+    mark = trace.phases()
     direction = Direction(int(direction))
     check_planes(xr, xi, "fft_rows")
     check_cuda(xr, xi, name="fft_rows")
     B, n = xr.shape
     if not (is_power_of_two(n) and 512 <= n <= 16384):
         raise ValueError(f"fft_rows takes pow2 n in [512, 16384]; got {n}")
-    yr = torch.empty_like(xr)
-    yi = torch.empty_like(xi)
+    mark()
+    yr, yi = torch.empty_like(xr), torch.empty_like(xi)
+    mark()
     tw = _engine_twiddle(n, direction, xr.device)
-    t3 = rec and trace.now()
-    lib = _build.load_library()
-    with torch.cuda.device(xr.device):
-        rc = lib.fftlab_fft_rows(
-            xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
-            tw.data_ptr(), B, log2_int(n), rows_geometry(n).c_struct(), int(direction),
-            float(scale), stream_of(xr))
-    _build.check(lib, "fft_rows", rc)
-    LAUNCHES["fft_rows"] += 1
-    if rec:
-        trace.launch_call("fft_rows", t0, t3, trace.now())
+    _build.launch("fftlab_fft_rows", "fft_rows", LAUNCHES, xr,
+                  (xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(), tw.data_ptr(), B,
+                   log2_int(n), rows_geometry(n).c_struct(), int(direction), float(scale)),
+                  mark)
     return yr, yi
 
 
@@ -209,29 +201,22 @@ def filter_rows(xr: torch.Tensor, xi: torch.Tensor, hr: torch.Tensor,
     """Launch the row sandwich on contiguous [B, n] CUDA float32 planes
     (pow2 n, 512 <= n <= 16384); hr, hi: the n-bin response, natural
     order. Returns ifft(fft(x) * H), 1/n scaled."""
-    rec = trace.on()
-    t0 = rec and trace.now()
+    mark = trace.phases()
     check_planes(xr, xi, "filter_rows")
     check_cuda(xr, xi, hr, hi, name="filter_rows")
     B, n = xr.shape
     if not (is_power_of_two(n) and 512 <= n <= 16384):
         raise ValueError(f"filter_rows takes pow2 n in [512, 16384]; got {n}")
     check_response(hr, hi, n, xr, "filter_rows")
-    yr = torch.empty_like(xr)
-    yi = torch.empty_like(xi)
+    mark()
+    yr, yi = torch.empty_like(xr), torch.empty_like(xi)
+    mark()
     tw_fwd = _engine_twiddle(n, Direction.FORWARD, xr.device)
     tw_inv = _engine_twiddle(n, Direction.INVERSE, xr.device)
-    t3 = rec and trace.now()
-    lib = _build.load_library()
-    with torch.cuda.device(xr.device):
-        rc = lib.fftlab_filter_rows(
-            xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
-            tw_fwd.data_ptr(), tw_inv.data_ptr(), hr.data_ptr(), hi.data_ptr(),
-            B, log2_int(n), rows_geometry(n).c_struct(), 1.0 / n, stream_of(xr))
-    _build.check(lib, "filter_rows", rc)
-    LAUNCHES["filter_rows"] += 1
-    if rec:
-        trace.launch_call("filter_rows", t0, t3, trace.now())
+    _build.launch("fftlab_filter_rows", "filter_rows", LAUNCHES, xr,
+                  (xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
+                   tw_fwd.data_ptr(), tw_inv.data_ptr(), hr.data_ptr(), hi.data_ptr(), B,
+                   log2_int(n), rows_geometry(n).c_struct(), 1.0 / n), mark)
     return yr, yi
 
 

@@ -90,7 +90,6 @@ from fftlab_torch.kernels._common import (
     radix_schedule,
     response_planes,
     rows_of,
-    stream_of,
     tile_geometry,
 )
 from fftlab_torch.utils import trace
@@ -460,30 +459,29 @@ def fourstep_pass2_interleaved_plain(mr: torch.Tensor, mi: torch.Tensor,
     return torch.stack([yr, yi], dim=-1).reshape(B, 2 * n)
 
 
-def _two_pass_sides(x, name: str, n: int | None = None) -> tuple[int, int]:
-    """Sides (L1, L2) of a two-pass launch on [B, n] planes, after the
-    window check; `n` is the complex length (half a real row's)."""
-    n = int(x.shape[-1]) if n is None else n
-    if x.dim() != 2 or not supported_large(n):
-        raise ValueError(f"{name} takes [B, n] planes, pow2 n in "
-                         f"[{MIN_N}, {MAX_N}]; got {tuple(x.shape)}")
-    return _split_sides(n)
-
-
-def _check_launch(xr, xi, name: str, sides: tuple[int, int]) -> None:
-    """Checks of a pass launch on [B, L1*L2] planes; for a real row, xi is
-    None and the row holds 2*L1*L2 floats."""
+def _check_launch(xr, xi, name: str, sides) -> tuple[int, int]:
+    """Checks of a pass launch on [B, L1*L2] planes (xi None: a packed real
+    row of 2*L1*L2 floats); returns `sides`, where None the two-pass
+    sides of the row."""
     if xi is None:
         check_real(xr, name)
         check_cuda(xr, name=name)
         check_aligned(xr, name=name)
+        if xr.shape[-1] % 2:
+            raise ValueError(f"{name} takes an even length; got {tuple(xr.shape)}")
     else:
         check_planes(xr, xi, name)
         check_cuda(xr, xi, name=name)
-    L1, L2 = sides
     n = int(xr.shape[-1]) // (2 if xi is None else 1)
+    if sides is None:
+        if xr.dim() != 2 or not supported_large(n):
+            raise ValueError(f"{name} takes [B, n] planes, pow2 n in "
+                             f"[{MIN_N}, {MAX_N}]; got {tuple(xr.shape)}")
+        sides = _split_sides(n)
+    L1, L2 = sides
     if xr.dim() != 2 or n != L1 * L2:
         raise ValueError(f"{name} takes [B, {L1 * L2}] planes; got {tuple(xr.shape)}")
+    return sides
 
 
 def fourstep_pass1(xr: torch.Tensor, xi: torch.Tensor, direction=FORWARD):
@@ -496,74 +494,82 @@ def fourstep_pass1_packed(x: torch.Tensor, direction=FORWARD):
     """Launch pass 1 on a contiguous real [B, 2n] CUDA signal (8-byte
     aligned) read as the complex [B, n] sequence (x[2j], x[2j+1]);
     returns the intermediate planes [B, n]."""
-    if x.shape[-1] % 2:
-        raise ValueError(f"fourstep_pass1_packed takes an even length; got "
-                         f"{tuple(x.shape)}")
-    return _launch_pass1("fourstep_pass1_packed", x, None, direction, None, LAUNCHES)
+    return _launch_pass1_packed("fourstep_pass1_packed", x, direction, None, LAUNCHES)
 
 
-def _launch_pass1(name: str, xr, xi, direction, sides: tuple[int, int] | None,
-                  counts: dict, swap: int = 1, geometry: TileGeometry | None = None,
-                  twiddle: bool = True):
-    """Launch pass 1 at `sides` = (L1, L2) on contiguous [B, L1*L2] planes
-    (xi None: a packed real row; `sides` None: the two-pass sides of the
-    row); `swap` = F1 > 1 launches the swap-store
-    mode (`fftlab_fourstep_pass1_swap`): row k1 of input row o*F1 + k1a is
-    stored at row (o, k1, k1a). `geometry` defaults to `pass1_geometry`;
-    `twiddle` False (planes, no swap) launches the mode with no twiddle
-    (`fftlab_fourstep_pass1_no_twiddle`). The launch adds one to
-    `counts[name]`, the LAUNCHES of the module whose wrapper it serves,
-    and to COUNTS["pass1_staged_twiddle"] where it stages S, and, while
-    the recorder is on, records its span `name` with the phases checks,
-    alloc, tables and call (utils/trace.py)."""
-    rec = trace.on()
-    t0 = rec and trace.now()
+def _pass1_step(key: str, xr, xi, direction, sides, geometry, twiddle: bool = True,
+                rows: int = 1):
+    """The first three phases of every pass-1 launch: the checks (B a
+    multiple of `rows`), the intermediate planes, and the tables, with
+    `twiddle` from STAGED_MIN_L1 S (counted in
+    COUNTS["pass1_staged_twiddle"]), else A and P. Returns the phase
+    marker, the planes, the pointers (tw1, A, P, S; None where not read)
+    and the arguments from the batch on."""
+    mark = trace.phases()
     direction = Direction(int(direction))
-    packed = xi is None
-    if sides is None:
-        sides = _two_pass_sides(xr, name, int(xr.shape[-1]) // 2 if packed else None)
-    _check_launch(xr, xi, name, sides)
-    L1, L2 = sides
+    L1, L2 = _check_launch(xr, xi, key, sides)
     B = xr.shape[0]
-    if B % swap:
-        raise ValueError(f"{name} takes a multiple of {swap} rows; got {B}")
-    t1 = rec and trace.now()
+    if B % rows:
+        raise ValueError(f"{key} takes a multiple of {rows} rows; got {B}")
+    mark()
     mr = torch.empty(B, L1 * L2, device=xr.device)
     mi = torch.empty_like(mr)
-    t2 = rec and trace.now()
+    mark()
     geo = geometry or pass1_geometry(L1, L2, twiddle=twiddle)
-    staged = twiddle and L1 >= STAGED_MIN_L1
-    if staged:
+    if twiddle and L1 >= STAGED_MIN_L1:
         tw1, s_tab = _pass1_staged_tables(L1, L2, direction, xr.device)
         tabs = (tw1.data_ptr(), None, None, s_tab.data_ptr())
+        trace.COUNTS["pass1_staged_twiddle"] += 1
     else:
         tw1, a_tab, p_tab = _pass1_tables(L1, L2, direction, xr.device)
         tabs = (tw1.data_ptr(), a_tab.data_ptr(), p_tab.data_ptr(), None)
-    logs = (log2_int(L1), log2_int(L2), log2_int(geo.T), geo.c_struct())
-    t3 = rec and trace.now()
-    lib = _build.load_library()
-    tail = (int(direction), stream_of(xr))
-    with torch.cuda.device(xr.device):
-        if packed:
-            rc = lib.fftlab_fourstep_pass1_packed(xr.data_ptr(), mr.data_ptr(),
-                                                  mi.data_ptr(), *tabs, B, *logs, *tail)
-        elif swap > 1:
-            rc = lib.fftlab_fourstep_pass1_swap(
-                xr.data_ptr(), xi.data_ptr(), mr.data_ptr(), mi.data_ptr(), *tabs,
-                B // swap, log2_int(swap), *logs, *tail)
-        elif not twiddle:
-            rc = lib.fftlab_fourstep_pass1_no_twiddle(
-                xr.data_ptr(), xi.data_ptr(), mr.data_ptr(), mi.data_ptr(), tabs[0], B, *logs,
-                *tail)
-        else:
-            rc = lib.fftlab_fourstep_pass1(xr.data_ptr(), xi.data_ptr(), mr.data_ptr(),
-                                           mi.data_ptr(), *tabs, B, *logs, *tail)
-    _build.check(lib, name, rc)
-    counts[name] += 1
-    if staged:
-        trace.COUNTS["pass1_staged_twiddle"] += 1
-    if rec:
-        trace.launch(name, t0, t1, t2, t3, trace.now())
+    return mark, mr, mi, tabs, (B, log2_int(L1), log2_int(L2), log2_int(geo.T),
+                                geo.c_struct(), int(direction))
+
+
+def _launch_pass1(key: str, xr, xi, direction, sides: tuple[int, int] | None,
+                  counts: dict, geometry: TileGeometry | None = None):
+    """Launch pass 1 (`fftlab_fourstep_pass1`) at `sides` = (L1, L2), None
+    for the row's two-pass sides, on contiguous [B, L1*L2] planes, counted
+    in `counts[key]`, the LAUNCHES of the wrapper's module, and recorded
+    as the span `key` (`_build.launch`)."""
+    mark, mr, mi, tabs, tail = _pass1_step(key, xr, xi, direction, sides, geometry)
+    _build.launch("fftlab_fourstep_pass1", key, counts, xr,
+                  (xr.data_ptr(), xi.data_ptr(), mr.data_ptr(), mi.data_ptr(), *tabs, *tail),
+                  mark)
+    return mr, mi
+
+
+def _launch_pass1_packed(key: str, x, direction, sides, counts: dict, geometry=None):
+    """`_launch_pass1` on a real [B, 2*L1*L2] row, complex element j =
+    (x[2j], x[2j+1]) (`fftlab_fourstep_pass1_packed`)."""
+    mark, mr, mi, tabs, tail = _pass1_step(key, x, None, direction, sides, geometry)
+    _build.launch("fftlab_fourstep_pass1_packed", key, counts, x,
+                  (x.data_ptr(), mr.data_ptr(), mi.data_ptr(), *tabs, *tail), mark)
+    return mr, mi
+
+
+def _launch_pass1_swap(key: str, xr, xi, direction, sides, counts: dict, f1: int,
+                       geometry=None):
+    """`_launch_pass1` on a multiple of F1 = `f1` rows, row k1 of input row
+    o*F1 + k1a stored at row (o, k1, k1a) (`fftlab_fourstep_pass1_swap`)."""
+    mark, mr, mi, tabs, (B, *tail) = _pass1_step(key, xr, xi, direction, sides, geometry,
+                                                 rows=f1)
+    _build.launch("fftlab_fourstep_pass1_swap", key, counts, xr,
+                  (xr.data_ptr(), xi.data_ptr(), mr.data_ptr(), mi.data_ptr(), *tabs,
+                   B // f1, log2_int(f1), *tail), mark)
+    return mr, mi
+
+
+def _launch_pass1_no_twiddle(key: str, xr, xi, direction, sides, counts: dict,
+                             geometry=None):
+    """`_launch_pass1` with no twiddle, the sandwich's inverse pass 1
+    (`fftlab_fourstep_pass1_no_twiddle`)."""
+    mark, mr, mi, tabs, tail = _pass1_step(key, xr, xi, direction, sides, geometry,
+                                           twiddle=False)
+    _build.launch("fftlab_fourstep_pass1_no_twiddle", key, counts, xr,
+                  (xr.data_ptr(), xi.data_ptr(), mr.data_ptr(), mi.data_ptr(), tabs[0], *tail),
+                  mark)
     return mr, mi
 
 
@@ -579,51 +585,43 @@ def fourstep_pass2_interleaved(mr: torch.Tensor, mi: torch.Tensor,
     """Launch pass 2 on the contiguous [B, n] intermediate planes with
     the natural-order spectrum stored interleaved: returns the real
     [B, 2n] signal whose (2k, 2k+1) samples are bin k's (re, im)."""
-    return _launch_pass2("fourstep_pass2_interleaved", mr, mi, direction, scale, None,
-                         LAUNCHES)
+    key = "fourstep_pass2_interleaved"
+    mark = trace.phases()
+    sides = _check_launch(mr, mi, key, None)
+    mark()
+    y = torch.empty(mr.shape[0], 2 * mr.shape[1], device=mr.device)
+    mark()
+    _build.launch("fftlab_fourstep_pass2_interleaved", key, LAUNCHES, mr,
+                  _pass2_args(mr, mi, (y.data_ptr(),), direction, scale, sides, None), mark)
+    return y
 
 
-def _launch_pass2(name: str, mr, mi, direction, scale: float,
+def _pass2_args(mr, mi, out: tuple, direction, scale: float, sides, geometry) -> tuple:
+    """Pass 2's arguments with its store's pointers `out`, `geometry`
+    defaulting to `pass2_geometry`."""
+    L1, L2 = sides
+    direction = Direction(int(direction))
+    geo = geometry or pass2_geometry(L1, L2)
+    return (mr.data_ptr(), mi.data_ptr(), *out,
+            _pass2_twiddle(L2, direction, mr.device).data_ptr(), mr.shape[0], log2_int(L1),
+            log2_int(L2), log2_int(geo.T), geo.c_struct(), int(direction), float(scale))
+
+
+def _launch_pass2(key: str, mr, mi, direction, scale: float,
                   sides: tuple[int, int] | None, counts: dict,
                   geometry: TileGeometry | None = None):
-    """Launch pass 2 (the store of `name`) on contiguous [B, L1*L2]
-    intermediate planes; `sides`, `counts` and the span as in
-    `_launch_pass1`, `geometry` defaults to `pass2_geometry`."""
-    rec = trace.on()
-    t0 = rec and trace.now()
-    direction = Direction(int(direction))
-    if sides is None:
-        sides = _two_pass_sides(mr, name)
-    _check_launch(mr, mi, name, sides)
-    L1, L2 = sides
-    n = L1 * L2
-    interleaved = name == "fourstep_pass2_interleaved"
-    t1 = rec and trace.now()
-    if interleaved:
-        out = torch.empty(mr.shape[0], 2 * n, device=mr.device)
-    else:
-        out = (torch.empty_like(mr), torch.empty_like(mi))
-    t2 = rec and trace.now()
-    tw2 = _pass2_twiddle(L2, direction, mr.device)
-    geo = geometry or pass2_geometry(L1, L2)
-    args = (mr.shape[0], log2_int(L1), log2_int(L2), log2_int(geo.T), geo.c_struct(),
-            int(direction), float(scale))
-    t3 = rec and trace.now()
-    lib = _build.load_library()
-    with torch.cuda.device(mr.device):
-        if interleaved:
-            rc = lib.fftlab_fourstep_pass2_interleaved(
-                mr.data_ptr(), mi.data_ptr(), out.data_ptr(), tw2.data_ptr(), *args,
-                stream_of(mr))
-        else:
-            rc = lib.fftlab_fourstep_pass2(
-                mr.data_ptr(), mi.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
-                tw2.data_ptr(), *args, stream_of(mr))
-    _build.check(lib, name, rc)
-    counts[name] += 1
-    if rec:
-        trace.launch(name, t0, t1, t2, t3, trace.now())
-    return out
+    """Launch pass 2 (`fftlab_fourstep_pass2`) on contiguous [B, L1*L2]
+    intermediate planes into natural-order planes; `sides`, `counts` and
+    the span as in `_launch_pass1`, `geometry` as in `_pass2_args`."""
+    mark = trace.phases()
+    sides = _check_launch(mr, mi, key, sides)
+    mark()
+    yr, yi = torch.empty_like(mr), torch.empty_like(mi)
+    mark()
+    _build.launch("fftlab_fourstep_pass2", key, counts, mr,
+                  _pass2_args(mr, mi, (yr.data_ptr(), yi.data_ptr()), direction, scale, sides,
+                              geometry), mark)
+    return yr, yi
 
 
 def _unpack_twiddle_np(L1: int, L2: int) -> np.ndarray:
@@ -654,33 +652,23 @@ def fourstep_pass2_unpack(mr: torch.Tensor, mi: torch.Tensor, scale: float = 1.0
 
 def _launch_pass2_unpack(mr, mi, scale: float, counts: dict,
                          geometry: TileGeometry | None = None):
-    """Launch the unpack mode on contiguous [B, L1*L2] CUDA planes;
-    `counts` and the span as in `_launch_pass1`, `geometry` defaults to
-    `pass2_unpack_geometry`."""
-    rec = trace.on()
-    t0 = rec and trace.now()
-    name = "fourstep_pass2_unpack"
-    sides = _two_pass_sides(mr, name)
-    _check_launch(mr, mi, name, sides)
-    L1, L2 = sides
-    B, m = mr.shape
+    """Launch the unpack mode (`fftlab_fourstep_pass2_unpack`) on
+    contiguous [B, L1*L2] CUDA planes; `counts` and the span as in
+    `_launch_pass1`, `geometry` defaults to `pass2_unpack_geometry`."""
+    key = "fourstep_pass2_unpack"
+    mark = trace.phases()
+    L1, L2 = _check_launch(mr, mi, key, None)
     geo = geometry or pass2_unpack_geometry(L1, L2)
-    t1 = rec and trace.now()
+    mark()
+    B, m = mr.shape
     xr = torch.empty(B, m + 1, device=mr.device)
     xi = torch.empty_like(xr)
-    t2 = rec and trace.now()
-    tabs = _unpack_tables(L1, L2, mr.device)
-    args = (*(t.data_ptr() for t in tabs), B, log2_int(L1), log2_int(L2), log2_int(geo.T),
-            geo.c_struct(), float(scale))
-    t3 = rec and trace.now()
-    lib = _build.load_library()
-    with torch.cuda.device(mr.device):
-        rc = lib.fftlab_fourstep_pass2_unpack(mr.data_ptr(), mi.data_ptr(), xr.data_ptr(),
-                                              xi.data_ptr(), *args, stream_of(mr))
-    _build.check(lib, name, rc)
-    counts[name] += 1
-    if rec:
-        trace.launch(name, t0, t1, t2, t3, trace.now())
+    mark()
+    tw2, utw = _unpack_tables(L1, L2, mr.device)
+    _build.launch("fftlab_fourstep_pass2_unpack", key, counts, mr,
+                  (mr.data_ptr(), mi.data_ptr(), xr.data_ptr(), xi.data_ptr(), tw2.data_ptr(),
+                   utw.data_ptr(), B, log2_int(L1), log2_int(L2), log2_int(geo.T),
+                   geo.c_struct(), float(scale)), mark)
     return xr, xi
 
 
@@ -797,32 +785,22 @@ def fourstep_pass2_sandwich(mr: torch.Tensor, mi: torch.Tensor, hr: torch.Tensor
 
 
 def _launch_sandwich(mr, mi, hr, hi, counts: dict, geometry: TileGeometry | None = None):
-    """Launch the sandwich mode in place on contiguous [B, n] CUDA planes;
-    `counts` as in `_launch_pass1`, `geometry` defaults to
-    `sandwich_geometry`."""
-    rec = trace.on()
-    t0 = rec and trace.now()
-    name = "fourstep_pass2_sandwich"
-    sides = _two_pass_sides(mr, name)
-    _check_launch(mr, mi, name, sides)
-    check_cuda(hr, hi, name=name)
-    L1, L2 = sides
-    check_response(hr, hi, L1 * L2, mr, name)
-    t1 = rec and trace.now()  # in place: nothing to allocate
+    """Launch the sandwich mode (`fftlab_fourstep_pass2_sandwich`) in place
+    on contiguous [B, n] CUDA planes; `counts` as in `_launch_pass1`,
+    `geometry` defaults to `sandwich_geometry`."""
+    key = "fourstep_pass2_sandwich"
+    mark = trace.phases()
+    L1, L2 = _check_launch(mr, mi, key, None)
+    check_cuda(hr, hi, name=key)
+    check_response(hr, hi, L1 * L2, mr, key)
+    mark(2)  # in place: nothing to allocate
     geo = geometry or sandwich_geometry(L1, L2)
-    tabs = _sandwich_tables(L1, L2, mr.device)
-    args = (*(t.data_ptr() for t in tabs[2:]), mr.shape[0], log2_int(L1), log2_int(L2),
-            log2_int(geo.T), geo.c_struct())
-    t3 = rec and trace.now()
-    lib = _build.load_library()
-    with torch.cuda.device(mr.device):
-        rc = lib.fftlab_fourstep_pass2_sandwich(
-            mr.data_ptr(), mi.data_ptr(), *(t.data_ptr() for t in tabs[:2]), hr.data_ptr(),
-            hi.data_ptr(), *args, stream_of(mr))
-    _build.check(lib, name, rc)
-    counts[name] += 1
-    if rec:
-        trace.launch(name, t0, t1, t1, t3, trace.now())
+    tw_fwd, tw_inv, a_tab, p_tab = _sandwich_tables(L1, L2, mr.device)
+    _build.launch("fftlab_fourstep_pass2_sandwich", key, counts, mr,
+                  (mr.data_ptr(), mi.data_ptr(), tw_fwd.data_ptr(), tw_inv.data_ptr(),
+                   hr.data_ptr(), hi.data_ptr(), a_tab.data_ptr(), p_tab.data_ptr(),
+                   mr.shape[0], log2_int(L1), log2_int(L2), log2_int(geo.T), geo.c_struct()),
+                  mark)
     return mr, mi
 
 
@@ -838,7 +816,7 @@ def spectral_filter_large_plain(xr: torch.Tensor, xi: torch.Tensor,
 def _filter_launches(xr, xi, hr, hi):
     mr, mi = fourstep_pass1(xr, xi, FORWARD)
     fourstep_pass2_sandwich(mr, mi, hr, hi)
-    return _launch_pass1("fourstep_pass1", mr, mi, INVERSE, None, LAUNCHES, twiddle=False)
+    return _launch_pass1_no_twiddle("fourstep_pass1", mr, mi, INVERSE, None, LAUNCHES)
 
 
 def spectral_filter_large(xr: torch.Tensor, xi: torch.Tensor, hr, hi):

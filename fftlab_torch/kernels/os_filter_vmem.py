@@ -40,7 +40,6 @@ from fftlab_torch.kernels._common import (
     frame_geometry,
     on_cpu,
     rows_of,
-    stream_of,
     tile_geometry,
 )
 from fftlab_torch.kernels.fft_vmem import (
@@ -142,29 +141,21 @@ def _launch_os(xr, xi, hr, hi, nh: int, T: int, counts: dict):
     """Launch `os_filter` at T frames per block on checked tensors; the
     launch adds one to `counts["os_filter"]` (LAUNCHES, or the counts of
     chip_smoke.py's A/B of T)."""
-    rec = trace.on()
-    t0 = rec and trace.now()
+    mark = trace.phases()
     C, n = xr.shape
     fft_size = int(hr.shape[-1])
     halo = nh - 1
-    hop = fft_size - halo
     geo = os_geometry(fft_size, T)
-    yr = torch.empty_like(xr)
-    yi = torch.empty_like(xi)
+    mark()
+    yr, yi = torch.empty_like(xr), torch.empty_like(xi)
+    mark()
     tw_fwd = _engine_twiddle(fft_size, Direction.FORWARD, xr.device)
     tw_inv = _engine_twiddle(fft_size, Direction.INVERSE, xr.device)
-    t3 = rec and trace.now()
-    lib = _build.load_library()
-    with torch.cuda.device(xr.device):
-        rc = lib.fftlab_os_filter(
-            xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
-            tw_fwd.data_ptr(), tw_inv.data_ptr(), hr.data_ptr(), hi.data_ptr(),
-            C, n, hop, halo, log2_int(fft_size), log2_int(T), geo.c_struct(),
-            1.0 / fft_size, stream_of(xr))
-    _build.check(lib, "os_filter", rc)
-    counts["os_filter"] += 1
-    if rec:
-        trace.launch_call("os_filter", t0, t3, trace.now())
+    _build.launch("fftlab_os_filter", "os_filter", counts, xr,
+                  (xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
+                   tw_fwd.data_ptr(), tw_inv.data_ptr(), hr.data_ptr(), hi.data_ptr(), C, n,
+                   fft_size - halo, halo, log2_int(fft_size), log2_int(T), geo.c_struct(),
+                   1.0 / fft_size), mark)
     return yr, yi
 
 

@@ -23,10 +23,6 @@ stack for the interleave, the unpaired full-range unpack of
 rfft_vmem.py:217-223 with the Nyquist bin appended as
 rfft_vmem.py:283-286 appends it, and the paired repack in tensor ops.
 The paired and unpaired unpacks agree to float32 rounding.
-
-Each launch adds one to LAUNCHES and, while the recorder is on, records
-its span with the phases checks, alloc, tables and call (utils/trace.py),
-as the two-pass launches do.
 """
 
 from __future__ import annotations
@@ -45,7 +41,6 @@ from fftlab_torch.kernels._common import (
     complex_table,
     on_cpu,
     rows_of,
-    stream_of,
 )
 from fftlab_torch.utils import trace
 
@@ -146,48 +141,34 @@ def _check_launch(name: str, *tensors: torch.Tensor) -> None:
 def pack_real(x: torch.Tensor):
     """Launch `pack_real` on a contiguous [B, n] CUDA float32 signal (n
     even, 8-byte aligned); returns the even and odd planes [B, n/2]."""
-    rec = trace.on()
-    t0 = rec and trace.now()
+    mark = trace.phases()
     check_real(x, "pack_real")
     _check_launch("pack_real", x)
     check_aligned(x, name="pack_real")
     B, n = x.shape
     if n % 2:
         raise ValueError(f"pack_real takes an even length; got {n}")
-    t1 = rec and trace.now()
+    mark()
     zr = torch.empty(B, n // 2, device=x.device)
     zi = torch.empty_like(zr)
-    t3 = rec and trace.now()  # no table
-    lib = _build.load_library()
-    with torch.cuda.device(x.device):
-        rc = lib.fftlab_pack_real(x.data_ptr(), zr.data_ptr(), zi.data_ptr(),
-                                  zr.numel(), stream_of(x))
-    _build.check(lib, "pack_real", rc)
-    LAUNCHES["pack_real"] += 1
-    if rec:
-        trace.launch("pack_real", t0, t1, t3, t3, trace.now())
+    mark()  # no table: the argument tuple alone
+    _build.launch("fftlab_pack_real", "pack_real", LAUNCHES, x,
+                  (x.data_ptr(), zr.data_ptr(), zi.data_ptr(), zr.numel()), mark)
     return zr, zi
 
 
 def interleave(zr: torch.Tensor, zi: torch.Tensor) -> torch.Tensor:
     """Launch `interleave` on contiguous [B, m] CUDA float32 planes;
     returns the real [B, 2m] signal."""
-    rec = trace.on()
-    t0 = rec and trace.now()
+    mark = trace.phases()
     check_planes(zr, zi, "interleave")
     _check_launch("interleave", zr, zi)
     B, m = zr.shape
-    t1 = rec and trace.now()
+    mark()
     x = torch.empty(B, 2 * m, device=zr.device)
-    t3 = rec and trace.now()  # no table
-    lib = _build.load_library()
-    with torch.cuda.device(zr.device):
-        rc = lib.fftlab_interleave(zr.data_ptr(), zi.data_ptr(), x.data_ptr(),
-                                   zr.numel(), stream_of(zr))
-    _build.check(lib, "interleave", rc)
-    LAUNCHES["interleave"] += 1
-    if rec:
-        trace.launch("interleave", t0, t1, t3, t3, trace.now())
+    mark()  # no table: the argument tuple alone
+    _build.launch("fftlab_interleave", "interleave", LAUNCHES, zr,
+                  (zr.data_ptr(), zi.data_ptr(), x.data_ptr(), zr.numel()), mark)
     return x
 
 
@@ -195,28 +176,20 @@ def herm_unpack(zr: torch.Tensor, zi: torch.Tensor, scale: float = 1.0):
     """Launch `herm_unpack` on contiguous [B, m] CUDA float32 half-size
     spectra (m even); returns the one-sided [B, m+1] planes, bins 0..m,
     times `scale`."""
-    rec = trace.on()
-    t0 = rec and trace.now()
+    mark = trace.phases()
     check_planes(zr, zi, "herm_unpack")
     _check_launch("herm_unpack", zr, zi)
     B, m = zr.shape
     if m < 2 or m % 2:
         raise ValueError(f"herm_unpack takes an even half size m >= 2; got {m}")
-    t1 = rec and trace.now()
+    mark()
     xr = torch.empty(B, m + 1, device=zr.device)
     xi = torch.empty_like(xr)
-    t2 = rec and trace.now()
+    mark()
     tw = _pair_twiddle(2 * m, Direction.FORWARD, zr.device)
-    t3 = rec and trace.now()
-    lib = _build.load_library()
-    with torch.cuda.device(zr.device):
-        rc = lib.fftlab_herm_unpack(zr.data_ptr(), zi.data_ptr(), xr.data_ptr(),
-                                    xi.data_ptr(), tw.data_ptr(), B, m, float(scale),
-                                    stream_of(zr))
-    _build.check(lib, "herm_unpack", rc)
-    LAUNCHES["herm_unpack"] += 1
-    if rec:
-        trace.launch("herm_unpack", t0, t1, t2, t3, trace.now())
+    _build.launch("fftlab_herm_unpack", "herm_unpack", LAUNCHES, zr,
+                  (zr.data_ptr(), zi.data_ptr(), xr.data_ptr(), xi.data_ptr(), tw.data_ptr(), B,
+                   m, float(scale)), mark)
     return xr, xi
 
 
@@ -224,28 +197,21 @@ def herm_repack(xr: torch.Tensor, xi: torch.Tensor):
     """Launch `herm_repack` on contiguous [B, m+1] CUDA float32 one-sided
     spectra (m even); returns the half-size [B, m] planes for the inverse
     c2c."""
-    rec = trace.on()
-    t0 = rec and trace.now()
+    mark = trace.phases()
     check_planes(xr, xi, "herm_repack")
     _check_launch("herm_repack", xr, xi)
     B, h = xr.shape
     m = h - 1
     if m < 2 or m % 2:
         raise ValueError(f"herm_repack takes m+1 bins with m even, m >= 2; got {h}")
-    t1 = rec and trace.now()
+    mark()
     zr = torch.empty(B, m, device=xr.device)
     zi = torch.empty_like(zr)
-    t2 = rec and trace.now()
+    mark()
     tw = _pair_twiddle(2 * m, Direction.INVERSE, xr.device)
-    t3 = rec and trace.now()
-    lib = _build.load_library()
-    with torch.cuda.device(xr.device):
-        rc = lib.fftlab_herm_repack(xr.data_ptr(), xi.data_ptr(), zr.data_ptr(),
-                                    zi.data_ptr(), tw.data_ptr(), B, m, stream_of(xr))
-    _build.check(lib, "herm_repack", rc)
-    LAUNCHES["herm_repack"] += 1
-    if rec:
-        trace.launch("herm_repack", t0, t1, t2, t3, trace.now())
+    _build.launch("fftlab_herm_repack", "herm_repack", LAUNCHES, xr,
+                  (xr.data_ptr(), xi.data_ptr(), zr.data_ptr(), zi.data_ptr(), tw.data_ptr(), B,
+                   m), mark)
     return zr, zi
 
 

@@ -57,7 +57,7 @@ from fftlab_torch.core.twiddle import dft_matrix_np, stage_twiddle_np
 from fftlab_torch.core.types import FORWARD, Direction, is_power_of_two, log2_int
 from fftlab_torch.kernels import _build
 from fftlab_torch.kernels._common import (check_cuda, check_planes, complex_table,
-                                          effective_scale, on_cpu, stream_of)
+                                          effective_scale, on_cpu)
 from fftlab_torch.kernels.fourstep_vmem import (PASS1_WIDTH, _pass1_tables, _pass2_twiddle,
                                                 leaf_geometry, stage_geometry)
 from fftlab_torch.utils import trace
@@ -161,8 +161,7 @@ def _launch(xr, xi, r: int, direction: Direction, twiddle: bool, f1: int):
     """Launch one stage on contiguous [rows, r*M] CUDA planes: pass 1 in
     its stage mode, output row k of input row o*f1 + k1a at row
     (o, k, k1a) (f1 = 1: the plain store)."""
-    rec = trace.on()
-    t0 = rec and trace.now()
+    mark = trace.phases()
     name = "fused_stage"
     check_cuda(xr, xi, name=name)
     rows, n = xr.shape
@@ -170,21 +169,16 @@ def _launch(xr, xi, r: int, direction: Direction, twiddle: bool, f1: int):
     if not (is_power_of_two(r) and r <= MAX_RADIX and is_power_of_two(M)):
         raise ValueError(f"the {name} kernel takes pow2 r in [2, {MAX_RADIX}] and pow2 M; "
                          f"got r={r}, M={M}")
+    mark()
+    yr, yi = torch.empty_like(xr), torch.empty_like(xi)
+    mark()
     geo = stage_geometry(r)
     tw1, a_tab, p_tab = _stage_tables(r, M, direction, bool(twiddle), xr.device)
-    yr = torch.empty_like(xr)
-    yi = torch.empty_like(xi)
-    t3 = rec and trace.now()
-    lib = _build.load_library()
-    with torch.cuda.device(xr.device):
-        rc = lib.fftlab_fused_stage(
-            xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(), tw1.data_ptr(),
-            a_tab.data_ptr(), p_tab.data_ptr(), rows, log2_int(f1), log2_int(r), log2_int(M),
-            log2_int(geo.T // PASS1_WIDTH), geo.c_struct(), int(direction), stream_of(xr))
-    _build.check(lib, name, rc)
-    LAUNCHES[name] += 1
-    if rec:
-        trace.launch_call(name, t0, t3, trace.now())
+    _build.launch("fftlab_fused_stage", name, LAUNCHES, xr,
+                  (xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(), tw1.data_ptr(),
+                   a_tab.data_ptr(), p_tab.data_ptr(), rows, log2_int(f1), log2_int(r),
+                   log2_int(M), log2_int(geo.T // PASS1_WIDTH), geo.c_struct(), int(direction)),
+                  mark)
     return yr, yi
 
 
@@ -231,27 +225,20 @@ def stage_leaf(xr: torch.Tensor, xi: torch.Tensor, leaf: int, direction=FORWARD,
     direction = Direction(int(direction))
     if on_cpu(xr, name):
         return stage_leaf_plain(xr, xi, leaf, direction, scale)
-    rec = trace.on()
-    t0 = rec and trace.now()
+    mark = trace.phases()
     check_cuda(xr, xi, name=name)
     if not (is_power_of_two(n) and LANES <= leaf <= MAX_LEAF):
         raise ValueError(f"the {name} kernel takes pow2 n and pow2 leaf in "
                          f"[{LANES}, {MAX_LEAF}]; got n={n}, leaf={leaf}")
+    mark()
+    yr, yi = torch.empty_like(xr), torch.empty_like(xi)
+    mark()
     geo = leaf_geometry(leaf)
     tw2 = _pass2_twiddle(leaf, direction, xr.device)
-    yr = torch.empty_like(xr)
-    yi = torch.empty_like(xi)
-    t3 = rec and trace.now()
-    lib = _build.load_library()
-    with torch.cuda.device(xr.device):
-        rc = lib.fftlab_stage_leaf(
-            xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(), tw2.data_ptr(), B,
-            log2_int(n // leaf), log2_int(leaf), log2_int(geo.T), geo.c_struct(),
-            int(direction), float(scale), stream_of(xr))
-    _build.check(lib, name, rc)
-    LAUNCHES[name] += 1
-    if rec:
-        trace.launch_call(name, t0, t3, trace.now())
+    _build.launch("fftlab_stage_leaf", name, LAUNCHES, xr,
+                  (xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(), tw2.data_ptr(), B,
+                   log2_int(n // leaf), log2_int(leaf), log2_int(geo.T), geo.c_struct(),
+                   int(direction), float(scale)), mark)
     return yr, yi
 
 

@@ -40,7 +40,6 @@ from fftlab_torch.kernels._common import (
     check_cuda,
     check_real,
     on_cpu,
-    stream_of,
     tile_geometry,
 )
 from fftlab_torch.kernels.fft_vmem import N1, _engine_twiddle, supported_size
@@ -198,27 +197,21 @@ def _launch_stft(x, fft_size: int, hop: int, w, n_frames: int, onesided: bool,
     """Launch `stft_frames` at T frames per block on checked tensors; the
     launch adds one to `counts["stft_frames"]` (LAUNCHES, or the counts of
     chip_smoke.py's A/B of T)."""
-    rec = trace.on()
-    t0 = rec and trace.now()
+    mark = trace.phases()
     m = fft_size // 2
     bins = m + 1 if onesided else fft_size
     geo = stft_geometry(fft_size, hop, T, bins)
-    lay = stft_layout(m, hop, T, geo.stride, bins)
+    mark()
     yr = torch.empty(n_frames, bins, device=x.device)
     yi = torch.empty_like(yr)
+    mark()
+    lay = stft_layout(m, hop, T, geo.stride, bins)
     tw = _engine_twiddle(m, FORWARD, x.device)
     utw = _pair_twiddle(fft_size, FORWARD, x.device)
-    t3 = rec and trace.now()
-    lib = _build.load_library()
-    with torch.cuda.device(x.device):
-        rc = lib.fftlab_stft_frames(
-            x.data_ptr(), x.numel(), w.data_ptr(), tw.data_ptr(), utw.data_ptr(),
-            yr.data_ptr(), yi.data_ptr(), n_frames, hop, log2_int(m), log2_int(T), bins,
-            geo.c_struct(), lay.c_struct(), stream_of(x))
-    _build.check(lib, "stft_frames", rc)
-    counts["stft_frames"] += 1
-    if rec:
-        trace.launch_call("stft_frames", t0, t3, trace.now())
+    _build.launch("fftlab_stft_frames", "stft_frames", counts, x,
+                  (x.data_ptr(), x.numel(), w.data_ptr(), tw.data_ptr(), utw.data_ptr(),
+                   yr.data_ptr(), yi.data_ptr(), n_frames, hop, log2_int(m), log2_int(T), bins,
+                   geo.c_struct(), lay.c_struct()), mark)
     return yr, yi
 
 

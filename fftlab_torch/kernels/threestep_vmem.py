@@ -38,8 +38,8 @@ from fftlab_torch.core.types import FORWARD, is_power_of_two, log2_int
 from fftlab_torch.kernels._ad import make_differentiable
 from fftlab_torch.kernels._common import (check_cuda, check_planes, effective_scale,
                                           on_cpu, rows_of)
-from fftlab_torch.kernels.fourstep_vmem import (_launch_pass1, _launch_pass2,
-                                                pass1_plain, pass2_plain)
+from fftlab_torch.kernels.fourstep_vmem import (_launch_pass1, _launch_pass1_swap,
+                                                _launch_pass2, pass1_plain, pass2_plain)
 
 MIN_N3 = 1 << 21
 MAX_N3 = 1 << 26
@@ -125,9 +125,8 @@ def threestep_pass_b(mr: torch.Tensor, mi: torch.Tensor, direction=FORWARD):
     check_planes(mr, mi, "threestep_pass_b")
     check_cuda(mr, mi, name="threestep_pass_b")  # before the row view
     B, n = mr.shape
-    yr, yi = _launch_pass1("threestep_pass_b", mr.view(B * F1, F2 * F3),
-                           mi.view(B * F1, F2 * F3), direction, (F2, F3),
-                           LAUNCHES, swap=F1)
+    yr, yi = _launch_pass1_swap("threestep_pass_b", mr.view(B * F1, F2 * F3),
+                                mi.view(B * F1, F2 * F3), direction, (F2, F3), LAUNCHES, F1)
     return yr.view(B, n), yi.view(B, n)
 
 

@@ -40,15 +40,16 @@ a new `call` id, which every span under it shares. The spans of a call:
           <kernel> one a launch, named by its LAUNCHES key, with children
             checks the launch's checks and sides
             alloc  the torch.empty calls
-            tables the cached tables and the launch geometry
-            call   the device guard, the stream, the ctypes entry and its
-                   error check
+            tables the cached tables, the launch geometry and the
+                   argument tuple
+            call   kernels/_build.launch: the device guard, the stream,
+                   the ctypes entry, its error check and the count
 
-The two- and three-pass launches, the sandwich's and the real-signal
-path's (`pack_real`, `interleave`, `herm_unpack`, `herm_repack`) record
-all four phases; the other launch helpers (`fft_rows`, `filter_rows`,
-`os_filter`, `stft_frames`, the stage pipeline's) record the launch and
-`call` only. A `span` block records too while the recorder is on. The
+Every launch records all four phases: its wrapper takes `mark =
+phases()` at its start and calls `mark()` at the start of alloc and of
+tables (`mark(2)` where it allocates nothing), `kernels/_build.launch`
+at the start of call. Off, `phases()` is OFF, a builtin: no clock, no
+Python frame. A `span` block records too while the recorder is on. The
 buffer keeps CAPACITY records (a launch and its children are one); past
 that, spans are dropped and counted. `clear()` empties it.
 
@@ -92,7 +93,7 @@ COUNTS = {"library_builds": 0, "library_loads": 0, "spans_dropped": 0}
 now = time.time_ns
 
 # A span is [name, start, end, parent, call, index in its list], and a
-# launch's the stamps its children start at besides (`_launch`).
+# launch's the starts of its PHASES besides (`launch`).
 _spans: list = []
 _setup: list = []
 _call_ids = itertools.count()
@@ -193,29 +194,39 @@ def end(rec) -> None:
         rec[2] = now()
 
 
-def _launch(name: str, start: int, stop: int, starts: tuple) -> None:
-    """Append one record for a launch span and its closed children, the
-    last len(starts) of PHASES, each from its stamp in `starts` to the
-    next (the last to `stop`); `spans()` rebuilds them."""
+# A launch's phase marker while the recorder is off: a builtin that takes
+# what a mark takes, called in C.
+OFF = bool
+
+
+class Phases(list):
+    """The starts of a launch's PHASES; its bound `mark` is the marker."""
+
+    __slots__ = ()
+
+    def mark(self, n: int = 1) -> None:
+        """Start the next phase now (n > 1: n phases, n - 1 of zero length)."""
+        self.append(now())
+        if n > 1:
+            self.extend(self[-1:] * (n - 1))
+
+
+def phases():
+    """A launch's phase marker for `kernels/_build.launch`: while the
+    recorder is on, `Phases.mark` of starts from now, else OFF (no clock)."""
+    return Phases((now(),)).mark if on() else OFF
+
+
+def launch(name: str, mark) -> None:
+    """Record the launch of kernel `name` (its LAUNCHES key), PHASES[i] from
+    start i of `mark` (`phases()`): one record, the starts a tuple (gc skips it)."""
+    starts = mark.__self__
     spans = _spans
     if len(spans) >= CAPACITY:
-        COUNTS["spans_dropped"] += 1 + len(starts)
+        COUNTS["spans_dropped"] += 1 + len(PHASES)
         return
-    spans.append([name, start, stop, *_under(spans, _open.spans), len(spans), starts])
-
-
-def launch(name: str, t0: int, t1: int, t2: int, t3: int, t4: int) -> None:
-    """Record the launch of kernel `name` (its LAUNCHES key) from t0 to
-    t4, `now()` stamps taken at its phase boundaries, with its children
-    (PHASES) checks [t0, t1], alloc [t1, t2], tables [t2, t3] and call
-    [t3, t4]."""
-    _launch(name, t0, t4, (t0, t1, t2, t3))
-
-
-def launch_call(name: str, t0: int, t3: int, t4: int) -> None:
-    """Record the launch of kernel `name` from t0 to t4 with its one child
-    call [t3, t4]: a launch helper that stamps its call alone."""
-    _launch(name, t0, t4, (t3,))
+    spans.append([name, starts[0], now(), *_under(spans, _open.spans), len(spans),
+                  tuple(starts)])
 
 
 def _rebuilt(records: list) -> list:
@@ -230,7 +241,7 @@ def _rebuilt(records: list) -> list:
         if len(rec) > 6:
             starts = rec[6]
             out += [(child, a, b, at[index], call) for child, a, b in
-                    zip(PHASES[-len(starts):], starts, (*starts[1:], end))]
+                    zip(PHASES, starts, (*starts[1:], end))]
     return out
 
 

@@ -37,7 +37,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from chip_smoke import GATE_PLAIN_DB, time_ms  # noqa: E402
 from fftlab_torch.core.types import INVERSE, log2_int  # noqa: E402
 from fftlab_torch.kernels import _build, fourstep_vmem  # noqa: E402
-from fftlab_torch.kernels._common import complex_table, stream_of  # noqa: E402
+from fftlab_torch.kernels._common import complex_table  # noqa: E402
 
 SHAPES = ((64, 1 << 15), (64, 1 << 17), (32, 1 << 19), (16, 1 << 20), (4, 1 << 21))
 
@@ -52,21 +52,17 @@ def pass1_with_ones(xr, xi, sides):
     """The inverse pass 1 as the plain pass-1 kernel with A, P and S of
     ones (it reads A and P, or S from L1 = STAGED_MIN_L1)."""
     L1, L2 = sides
-    lib = _build.load_library()
     geo = fourstep_vmem.pass1_geometry(L1, L2)
     tw1 = fourstep_vmem._pass1_tables(L1, L2, INVERSE, xr.device)[0]
     a_tab = complex_table(np.ones((L2 // fourstep_vmem.PASS1_WIDTH, L1)), xr.device)
     p_tab = complex_table(np.ones((L1, fourstep_vmem.PASS1_WIDTH)), xr.device)
     s_tab = complex_table(np.ones((fourstep_vmem.staged_rows(L1), L2)), xr.device)
     mr, mi = torch.empty_like(xr), torch.empty_like(xi)
-
-    def launch():
-        rc = lib.fftlab_fourstep_pass1(
-            xr.data_ptr(), xi.data_ptr(), mr.data_ptr(), mi.data_ptr(), tw1.data_ptr(),
+    args = (xr.data_ptr(), xi.data_ptr(), mr.data_ptr(), mi.data_ptr(), tw1.data_ptr(),
             a_tab.data_ptr(), p_tab.data_ptr(), s_tab.data_ptr(), xr.shape[0], log2_int(L1),
-            log2_int(L2), log2_int(geo.T), geo.c_struct(), int(INVERSE), stream_of(xr))
-        _build.check(lib, "fourstep_pass1", rc)
-    return launch
+            log2_int(L2), log2_int(geo.T), geo.c_struct(), int(INVERSE))
+    counts = {"fourstep_pass1": 0}
+    return lambda: _build.launch("fftlab_fourstep_pass1", "fourstep_pass1", counts, xr, args)
 
 
 def main() -> int:
@@ -113,8 +109,8 @@ def main() -> int:
         whole = lambda: fourstep_vmem.spectral_filter_large(xr, xi, hr, hi)
         t = {"calls": time_ms(whole), "graph": time_ms(whole, graph=True),
              "pass 1": time_ms(lambda: fourstep_vmem.fourstep_pass1(xr, xi)),
-             "inverse pass 1, no twiddle": time_ms(lambda: fourstep_vmem._launch_pass1(
-                 "fourstep_pass1", *mid, INVERSE, sides, counts, twiddle=False)),
+             "inverse pass 1, no twiddle": time_ms(lambda: fourstep_vmem._launch_pass1_no_twiddle(
+                 "fourstep_pass1", *mid, INVERSE, sides, counts)),
              "inverse pass 1, tables of ones": time_ms(pass1_with_ones(*mid, sides))}
         default = fourstep_vmem.sandwich_geometry(L1, L2).T
         print(f"sandwich launches {B} x 2^{log2_int(n)}: "

@@ -1035,19 +1035,20 @@ def test_pass1_twiddled_modes_at_every_side(no_tf32, L1, L2, F1, direction):
     staged = trace.COUNTS["pass1_staged_twiddle"]
     plain = cplx(*fourstep_vmem.pass1_plain(xr, xi, direction, L1, L2))
     want = _pass1_oracle(xr, xi, direction, L1, L2)
-    launch = fourstep_vmem._launch_pass1
-    for mode, got in (("plain", launch("plain", xr, xi, direction, sides, counts)),
-                      ("packed", launch("packed", xc, None, direction, sides, counts))):
+    fv = fourstep_vmem
+    for mode, got in (("plain", fv._launch_pass1("plain", xr, xi, direction, sides, counts)),
+                      ("packed", fv._launch_pass1_packed("packed", xc, direction, sides,
+                                                         counts))):
         assert snr_db(cplx(*got), plain) >= 110.0, mode
         assert snr_db(cplx(*got), want) >= 120.0, mode
     # input row o*F1 + k1a, output row k1 -> row (o, k1, k1a)
     swapped = lambda a: a.reshape(B // F1, F1, L1, L2).swapaxes(1, 2).reshape(B, n)  # noqa: E731
-    got = cplx(*launch("swap", xr, xi, direction, sides, counts, swap=F1))
+    got = cplx(*fv._launch_pass1_swap("swap", xr, xi, direction, sides, counts, F1))
     assert snr_db(got, swapped(plain)) >= 110.0
     assert snr_db(got, swapped(want)) >= 120.0
     want_staged = 3 if L1 >= fourstep_vmem.STAGED_MIN_L1 else 0
     assert trace.COUNTS["pass1_staged_twiddle"] - staged == want_staged
-    got = cplx(*launch("none", xr, xi, direction, sides, counts, twiddle=False))
+    got = cplx(*fv._launch_pass1_no_twiddle("none", xr, xi, direction, sides, counts))
     assert snr_db(got, cplx(*fourstep_vmem.pass1_plain(xr, xi, direction, L1, L2, False))) >= 110.0
     assert trace.COUNTS["pass1_staged_twiddle"] - staged == want_staged
     assert counts == dict.fromkeys(counts, 1)

@@ -4,9 +4,18 @@ torch.profiler profile, with the spans of a call nested as execute ->
 dispatch -> wrapper (execute -> wrapper on a fused r2c/c2r plan) and a
 public call inside another as a child; the
 bounded buffer; the set-up spans and counters of the library, the
-tables, the plans and the import. The launch spans, which only a card's
-launch helpers record, are tested in tests/test_torch_cuda.py."""
+tables, the plans and the import; the one launch path,
+`kernels/_build.launch`, with a fake library (its argument order, count,
+error, span and off path), and a check of the sources that no other
+code calls a kernel entry or records a launch. The launch spans of the
+card's wrappers are tested in tests/test_torch_cuda.py."""
 
+import ast
+import contextlib
+import ctypes
+import importlib
+import pathlib
+import time
 import types
 
 import numpy as np
@@ -14,6 +23,7 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from fftlab_torch.core.types import Direction
 from fftlab_torch.kernels import _build, fourstep_vmem
 from fftlab_torch.plan.api import plan_dft_1d_split
 from fftlab_torch.plan.dispatch import fft_split_auto, spectral_filter_auto
@@ -280,3 +290,292 @@ def test_library_span_and_counters(monkeypatch, tmp_path, fresh_setup):
         assert all(spans[0][1] <= s[1] and s[2] <= spans[0][2] for s in spans[1:])
     assert trace.COUNTS["library_builds"] - builds == 1
     assert trace.COUNTS["library_loads"] - loads == 2
+
+
+STREAM = 0x5EED
+
+
+def _fake_launch(monkeypatch, rc: int = 0) -> list:
+    """`_build.launch`'s world on the CPU: a library whose `fftlab_fft_rows`
+    returns `rc` and records its arguments and the time, and the device
+    guard and the stream patched so that a CPU tensor passes. Returns the
+    list of calls."""
+    calls = []
+
+    def entry(*args):
+        calls.append((args, time.time_ns()))  # the recorder's clock, not its `now`
+        return rc
+
+    lib = types.SimpleNamespace(fftlab_fft_rows=entry,
+                                fftlab_error_string=lambda code: b"an error")
+    monkeypatch.setattr(_build, "load_library", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device: types.SimpleNamespace(cuda_stream=STREAM))
+    return calls
+
+
+def _launch(counts, mark=trace.OFF):
+    _build.launch("fftlab_fft_rows", "fft_rows", counts, torch.zeros(2, 8), (11, 22, 0.5),
+                  mark)
+
+
+def _arguments_in_order_stream_last(monkeypatch, counts):
+    calls = _fake_launch(monkeypatch)
+    _launch(counts)
+    assert [args for args, _ in calls] == [(11, 22, 0.5, STREAM)]
+
+
+def _one_count_under_its_key(monkeypatch, counts):
+    _fake_launch(monkeypatch)
+    _launch(counts)
+    _launch(counts)
+    assert counts == {"fft_rows": 6, "filter_rows": 0}
+
+
+def _an_error_names_the_kernel_and_counts_nothing(monkeypatch, counts):
+    calls = _fake_launch(monkeypatch, rc=719)
+    with pytest.raises(RuntimeError, match=r"^fft_rows failed: CUDA error 719 \(an error\)$"):
+        _launch(counts)
+    assert len(calls) == 1 and counts == {"fft_rows": 4, "filter_rows": 0}
+
+
+def _recorded_with_four_phases_under_the_wrapper(monkeypatch, counts):
+    calls = _fake_launch(monkeypatch)
+    with trace.recording():
+        wrapper = trace.begin("wrapper")
+        mark = trace.phases()
+        mark()
+        mark()
+        _launch(counts, mark)
+        trace.end(wrapper)
+    spans = trace.spans()
+    assert [s[0] for s in spans] == ["wrapper", "fft_rows", *trace.PHASES]
+    assert [s[3] for s in spans] == [-1, 0, 1, 1, 1, 1]
+    assert len({s[4] for s in spans}) == 1
+    kernel, phases = spans[1], spans[2:]
+    assert spans[0][1] <= kernel[1] <= kernel[2] <= spans[0][2]
+    assert phases[0][1] == kernel[1] and phases[-1][2] == kernel[2]
+    assert all(a[2] == b[1] for a, b in zip(phases, phases[1:]))
+    assert phases[-1][1] <= calls[0][1] <= phases[-1][2]  # the entry runs in `call`
+    assert counts["fft_rows"] == 5
+
+
+def _a_double_mark_is_a_phase_of_zero_length(monkeypatch, counts):
+    _fake_launch(monkeypatch)
+    with trace.recording():
+        mark = trace.phases()
+        mark(2)
+        _launch(counts, mark)
+    spans = trace.spans()
+    assert [s[0] for s in spans] == ["fft_rows", *trace.PHASES]
+    assert spans[2][1] == spans[2][2] and spans[3][1] == spans[2][2]
+
+
+def _off_reads_no_clock_and_records_nothing(monkeypatch, counts):
+    calls = _fake_launch(monkeypatch)
+    assert not trace.on()
+    monkeypatch.setattr(trace, "now", _no_clock)
+    mark = trace.phases()
+    assert mark is trace.OFF
+    mark()
+    mark(2)
+    _launch(counts, mark)
+    assert trace.spans() == [] and counts["fft_rows"] == 5
+
+
+@pytest.mark.parametrize("aspect", [
+    _arguments_in_order_stream_last, _one_count_under_its_key,
+    _an_error_names_the_kernel_and_counts_nothing,
+    _recorded_with_four_phases_under_the_wrapper, _a_double_mark_is_a_phase_of_zero_length,
+    _off_reads_no_clock_and_records_nothing], ids=lambda f: f.__name__.strip("_"))
+def test_the_one_launch_path(aspect, monkeypatch):
+    """`kernels/_build.launch` with a fake library, on a CPU tensor."""
+    aspect(monkeypatch, {"fft_rows": 4, "filter_rows": 0})
+
+
+PORT = pathlib.Path(__file__).resolve().parent.parent / "fftlab_torch"
+# Where the library is called from, the one place: kernels/_build.py `launch`.
+LAUNCH_SITE = ("kernels/_build.py", "launch")
+
+
+def _calls(pred) -> list:
+    """(module, enclosing function) of every call in fftlab_torch/ whose
+    callee `pred` takes: its function's node (a Name or an Attribute)."""
+    sites = []
+
+    def visit(node, module, fn):
+        for child in ast.iter_child_nodes(node):
+            inner = (child.name if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef))
+                     else fn)
+            if isinstance(child, ast.Call) and pred(child.func):
+                sites.append((module, fn))
+            visit(child, module, inner)
+
+    for path in sorted(PORT.rglob("*.py")):
+        visit(ast.parse(path.read_text()), path.relative_to(PORT).as_posix(), None)
+    return sites
+
+
+def _attr(*names):
+    return lambda f: isinstance(f, ast.Attribute) and f.attr in names
+
+
+def _entries_rule():
+    entries = {*_build.SIGNATURES, "fftlab_error_string"}
+    by_name = lambda f: isinstance(f, ast.Call) and getattr(f.func, "id", None) == "getattr"  # noqa: E731
+    return set(_calls(_attr(*entries)) + _calls(by_name)) == {LAUNCH_SITE}
+
+
+def _library_rule():
+    return set(_calls(lambda f: getattr(f, "id", getattr(f, "attr", None)) == "load_library")
+               ) == {LAUNCH_SITE}
+
+
+def _span_rule():
+    launch_span = lambda f: (isinstance(f, ast.Attribute) and f.attr == "launch"  # noqa: E731
+                             and getattr(f.value, "id", None) == "trace")
+    return (set(_calls(launch_span)) == {LAUNCH_SITE} and not _calls(_attr("launch_call", "check"))
+            and not hasattr(trace, "launch_call") and not hasattr(_build, "check"))
+
+
+def _named_entry_rule():
+    """Each `_build.launch` call names its C entry as a literal, and no
+    code of kernels/ compares a string with a kernel's LAUNCHES key."""
+    keys = set()
+    for path in (PORT / "kernels").glob("*.py"):
+        keys |= set(getattr(importlib.import_module(f"fftlab_torch.kernels.{path.stem}"),
+                            "LAUNCHES", {}))
+    assert "fourstep_pass2_interleaved" in keys
+    named = []
+    for path in (PORT / "kernels").glob("*.py"):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Call) and _attr("launch")(node.func) and \
+                    getattr(node.func.value, "id", None) == "_build":
+                named.append(isinstance(node.args[0], ast.Constant)
+                             and node.args[0].value in _build.SIGNATURES)
+            if isinstance(node, ast.Compare) and any(
+                    isinstance(c, ast.Constant) and c.value in keys
+                    for c in (node.left, *node.comparators)):
+                return False
+    return len(named) >= 14 and all(named)
+
+
+@pytest.mark.parametrize("rule", [_entries_rule, _library_rule, _span_rule, _named_entry_rule],
+                         ids=lambda f: f.__name__.strip("_"))
+def test_only_the_launch_path_calls_the_library(rule):
+    """No module of fftlab_torch/ but kernels/_build.py `launch` calls a
+    kernel entry, loads the library for a call or records a launch span;
+    `trace.launch_call` and `_build.check` are gone, and no wrapper picks
+    its entry by a kernel's name."""
+    assert rule()
+
+
+class _CheckedLib:
+    """A kernel library whose entries take their arguments through ctypes
+    prototypes of `_build.SIGNATURES`, so that an argument the real
+    library would refuse raises here (ctypes.ArgumentError), and record
+    (entry, the arguments as C sees them)."""
+
+    def __init__(self):
+        self.calls = []
+        for name, sig in _build.SIGNATURES.items():
+            setattr(self, name, self._entry(name, sig))
+
+    def _entry(self, name, sig):
+        proto = ctypes.CFUNCTYPE(ctypes.c_int, *sig)(
+            lambda *args: self.calls.append((name, args)) or 0)
+
+        def entry(*args):
+            assert len(args) == len(sig), (name, len(args), len(sig))
+            return proto(*args)
+        return entry
+
+    def fftlab_error_string(self, rc):
+        return b"an error"
+
+
+def _planes(*shape):
+    g = torch.Generator().manual_seed(sum(shape))
+    return torch.randn(*shape, generator=g), torch.randn(*shape, generator=g)
+
+
+def _kernels(name):
+    return importlib.import_module(f"fftlab_torch.kernels.{name}")
+
+
+# Every launch site: (its LAUNCHES key, its C entry, a call of it on CPU
+# tensors at the smallest shape it takes).
+WRAPPERS = [
+    ("fft_rows", "fftlab_fft_rows", lambda: _kernels("fft_vmem").fft_rows(*_planes(2, 512))),
+    ("filter_rows", "fftlab_filter_rows",
+     lambda: _kernels("fft_vmem").filter_rows(*_planes(2, 512), *_planes(512))),
+    ("os_filter", "fftlab_os_filter",
+     lambda: _kernels("os_filter_vmem").os_filter(*_planes(2, 1000), *_planes(512), 9)),
+    ("stft_frames", "fftlab_stft_frames",
+     lambda: _kernels("stft_vmem").stft_frames(_planes(4096)[0], 1024, 256,
+                                               torch.ones(1024), 13)),
+    ("fused_stage", "fftlab_fused_stage",
+     lambda: _kernels("stage_fused")._launch(*_planes(4, 512), 4, Direction.FORWARD, True, 2)),
+    ("stage_leaf", "fftlab_stage_leaf",
+     lambda: _kernels("stage_fused").stage_leaf(*_planes(2, 512), 128)),
+    ("pack_real", "fftlab_pack_real", lambda: _kernels("rfft_vmem").pack_real(_planes(2, 64)[0])),
+    ("interleave", "fftlab_interleave",
+     lambda: _kernels("rfft_vmem").interleave(*_planes(2, 32))),
+    ("herm_unpack", "fftlab_herm_unpack",
+     lambda: _kernels("rfft_vmem").herm_unpack(*_planes(2, 32), 0.5)),
+    ("herm_repack", "fftlab_herm_repack",
+     lambda: _kernels("rfft_vmem").herm_repack(*_planes(2, 33))),
+    ("fourstep_pass1", "fftlab_fourstep_pass1",
+     lambda: fourstep_vmem.fourstep_pass1(*_planes(2, 1 << 15), -1)),
+    ("fourstep_pass1", "fftlab_fourstep_pass1_no_twiddle",
+     lambda: fourstep_vmem._filter_launches(*_planes(2, 1 << 15), *_planes(1 << 15))),
+    ("fourstep_pass1_packed", "fftlab_fourstep_pass1_packed",
+     lambda: fourstep_vmem.fourstep_pass1_packed(_planes(2, 1 << 16)[0])),
+    ("fourstep_pass2", "fftlab_fourstep_pass2",
+     lambda: fourstep_vmem.fourstep_pass2(*_planes(2, 1 << 15), 1, 0.5)),
+    ("fourstep_pass2_interleaved", "fftlab_fourstep_pass2_interleaved",
+     lambda: fourstep_vmem.fourstep_pass2_interleaved(*_planes(2, 1 << 15), 1, 0.5)),
+    ("fourstep_pass2_unpack", "fftlab_fourstep_pass2_unpack",
+     lambda: fourstep_vmem.fourstep_pass2_unpack(*_planes(2, 1 << 15), 0.5)),
+    ("fourstep_pass2_sandwich", "fftlab_fourstep_pass2_sandwich",
+     lambda: fourstep_vmem.fourstep_pass2_sandwich(*_planes(2, 1 << 15), *_planes(1 << 15))),
+    ("threestep_pass_a", "fftlab_fourstep_pass1",
+     lambda: _kernels("threestep_vmem").threestep_pass_a(*_planes(1, 1 << 21))),
+    ("threestep_pass_b", "fftlab_fourstep_pass1_swap",
+     lambda: _kernels("threestep_vmem").threestep_pass_b(*_planes(1, 1 << 21))),
+    ("threestep_pass_c", "fftlab_fourstep_pass2",
+     lambda: _kernels("threestep_vmem").threestep_pass_c(*_planes(1, 1 << 21), 1, 0.5)),
+]
+WRAPPER_MODULES = ("fft_vmem", "os_filter_vmem", "stft_vmem", "stage_fused", "rfft_vmem",
+                   "fourstep_vmem", "threestep_vmem")
+
+
+@pytest.mark.parametrize("key,entry,call", WRAPPERS, ids=[w[1][len("fftlab_"):] + "-" + w[0]
+                                                          for w in WRAPPERS])
+def test_every_wrapper_launches_through_the_one_path(key, entry, call, monkeypatch):
+    """Each launch site on CPU tensors, with the CUDA check, the device
+    guard and the stream patched and the library checking its arguments
+    against SIGNATURES as ctypes does: its last launch calls its own C
+    entry with the stream last, counts one under its LAUNCHES key, and
+    records its span with the four PHASES back to back."""
+    _fake_launch(monkeypatch)
+    lib = _CheckedLib()
+    monkeypatch.setattr(_build, "load_library", lambda: lib)
+    for name in WRAPPER_MODULES:
+        mod = _kernels(name)
+        monkeypatch.setattr(mod, "check_cuda", lambda *tensors, name: None, raising=False)
+        monkeypatch.setattr(mod, "on_cpu", lambda x, name: False, raising=False)
+    counts = _kernels(next(m for m in WRAPPER_MODULES if key in _kernels(m).LAUNCHES)).LAUNCHES
+    before = counts[key]
+    with trace.recording():
+        call()
+    assert lib.calls[-1][0] == entry and lib.calls[-1][1][-1] == STREAM
+    spans = trace.spans()
+    roots = [i for i, s in enumerate(spans) if s[3] < 0]
+    assert len(roots) == len(lib.calls) and spans[roots[-1]][0] == key
+    assert counts[key] - before == sum(spans[i][0] == key for i in roots)
+    last = spans[roots[-1]:]
+    assert [s[0] for s in last] == [key, *trace.PHASES]
+    assert last[1][1] == last[0][1] and last[-1][2] == last[0][2]
+    assert all(a[2] == b[1] for a, b in zip(last[1:], last[2:]))
