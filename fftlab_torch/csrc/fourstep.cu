@@ -96,26 +96,35 @@
 //   the R rows as pass 2 does and runs the forward length-L2 FFT with its
 //   spectrum left in the exchange planes (sandwich.cuh
 //   `forward_in_place`); then each thread unpacks kP/2 pairs from its own
-//   planes (unpack_pair, hermitian.cuh; a warp on 32 consecutive k2 of one
-//   row) with w = W_n^k = W_n^{k1} * W_{2*L2}^{k2} (one value a row times
-//   a table of L2, float64-built and rounded to float32).
+//   planes (unpack_pair, hermitian.cuh), in groups of 4 consecutive k2 of
+//   one row (a warp on 128 consecutive k2), with w = W_n^k = W_n^{k1} *
+//   W_{2*L2}^{k2} (one value a row times a table of L2, float64-built and
+//   rounded to float32).
 //   A block alone owns runs of R/2 consecutive k1 of each k2: stored
 //   straight, its bins took 0.38 ms at 16 x 2^20 (R = 8) on an H100, where
 //   the same kernel storing 32 consecutive floats a warp took 0.11. So the
 //   blocks of 32 consecutive low rows (C = 64/R blocks, R = 8 or 16) make a
-//   thread block cluster. Each block writes its outputs, 128 contiguous
-//   bytes a warp, into the shared memory of the block that stores their k2
-//   (distributed shared memory): the X[k] at once, into a staging area past
-//   that block's planes, and the X[m-k], after a cluster barrier (every
-//   block's planes read), in the place of its planes. No block writes into
-//   a peer before every block of the cluster has started: each arrives on
-//   the cluster barrier at its entry and waits on it after its row FFTs,
-//   which hide the wait. After a second barrier each block stores the
-//   bins of its L2/C elements k2, a warp 32 consecutive k1 of one k2
-//   (descending for m - k). The Nyquist bin X[m]
-//   goes out at once from the thread of k = 0. At 16 x 2^20 on an H100 the
-//   DSMEM writes cost about 0.03 ms of the kernel's 0.17, the barriers and
-//   staging about as much, the stores 0.05 (PERF.md §6).
+//   thread block cluster. Each block sends its outputs into the shared
+//   memory of the block that stores their k2 (distributed shared memory)
+//   with 16-byte asynchronous stores (st.async), 4 consecutive k2 of a
+//   plane each (the mirrors of a group are 4 consecutive k2 too, stored
+//   reversed): the X[k] at once, into a staging area past that block's
+//   planes, and the X[m-k], after a cluster barrier split around the
+//   block's last read of its planes (every block's planes read), in the
+//   place of its planes. The stores into each staging area complete on a
+//   transaction barrier (mbarrier) of the receiving block, armed at entry
+//   for the bytes of every bin of that area, so a block waits for its own
+//   bins and for no peer, and stores its low bins while the cluster still
+//   reads its planes. No block writes into a peer before every block of
+//   the cluster has started: each arrives on the cluster barrier at its
+//   entry, after arming its transaction barriers, and waits on it after
+//   its row FFTs, which hide the wait. Each block stores the bins of its
+//   L2/C elements k2, a thread reading 4 consecutive k2 of one row v, a
+//   warp storing 32 consecutive k1 of one k2 (descending for m - k). The
+//   Nyquist bin X[m] goes out at once from the thread of k = 0. At 16 x
+//   2^20 on an H100 (R = 8) the kernel takes 0.160 ms: the exchange 0.018
+//   over a copy with none (DSMEM traffic 0.001, the cluster barrier
+//   0.002), the stores 0.038, which overlap no loads (PERF.md §6).
 //
 // The three-pass FFT, n = F1*F2*F3 (threestep_vmem._split_three), replaces
 // fftlab/kernels/threestep_vmem.py `_fft_huge_impl` (pallas_call at :204,
@@ -188,6 +197,7 @@
 // blocked intermediate layout) is later work.
 
 #include <climits>
+#include <cstdint>
 
 #include <cooperative_groups.h>
 
@@ -196,24 +206,75 @@
 
 using namespace fftlab;
 
-// The thread block cluster of pass 2's unpack mode: a barrier of all its
-// threads, whose shared-memory writes before it every thread of the
-// cluster sees after it; the same barrier split in two, an arrival and
-// the wait for every thread's arrival, with work between; and a pointer
-// into the shared memory of block `rank` of the cluster
-// (cooperative_groups, sm_90). A block may touch a peer's shared memory
-// only once every block of the cluster has started, which a barrier
-// passed by all of them shows.
-__device__ __forceinline__ void cluster_sync() { cooperative_groups::this_cluster().sync(); }
-
+// The thread block cluster of pass 2's unpack mode (sm_90): a barrier of
+// all its threads split in two, an arrival (release: this thread's
+// shared-memory accesses before it) and the wait for every thread's
+// arrival (acquire: every arrived thread's accesses come before what
+// follows), with work between (cooperative_groups). A block may touch a
+// peer's shared memory only once every block of the cluster has started,
+// which a barrier passed by all of them shows.
 __device__ __forceinline__ void cluster_arrive() {
   cooperative_groups::this_cluster().barrier_arrive();
 }
 
 __device__ __forceinline__ void cluster_wait() { cooperative_groups::this_cluster().barrier_wait(); }
 
-__device__ __forceinline__ float* cluster_peer(float* p, int rank) {
-  return cooperative_groups::this_cluster().map_shared_rank(p, rank);
+// The shared::cluster address of p's place in block `rank` of the cluster.
+__device__ __forceinline__ unsigned cluster_addr(const void* p, int rank) {
+  unsigned a;
+  asm("mapa.shared::cluster.u32 %0, %1, %2;"
+      : "=r"(a)
+      : "r"(static_cast<unsigned>(__cvta_generic_to_shared(p))), "r"(rank));
+  return a;
+}
+
+// An asynchronous store of 16 bytes (4 floats, `at` 16-byte aligned) or 4
+// into the shared memory of a block of the cluster (st.async), whose bytes
+// complete on the transaction barrier at `bar` in the same block
+// (cluster_addr both). The sender waits for nothing.
+__device__ __forceinline__ void store_async(unsigned at, float4 v, unsigned bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, [%5];"
+      ::"r"(at), "r"(__float_as_uint(v.x)), "r"(__float_as_uint(v.y)), "r"(__float_as_uint(v.z)),
+      "r"(__float_as_uint(v.w)), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void store_async(unsigned at, float v, unsigned bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];"
+               ::"r"(at), "r"(__float_as_uint(v)), "r"(bar)
+               : "memory");
+}
+
+// A transaction barrier (an mbarrier in this block's shared memory), set
+// up by one thread before the cluster's entry barrier, which makes it
+// visible to the peers: one arrival, made at once with the bytes that the
+// cluster's st.async will bring, so its phase 0 ends when the last byte has
+// landed.
+__device__ __forceinline__ void arm_barrier(unsigned long long* bar, int bytes) {
+  const unsigned b = static_cast<unsigned>(__cvta_generic_to_shared(bar));
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(b) : "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(b), "r"(bytes)
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// Waits until phase 0 of a transaction barrier of this block has ended:
+// every byte it was armed for has landed, and is visible to this thread.
+__device__ __forceinline__ void wait_barrier(unsigned long long* bar) {
+  const unsigned b = static_cast<unsigned>(__cvta_generic_to_shared(bar));
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], 0;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}"
+        : "=r"(done)
+        : "r"(b)
+        : "memory");
+  } while (!done);
 }
 
 // Pass 2's unpack mode: a cluster holds 2^kLogUnpackRun consecutive rows
@@ -221,15 +282,24 @@ __device__ __forceinline__ float* cluster_peer(float* p, int rank) {
 // (kernels/fourstep_vmem.py UNPACK_RUN). At R = 2^log_r rows a block, a
 // cluster is 2^unpack_log_cluster(log_r) blocks, and each of them stores
 // L2/C elements k2 from staging areas of rows of unpack_pitch floats (S =
-// L2/C + 1, odd; fourstep_vmem.unpack_pitch).
+// L2/C + 4: every row starts on 16 bytes, and 8 rows of one k2 lie in 8
+// distinct groups of 4 banks; fourstep_vmem.unpack_pitch). Each block
+// has a transaction barrier for each staging area, and arms it for
+// unpack_tx_bytes: kUnpackBinBytes, a re and an im float, for each bin (v,
+// k2) of the area (fourstep_vmem.UNPACK_BIN_BYTES, unpack_tx_bytes).
 constexpr int kLogUnpackRun = 5;
+constexpr int kUnpackBinBytes = 8;
 
 __host__ __device__ constexpr int unpack_log_cluster(int log_r) {
   return kLogUnpackRun - (log_r - 1);
 }
 
 __host__ __device__ constexpr int unpack_pitch(int log_l2, int log_r) {
-  return (1 << (log_l2 - unpack_log_cluster(log_r))) + 1;
+  return (1 << (log_l2 - unpack_log_cluster(log_r))) + 4;
+}
+
+__host__ __device__ constexpr int unpack_tx_bytes(int log_l2, int log_r) {
+  return kUnpackBinBytes << (kLogUnpackRun + log_l2 - unpack_log_cluster(log_r));
 }
 
 // One pad float every 16, and a row stride of L + L/16 + 4: the tiles'
@@ -595,9 +665,11 @@ fourstep_pass2_sandwich_kernel(float* mr, float* mi, const float2* __restrict__ 
 // b*(L1/R) + c of the (batch, L1, L2) intermediate m, rows c*R/2 + u and
 // their mirrors, into bins 0..M of the one-sided planes x ([batch, M + 1],
 // M = L1*L2), in clusters of 2^kLogUnpackRun/(R/2) blocks; shared memory:
-// the exchange planes, then the low staging area (`fftlab_fourstep_pass2_unpack`).
-// tw2: the engine's forward twiddle table of L2; utw: W_{2*L2}^{k2} for
-// k2 < L2, then W_{2M}^{k1} for k1 <= L1/2; h: half the output scale.
+// the exchange planes, the low staging area, then the transaction barriers
+// of the low and of the high area (`fftlab_fourstep_pass2_unpack`). tw2:
+// the engine's forward twiddle table of L2; utw: W_{2*L2}^{k2} for k2 < L2,
+// then W_{2M}^{k1} for k1 <= L1/2 (16-byte aligned); h: half the output
+// scale.
 template <int kLogL2>
 __global__ void __launch_bounds__(tile_threads<kLogL2>(), blocks_per_sm<tile_threads<kLogL2>()>())
 fourstep_pass2_unpack_kernel(const float* __restrict__ mr, const float* __restrict__ mi,
@@ -619,8 +691,34 @@ fourstep_pass2_unpack_kernel(const float* __restrict__ mr, const float* __restri
   float* __restrict__ yr = xr + b * (m + 1);
   float* __restrict__ yi = xi + b * (m + 1);
   const Tile x = make_tile(log_r, geo);
+  // The cluster's 2^kLogUnpackRun low rows k1 = k1_c + v (block v / (R/2)
+  // of the cluster holds row v as transform v mod R/2) and their mirrors;
+  // block `rank` of the cluster stores the bins of elements k2_r .. k2_r +
+  // L2/C - 1 of them from two staging areas, each a re and an im plane of
+  // 32 rows v of S floats (bin (v, k2) at v*S + k2 - k2_r): the low bins
+  // X[k2*L1 + k1_c + v] past the exchange planes, sent as soon as they are
+  // computed, and the high bins X[k2*L1 + L1 - k1_c - v] (of row L1/2 for
+  // v = 0 in the first cluster) in the place of the planes, once every
+  // block of the cluster has read its own. Every bin of both areas comes
+  // once, by st.async, and a transaction barrier of the block past the low
+  // area counts the bytes of each area: the block stores its low bins
+  // while the cluster still reads its planes, then its high bins.
+  const int log_c = unpack_log_cluster(log_r);  // blocks a cluster
+  const int log_kr = log_l2 - log_c;            // elements k2 a block stores
+  const int stage = unpack_pitch(log_l2, log_r);  // S
+  const int plane = stage << kLogUnpackRun;       // a staging area's re plane to its im
+  const int rank = c & ((1 << log_c) - 1);
+  const int k1_c = (c >> log_c) << kLogUnpackRun;
+  float* const high = x.re;
+  float* const low = x.re + ((2 * geo.stride) << log_r);
+  unsigned long long* const bar = reinterpret_cast<unsigned long long*>(low + 2 * plane);
   // The epilogue writes into the peers' staging areas; the row FFTs hide
-  // the wait for every block of the cluster to have started.
+  // the wait for every block of the cluster to have started, and the
+  // entry barrier makes this block's transaction barriers visible to them.
+  if (threadIdx.x == 0) {
+    arm_barrier(bar, unpack_tx_bytes(log_l2, log_r));      // the low area's
+    arm_barrier(bar + 1, unpack_tx_bytes(log_l2, log_r));  // the high area's
+  }
   cluster_arrive();
   // R whole rows: a warp reads 32 consecutive floats of one row
   const int z = forward_in_place<kLogL2, kLogPadTiles>(x, tw2, run_bits(log_r), [&](int t, int e) {
@@ -629,101 +727,135 @@ fourstep_pass2_unpack_kernel(const float* __restrict__ mr, const float* __restri
     const int at = (k1 << log_l2) + e;
     return make_float2(__ldg(mr + in0 + at), __ldg(mi + in0 + at));
   });
-  // The cluster's 2^kLogUnpackRun low rows k1 = k1_c + v (block v / (R/2)
-  // of the cluster holds row v as transform v mod R/2) and their mirrors;
-  // block `rank` of the cluster stores the bins of elements k2_r .. k2_r +
-  // L2/C - 1 of them from two staging areas, each a re and an im plane of
-  // 32 rows v of S = L2/C + 1 floats (bin (v, k2) at v*S + k2 - k2_r; S
-  // odd: the store's reads of 32 rows v of one k2 take one wavefront):
-  // the low bins X[k2*L1 + k1_c + v] past the exchange planes, written as
-  // soon as they are computed, and the high bins X[k2*L1 + L1 - k1_c - v]
-  // (of row L1/2 for v = 0 in the first cluster) in the place of the
-  // planes, once every block of the cluster has read its own.
-  const int log_c = unpack_log_cluster(log_r);  // blocks a cluster
-  const int log_kr = log_l2 - log_c;            // elements k2 a block stores
-  const int stage = unpack_pitch(log_l2, log_r);  // S
-  const int rank = c & ((1 << log_c) - 1);
-  const int k1_c = (c >> log_c) << kLogUnpackRun;
-  float* const high = x.re;
-  float* const low = x.re + ((2 * geo.stride) << log_r);
-  // X[k] and X[m-k] from Z[k] (element k2 of transform t_lo, row k1) and
-  // Z[m-k] (element e_hi of transform t_hi)
-  const auto pair = [&](int t_lo, int k2, int k1, int t_hi, int e_hi) {
-    const int a = padded<kLogPadTiles>(x, t_lo, k2);
-    const int d = padded<kLogPadTiles>(x, t_hi, e_hi);
-    return unpack_pair(make_float2(x.re[a], x.im[a]), make_float2(x.re[d], x.im[d]),
-                       cmul(__ldg(utw + L2 + k1), __ldg(utw + k2)), h);
+  // The 4 pairs of a group: X[k] and X[m-k] from Z[k] (elements k2 + r of
+  // transform t_lo, row k1; k2 a multiple of 4) and Z[m-k] (elements
+  // (e_hi - r) mod L2 of transform t_hi), r < 4
+  const auto group = [&](UnpackPair (&o)[4], int t_lo, int k2, int k1, int t_hi, int e_hi) {
+    const float2 w1 = __ldg(utw + L2 + k1);
+    const float4 wa = __ldg(reinterpret_cast<const float4*>(utw + k2));
+    const float4 wb = __ldg(reinterpret_cast<const float4*>(utw + k2) + 1);
+    const float2 w2[4] = {make_float2(wa.x, wa.y), make_float2(wa.z, wa.w),
+                          make_float2(wb.x, wb.y), make_float2(wb.z, wb.w)};
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int a = padded<kLogPadTiles>(x, t_lo, k2 + r);
+      const int d = padded<kLogPadTiles>(x, t_hi, (e_hi - r) & (L2 - 1));
+      o[r] = unpack_pair(make_float2(x.re[a], x.im[a]), make_float2(x.re[d], x.im[d]),
+                         cmul(w1, w2[r]), h);
+    }
   };
-  // bin (v, k2) of the staging area `area` (low or high) of the block
-  // that stores k2
-  const auto put = [&](float* area, int v, int k2, float2 val) {
-    float* dst = cluster_peer(area, k2 >> log_kr) + v * stage + (k2 & ((1 << log_kr) - 1));
-    dst[0] = val.x;
-    dst[stage << kLogUnpackRun] = val.y;
+  // bin (v, k2) of the staging area `area` (low or high) of the block that
+  // stores k2, and that block's transaction barrier of the area (x, y)
+  const auto target = [&](float* area, int v, int k2) {
+    const int to = k2 >> log_kr;
+    return make_uint2(cluster_addr(area + v * stage + (k2 & ((1 << log_kr) - 1)), to),
+                      cluster_addr(area == low ? bar : bar + 1, to));
   };
-  // Pair p = s + i*threads of this block: row u = p / L2 (transform u,
-  // k1 = k1_0 + u, cluster row v = rank*R/2 + u), element k2 = p mod L2,
-  // so a warp holds 32 consecutive k2 of one row (kP/2 pairs a thread):
-  // X[k] is low bin (v, k2), X[m-k] high bin (v, L2-1-k2). In block 0 row
-  // 0 pairs k2 with L2 - k2 (low bins (0, k2) and (0, L2 - k2); X[0]
-  // with the Nyquist bin, which goes out at once) and row L1/2
-  // (transform R/2) k2' = k2 - L2/2 with L2-1-k2' (high bins of v = 0).
+  // bins (v, k2 .. k2 + 3) (k2 a multiple of 4), a float4 of re and of im;
+  // `rev`: val[3 - r] at k2 + r
+  const auto put4 = [&](float* area, int v, int k2, const float2* val, bool rev) {
+    const uint2 at = target(area, v, k2);
+    const int i = rev ? 3 : 0, d = rev ? -1 : 1;
+    store_async(at.x, make_float4(val[i].x, val[i + d].x, val[i + 2 * d].x, val[i + 3 * d].x),
+                at.y);
+    store_async(at.x + 4 * plane,
+                make_float4(val[i].y, val[i + d].y, val[i + 2 * d].y, val[i + 3 * d].y), at.y);
+  };
+  // bin (v, k2) alone
+  const auto put1 = [&](float* area, int v, int k2, float2 val) {
+    const uint2 at = target(area, v, k2);
+    store_async(at.x, val.x, at.y);
+    store_async(at.x + 4 * plane, val.y, at.y);
+  };
+  // Group j of this thread: pairs p = 4*(s + j*threads) + r, row u = p / L2
+  // (transform u, k1 = k1_0 + u, cluster row v = rank*R/2 + u), elements
+  // k2 = p mod L2 (a multiple of 4) + r, so a warp holds 128 consecutive k2
+  // of one row: X[k] is low bin (v, k2 + r), X[m-k] high bin (v, L2-1-k2-r),
+  // and each goes as one float4 a plane, the high one reversed. In block 0
+  // row 0 pairs k2 with L2 - k2 (low bins (0, k2) and (0, L2 - k2), the
+  // latter a float at a time; X[0] with the Nyquist bin, which goes out at
+  // once) and row L1/2 (transform R/2) k2' = k2 - L2/2 with L2-1-k2' (high
+  // bins of v = 0).
   const int s = threadIdx.x + z;
-  const auto row_of = [&](int i) { return (s + i * blockDim.x) >> log_l2; };
-  const auto k2_of = [&](int i) { return (s + i * blockDim.x) & (L2 - 1); };
-  float2 hi_val[kP / 2];  // the outputs bound for the high staging areas
-  UnpackPair row_half;    // block 0: a pair of row L1/2 (at most one a thread)
+  const auto p_of = [&](int j) { return (s + j * blockDim.x) << 2; };
+  float2 hi_val[kP / 2];  // group j's X[m-k] at 4j + r
+  float2 row_half[4];     // block 0: row L1/2's X[k] (at most one group a thread)
   cluster_wait();         // every block of the cluster has started
-  for (int i = 0; i < kP / 2; ++i) {
-    const int u = row_of(i), k2 = k2_of(i);
+#pragma unroll
+  for (int j = 0; j < kP / 8; ++j) {
+    const int u = p_of(j) >> log_l2, k2 = p_of(j) & (L2 - 1);
+    UnpackPair o[4];
+    float2 lo[4];
     if (k1_0 + u != 0) {
-      const UnpackPair o = pair(u, k2, k1_0 + u, half + u, L2 - 1 - k2);
-      put(low, (rank << log_u) + u, k2, o.low);
-      hi_val[i] = o.high;
+      group(o, u, k2, k1_0 + u, half + u, L2 - 1 - k2);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        lo[r] = o[r].low;
+        hi_val[4 * j + r] = o[r].high;
+      }
+      put4(low, (rank << log_u) + u, k2, lo, false);
     } else if (k2 < L2 / 2) {
-      const UnpackPair o = pair(0, k2, 0, 0, (L2 - k2) & (L2 - 1));
-      put(low, 0, k2, o.low);
-      if (k2 == 0) {
-        yr[m] = o.high.x;
-        yi[m] = o.high.y;
-      } else {
-        put(low, 0, L2 - k2, o.high);
+      group(o, 0, k2, 0, 0, L2 - k2);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) lo[r] = o[r].low;
+      put4(low, 0, k2, lo, false);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        if (k2 + r == 0) {
+          yr[m] = o[r].high.x;
+          yi[m] = o[r].high.y;
+        } else {
+          put1(low, 0, L2 - k2 - r, o[r].high);
+        }
       }
     } else {
-      row_half = pair(half, k2 - L2 / 2, l1 >> 1, half, L2 - 1 - (k2 - L2 / 2));
+      group(o, half, k2 - L2 / 2, l1 >> 1, half, L2 - 1 - (k2 - L2 / 2));
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        row_half[r] = o[r].low;
+        hi_val[4 * j + r] = o[r].high;
+      }
     }
   }
   if (k1_0 == 0 && s == 0) {  // bin m/2: row 0's element L2/2, its own mirror
     const int a = padded<kLogPadTiles>(x, 0, L2 / 2);
     const float2 zm = make_float2(x.re[a], x.im[a]);
-    put(low, 0, L2 / 2, unpack_pair(zm, zm, cmul(__ldg(utw + L2), __ldg(utw + L2 / 2)), h).low);
+    put1(low, 0, L2 / 2, unpack_pair(zm, zm, cmul(__ldg(utw + L2), __ldg(utw + L2 / 2)), h).low);
   }
-  cluster_sync();  // every block's planes read: the high staging areas are free
+  // bins (v, k2 .. k2 + 3) of a staging area: thread s takes v = s mod 32
+  // and reads 16 bytes of a plane, so a warp stores 32 consecutive k1 of one
+  // k2 at a time, row k1 for bin v
+  const int v = s & ((1 << kLogUnpackRun) - 1);
+  const auto out4 = [&](float* y, int at, float4 val) {
+    y[at] = val.x;
+    y[at + l1] = val.y;
+    y[at + 2 * l1] = val.z;
+    y[at + 3 * l1] = val.w;
+  };
+  const auto store = [&](const float* area, int k1) {
+    for (int i = (s >> kLogUnpackRun) << 2; i < 1 << log_kr;
+         i += (blockDim.x >> kLogUnpackRun) << 2) {
+      const int at = ((rank << log_kr) + i) * l1 + k1;
+      out4(yr, at, *reinterpret_cast<const float4*>(area + v * stage + i));
+      out4(yi, at, *reinterpret_cast<const float4*>(area + v * stage + i + plane));
+    }
+  };
+  cluster_arrive();   // this block's planes read
+  wait_barrier(bar);  // every low bin of this block's elements staged
+  store(low, k1_c + v);
+  cluster_wait();  // every block's planes read: the high staging areas are free
 #pragma unroll
-  for (int i = 0; i < kP / 2; ++i) {
-    const int u = row_of(i), k2 = k2_of(i);
+  for (int j = 0; j < kP / 8; ++j) {
+    const int u = p_of(j) >> log_l2, k2 = p_of(j) & (L2 - 1);
     if (k1_0 + u != 0) {
-      put(high, (rank << log_u) + u, L2 - 1 - k2, hi_val[i]);
+      put4(high, (rank << log_u) + u, L2 - 4 - k2, hi_val + 4 * j, true);
     } else if (k2 >= L2 / 2) {
-      put(high, 0, k2 - L2 / 2, row_half.low);
-      put(high, 0, L2 - 1 - (k2 - L2 / 2), row_half.high);
+      put4(high, 0, k2 - L2 / 2, row_half, false);
+      put4(high, 0, L2 - 4 - (k2 - L2 / 2), hi_val + 4 * j, true);
     }
   }
-  cluster_sync();  // every bin of this block's elements staged
-  // bin (v, k2): thread s takes v = s mod 32, so a warp stores 32
-  // consecutive k1 of one k2 (descending for the high bins)
-  const int v = s & ((1 << kLogUnpackRun) - 1);
-  const int hi_k1 = (k1_c == 0 && v == 0) ? l1 >> 1 : l1 - k1_c - v;
-  for (int i = s >> kLogUnpackRun; i < 1 << log_kr; i += blockDim.x >> kLogUnpackRun) {
-    const int k2 = (rank << log_kr) + i;
-    const int at = v * stage + i;
-    const int lo = (k2 << log_l1) + k1_c + v;
-    const int hi = (k2 << log_l1) + hi_k1;
-    yr[lo] = low[at];
-    yi[lo] = low[at + (stage << kLogUnpackRun)];
-    yr[hi] = high[at];
-    yi[hi] = high[at + (stage << kLogUnpackRun)];
-  }
+  wait_barrier(bar + 1);  // every high bin staged
+  store(high, (k1_c == 0 && v == 0) ? l1 >> 1 : l1 - k1_c - v);  // descending k1
 }
 
 namespace {
@@ -923,23 +1055,25 @@ extern "C" int fftlab_fourstep_pass2_interleaved(const float* mr, const float* m
 // (batch, L1, L2) intermediate planes of the packed pass 1; x: [batch,
 // L1*L2 + 1] one-sided output planes, bins 0..L1*L2, times `scale`; tw2:
 // the engine's forward twiddle table for L2; utw: L2 + L1/2 + 1 float2,
-// W_{2*L2}^{k2} (k2 < L2), then W_n^{k1} (k1 <= L1/2, n = 2*L1*L2); R =
-// 2^log_r rows per block, 8 or 16, in clusters of 64/R blocks (L1 >= 64);
-// geo: the launch geometry of kernels/fourstep_vmem.py
-// `pass2_unpack_geometry`, its shared memory the planes and the low
-// staging area. Returns a cudaError_t.
+// W_{2*L2}^{k2} (k2 < L2), then W_n^{k1} (k1 <= L1/2, n = 2*L1*L2), 16-byte
+// aligned; R = 2^log_r rows per block, 8 or 16, in clusters of 64/R
+// blocks (L1 >= 64); geo: the launch geometry of kernels/fourstep_vmem.py
+// `pass2_unpack_geometry`, its shared memory the planes, the low staging
+// area and the two transaction barriers. Returns a cudaError_t.
 extern "C" int fftlab_fourstep_pass2_unpack(const float* mr, const float* mi, float* xr,
                                             float* xi, const void* tw2, const void* utw,
                                             long long batch, int log_l1, int log_l2, int log_r,
                                             Geometry geo, float scale, void* stream) {
   const long long blocks = batch << (log_l1 - log_r);
-  if (utw == nullptr || !valid_geometry(geo, log_l2, log_r, kLogPadTiles) || log_r < 3 ||
+  if (utw == nullptr || reinterpret_cast<uintptr_t>(utw) % 16 != 0 ||
+      !valid_geometry(geo, log_l2, log_r, kLogPadTiles) || geo.stride % 4 != 0 || log_r < 3 ||
       log_l1 < kLogUnpackRun + 1 || log_l1 + log_l2 > 26 || batch < 1 || blocks > INT_MAX) {
     return cudaErrorInvalidValue;
   }
-  // the low staging area past the planes: 2 planes of 2^kLogUnpackRun rows
+  // the low staging area past the planes (2 planes of 2^kLogUnpackRun
+  // rows), then the two 8-byte transaction barriers
   const long long low_area = (8LL * unpack_pitch(log_l2, log_r)) << kLogUnpackRun;
-  if (geo.smem < ((8LL * geo.stride) << log_r) + low_area) return cudaErrorInvalidValue;
+  if (geo.smem < ((8LL * geo.stride) << log_r) + low_area + 16) return cudaErrorInvalidValue;
   return dispatch<8, 10>(log_l2, [&](auto log_l2_c) {
     return launch_cluster(fourstep_pass2_unpack_kernel<decltype(log_l2_c)::value>, blocks,
                           1 << unpack_log_cluster(log_r), geo, stream, mr, mi, xr, xi,

@@ -124,6 +124,11 @@ SANDWICH_ROWS = {256: 16, 512: 8, 1024: 4, 2048: 8}
 # Consecutive rows k1 below L1/2 that a cluster of the unpack mode holds
 # (csrc/fourstep.cu kLogUnpackRun): a warp stores 32 consecutive bins.
 UNPACK_RUN = 32
+# Bytes that a block of the unpack mode receives a bin (v, k2) of a staging
+# area, a re and an im float (csrc/fourstep.cu kUnpackBinBytes), and the
+# bytes of its two transaction barriers, one an area, past the low area.
+UNPACK_BIN_BYTES = 8
+UNPACK_BARRIER_BYTES = 16
 # Rows R of a block of the unpack mode at each L2 of the fused r2c's window
 # (kernels/rfft_resident.py; csrc/fourstep.cu's dispatch), the faster of 8
 # and 16 on an H100 at 2^24 points (scripts/torch_r2c_pass2_sweep.py;
@@ -210,7 +215,8 @@ def pass2_unpack_geometry(L1: int, L2: int, rows: int | None = None) -> TileGeom
     clusters of UNPACK_RUN/(R/2) blocks (csrc/fourstep.cu
     `fourstep_pass2_unpack_kernel`), in pass 2's padded tile, R =
     UNPACK_ROWS[L2]; past the planes, the staging area of the low bins (a
-    re and an im plane of UNPACK_RUN rows of `unpack_pitch` floats). `rows`
+    re and an im plane of UNPACK_RUN rows of `unpack_pitch` floats), then
+    the block's transaction barriers of the low and the high area. `rows`
     overrides R, in {8, 16} (at R = 4 a cluster would pass the 8 blocks an
     H100 takes without asking), for the sweep."""
     if L2 not in UNPACK_ROWS or L1 < 2 * UNPACK_RUN:
@@ -220,13 +226,25 @@ def pass2_unpack_geometry(L1: int, L2: int, rows: int | None = None) -> TileGeom
     if R not in (8, 16):
         raise ValueError(f"the unpack mode takes R in (8, 16); got {R}")
     geo = tile_geometry(L2, R)
-    return dataclasses.replace(geo, smem=geo.smem + 8 * UNPACK_RUN * unpack_pitch(L2, R))
+    return dataclasses.replace(
+        geo, smem=geo.smem + 8 * UNPACK_RUN * unpack_pitch(L2, R) + UNPACK_BARRIER_BYTES)
 
 
 def unpack_pitch(L2: int, R: int) -> int:
-    """S, the row pitch of the unpack mode's staging areas: L2/C + 1 floats
-    (C = 2*UNPACK_RUN/R blocks a cluster), odd."""
-    return L2 * R // (2 * UNPACK_RUN) + 1
+    """S, the row pitch of the unpack mode's staging areas: L2/C + 4 floats
+    (C = 2*UNPACK_RUN/R blocks a cluster). A multiple of 4, so every row
+    starts on 16 bytes, and 4 more than a multiple of 32, so a quarter
+    warp's 16-byte reads of 8 rows of one k2 take one wavefront."""
+    return L2 * R // (2 * UNPACK_RUN) + 4
+
+
+def unpack_tx_bytes(L2: int, R: int) -> int:
+    """The bytes that the asynchronous stores of its cluster bring each
+    staging area of every block of the unpack mode, for which it arms the
+    area's transaction barrier: UNPACK_BIN_BYTES for each of the UNPACK_RUN
+    rows v and L2/C elements k2 it stores (csrc/fourstep.cu
+    `unpack_tx_bytes`)."""
+    return UNPACK_BIN_BYTES * UNPACK_RUN * (L2 * R // (2 * UNPACK_RUN))
 
 
 def stage_geometry(r: int) -> TileGeometry:

@@ -509,6 +509,25 @@ def test_pass2_unpack_at_each_rows_per_block(no_tf32, m, rows):
     assert snr_db(cplx(*got), 0.5 * np.fft.rfft(x.astype(np.float64), axis=-1)) >= 110.0
 
 
+def test_pass2_unpack_back_to_back_is_bitwise_stable(no_tf32):
+    """The unpack mode launched 64 times back to back on one stream at 16 x
+    2^20, on one input: every result bitwise equal to the first, and the
+    first against pass 2 plus `herm_unpack`. A race in the cluster's
+    exchange (a bin read before its bytes land, a high bin written over
+    planes a peer still reads) or a transaction count that never completes
+    shows in 64 launches where one can miss it."""
+    m = 1 << 20
+    _, xc = _real(m % 71, (16, 2 * m))
+    mid = fourstep_vmem.fourstep_pass1_packed(xc)
+    first = fourstep_vmem.fourstep_pass2_unpack(*mid, 0.5)
+    runs = [fourstep_vmem.fourstep_pass2_unpack(*mid, 0.5) for _ in range(63)]
+    torch.cuda.synchronize()
+    for r, got in enumerate(runs):
+        assert torch.equal(got[0], first[0]) and torch.equal(got[1], first[1]), r + 1
+    want = rfft_vmem.herm_unpack(*fourstep_vmem.fourstep_pass2(*mid), 0.5)
+    assert snr_db(cplx(*first), cplx(*want)) >= 110.0
+
+
 @pytest.mark.parametrize("n", [1 << 16, 1 << 21])
 def test_fused_real_transforms_match_plain(no_tf32, n):
     x, xc = _real(n % 89, (4, n))

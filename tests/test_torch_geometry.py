@@ -635,9 +635,84 @@ def _unpack_rows(L1, R, c):
 
 def _unpack_cluster(L2, R):
     """(C, kr, S): blocks a cluster of the unpack mode, elements k2 each
-    block stores, and the staging area's row pitch."""
+    block stores, and the staging area's row pitch (a multiple of 4: every
+    row starts on 16 bytes)."""
     C = RUN // (R // 2)
-    return C, L2 // C, L2 // C + 1
+    return C, L2 // C, L2 // C + 4
+
+
+def _unpack_sends(L1, L2, R, cl, spec=None, utw=None, h=0.5):
+    """Every asynchronous store (st.async) that the blocks of cluster cl of
+    one batch row make in the unpack mode, group by group as the kernel
+    makes them (csrc/fourstep.cu `fourstep_pass2_unpack_kernel`): thread s
+    takes pairs p = 4*(s + j*threads) + r, r < 4, of row u = p / L2 at
+    elements k2 + r, k2 = p mod L2. A list of (area, to, v, k2, values):
+    staging area 0 (low) or 1 (high) of cluster block `to`, row v, first
+    element k2 (the block's own elements from `to`*L2/C), width w = 4 (a
+    float4 of re and one of im, elements k2 .. k2 + 3) or 1 (a float of
+    each, block 0's row-0 mirrors and bin m/2), and values (n, w); n sends
+    of one shape. `values` are the unpacked bins when `spec` (the row spectra,
+    (L1, L2)) and `utw` (the float32 table as complex) are given, else
+    None. Also returns the Nyquist bin (None without `spec`)."""
+    C, kr, _ = _unpack_cluster(L2, R)
+    half, threads = R // 2, R * L2 // 16
+    s = np.arange(threads)
+    r4 = np.arange(4)
+    sends, nyquist = [], None
+
+    def unpack(tile, t_lo, k2, k1, t_hi, e_hi):
+        if spec is None:
+            return None
+        k = k2[:, None] + r4
+        zl = tile[t_lo, k] if np.ndim(t_lo) == 0 else tile[t_lo[:, None], k]
+        e = (e_hi[:, None] - r4) % L2
+        zh = tile[t_hi, e] if np.ndim(t_hi) == 0 else tile[t_hi[:, None], e]
+        w = (utw[L2 + k1][:, None] if np.ndim(k1) else utw[L2 + k1]) * utw[k]
+        ev, od = h * (zl + np.conj(zh)), -1j * h * (zl - np.conj(zh))
+        return ev + w * od, np.conj(ev - w * od)
+
+    def send(area, k2, v, vals, rev=False, width=4):
+        vals = None if vals is None else (vals[:, ::-1] if rev else vals)
+        sends.append((area, k2 // kr, v, k2, width, vals))
+
+    for rank in range(C):
+        c = cl * C + rank
+        tile = None if spec is None else spec[_unpack_rows(L1, R, c)]
+        for j in range(2):
+            p = 4 * (s + j * threads)
+            u, k2 = p // L2, p % L2
+            gen = c * half + u != 0
+            lo, hi = unpack(tile, u[gen], k2[gen], c * half + u[gen], half + u[gen],
+                            L2 - 1 - k2[gen]) or (None, None)
+            v = rank * half + u[gen]
+            send(0, k2[gen], v, lo)
+            send(1, L2 - 4 - k2[gen], v, hi, rev=True)
+            if c:
+                continue
+            r0 = ~gen & (k2 < L2 // 2)
+            if r0.any():
+                lo, hi = unpack(tile, 0, k2[r0], 0, 0, L2 - k2[r0]) or (None, None)
+                send(0, k2[r0], 0 * k2[r0], lo)
+                k = (k2[r0][:, None] + r4).ravel()
+                out = k != 0  # X[0]'s mirror is the Nyquist bin, straight out
+                send(0, (L2 - k)[out], 0 * k[out], None if hi is None else hi.ravel()[out, None],
+                     width=1)
+                if hi is not None:
+                    nyquist = hi.ravel()[~out]
+            rh = ~gen & (k2 >= L2 // 2)
+            if rh.any():
+                kh = k2[rh] - L2 // 2
+                lo, hi = unpack(tile, half, kh, L1 // 2, half, L2 - 1 - kh) or (None, None)
+                send(1, kh, 0 * kh, lo)
+                send(1, L2 - 4 - kh, 0 * kh, hi, rev=True)
+        if c == 0:  # bin m/2 by thread 0: row 0's element L2/2, its own mirror
+            mid = None
+            if spec is not None:
+                zm = tile[0, L2 // 2]
+                ev, od = h * (zm + np.conj(zm)), -1j * h * (zm - np.conj(zm))
+                mid = np.array([[ev + utw[L2] * utw[L2 // 2] * od]])
+            send(0, np.array([L2 // 2]), np.array([0]), mid, width=1)
+    return sends, nyquist
 
 
 @pytest.mark.parametrize("L1,L2,R", UNPACK_MODE,
@@ -653,22 +728,28 @@ def test_pass2_unpack_rows(L1, L2, R):
     of rows (k1, (L1 - k1) mod L1) in one block, so every pair of bins
     (k, m - k); the tile in a block's 227 KB of shared memory, two blocks
     an SM where it is at most SHARED_TILE values (with the low staging
-    area), the high staging area (2 planes of 32 rows of S = L2/C + 1
-    floats) within the tile's planes and the low one past them, from a
-    multiple of 32 floats."""
+    area and the transaction barrier: at most 113 KB at R = 8), the high
+    staging area (2 planes of 32 rows of S = L2/C + 4 floats, S a
+    multiple of 4: every row on 16 bytes) within the tile's planes and the
+    low one past them, from a multiple of 32 floats, then the two 8-byte
+    transaction barriers (one an area) on 8 bytes."""
     geo = fourstep_vmem.pass2_unpack_geometry(L1, L2, R)
     assert geo.T == (R or fourstep_vmem.UNPACK_ROWS[L2]) == (R or (16 if L2 == 256 else 8))
     R = geo.T
     C, kr, S = _unpack_cluster(L2, R)
     assert S == fourstep_vmem.unpack_pitch(L2, R)
-    assert geo == dataclasses.replace(_common.tile_geometry(L2, R),
-                                      smem=8 * R * geo.stride + 8 * RUN * S)
+    barrier_at = 8 * R * geo.stride + 8 * RUN * S  # bytes
+    assert geo == dataclasses.replace(_common.tile_geometry(L2, R), smem=barrier_at + 16)
+    assert fourstep_vmem.UNPACK_BARRIER_BYTES == 16 and barrier_at % 8 == 0
     assert geo.L == L2 and geo.threads == R * L2 // 16 <= 1024 and geo.threads % 32 == 0
     assert geo.smem <= MAX_SMEM
     if R * L2 <= fourstep_vmem.SHARED_TILE:
         assert 2 * geo.smem <= MAX_SMEM and 2 * geo.threads <= 2048
-    assert C <= 8 and (L1 // R) % C == 0 and kr >= 32 and S % 2 == 1
+    if R == 8:
+        assert geo.smem <= 113 * 1024
+    assert C <= 8 and (L1 // R) % C == 0 and kr >= 32 and S % 4 == 0 and S % 32 == 4
     assert 2 * RUN * S <= 2 * R * geo.stride and (2 * R * geo.stride) % 32 == 0
+    assert geo.stride % 4 == 0  # the low area and each of its planes on 16 bytes
     blocks = [_unpack_rows(L1, R, c) for c in range(L1 // R)]
     assert all(len(rows) == R for rows in blocks)
     assert all(np.all(rows[: R // 2] < L1 // 2) for rows in blocks)
@@ -703,10 +784,22 @@ def test_pass2_unpack_run_is_the_kernels():
     """UNPACK_RUN, from which Python sizes the unpack mode's shared memory,
     is the kernel's own run of rows a cluster (csrc/fourstep.cu
     kLogUnpackRun, from which the kernel and its launcher take the cluster
-    and the staging areas' pitch)."""
+    and the staging areas' pitch); the pitch's pad past L2/C is the
+    kernel's; and UNPACK_BIN_BYTES, from which `unpack_tx_bytes` counts the
+    bytes of a block's staging area, is the kernel's kUnpackBinBytes, from
+    which it arms the area's transaction barrier."""
     src = (Path(fourstep_vmem.__file__).parents[1] / "csrc" / "fourstep.cu").read_text()
     found = re.findall(r"constexpr int kLogUnpackRun = (\d+);", src)
     assert len(found) == 1 and 1 << int(found[0]) == RUN
+    pad = re.findall(r"return \(1 << \(log_l2 - unpack_log_cluster\(log_r\)\)\) \+ (\d+);", src)
+    assert len(pad) == 1 and int(pad[0]) == fourstep_vmem.unpack_pitch(1024, 8) - 1024 * 8 // 64
+    found = re.findall(r"constexpr int kUnpackBinBytes = (\d+);", src)
+    assert len(found) == 1 and int(found[0]) == fourstep_vmem.UNPACK_BIN_BYTES
+    assert len(re.findall(
+        r"return kUnpackBinBytes << \(kLogUnpackRun \+ log_l2 - unpack_log_cluster\(log_r\)\);",
+        src)) == 1
+    assert src.count("arm_barrier(bar, unpack_tx_bytes(log_l2, log_r));") == 1
+    assert src.count("arm_barrier(bar + 1, unpack_tx_bytes(log_l2, log_r));") == 1
 
 
 def _unpack_accesses(geo):
@@ -714,11 +807,15 @@ def _unpack_accesses(geo):
     mode: the forward's passes (csrc/sandwich.cuh `forward_in_place`: the
     first with slot mapping 0, its loads in device memory, the later ones
     and the in-place last pass with run_bits(R) = 3), the unpack's reads
-    of Z[k] (transform u, element k2) and Z[m-k] (transform R/2 + u,
-    element L2-1-k2) by pair p = s + i*threads (u = p / L2, k2 = p mod L2),
-    its writes into the staging of the block that stores k2 (v*S + k2 mod
-    L2/C), and the store's reads of the staging (v = s mod 32, element i =
-    s / 32 + j*threads/32). Addresses are (warps, 32) floats of one plane."""
+    of Z[k] (transform u, elements k2 + r) and Z[m-k] (transform R/2 + u,
+    elements L2-1-k2-r) by group p = 4*(s + j*threads) (u = p / L2, k2 = p
+    mod L2), a float each r < 4; its 16-byte asynchronous writes into the
+    staging of the block that stores k2 (v*S + k2 mod L2/C, the low bins
+    of elements k2 .. k2 + 3 and the high ones of L2-4-k2 .. L2-1-k2); and
+    the store's 16-byte reads of the staging (v = s mod 32, elements i ..
+    i + 3, i = 4*(s/32 + j*threads/32)). Addresses are (warps, 32) floats
+    of one plane, the first float of each lane's 16 bytes for the
+    accesses whose name starts with "stage"."""
     L, T, threads = geo.L, geo.T, geo.threads
     g = 3
     out = []
@@ -734,18 +831,34 @@ def _unpack_accesses(geo):
                 out.append((f"{'last' if last else p} load", _at(geo, t, load)))
             out.append((f"{'last' if last else p} store", _at(geo, t, store)))
         ns *= R
-    pair = np.arange(threads)[:, None] + np.arange(8)[None, :] * threads
-    u, k2 = pair // L, pair % L
-    out.append(("unpack Z[k]", _at(geo, u, k2)))
-    out.append(("unpack Z[m-k]", _at(geo, T // 2 + u, L - 1 - k2)))
+    group = 4 * (np.arange(threads)[:, None] + np.arange(2)[None, :] * threads)
+    u, k2 = group // L, group % L
+    for r in range(4):
+        out.append(("unpack Z[k]", _at(geo, u, k2 + r)))
+        out.append(("unpack Z[m-k]", _at(geo, T // 2 + u, L - 1 - k2 - r)))
     _, kr, S = _unpack_cluster(L, T)
     v = u  # rank 0's rows
     out.append(("stage write", v * S + k2 % kr))
-    out.append(("stage write mirror", v * S + (L - 1 - k2) % kr))
+    out.append(("stage write mirror", v * S + (L - 4 - k2) % kr))
     s = np.arange(threads)[:, None]
-    i = s // RUN + np.arange(8)[None, :] * (threads // RUN)
+    i = 4 * (s // RUN + np.arange(2)[None, :] * (threads // RUN))
+    assert np.array_equal(np.unique(i), 4 * np.arange(kr // 4))  # each group of 4 k2 once
     out.append(("stage read", (s % RUN) * S + i))
     return [(kind, a.T.reshape(-1, 32)) for kind, a in out]
+
+
+def _wavefronts16(addr):
+    """Wavefronts of each quarter warp of 16-byte accesses: addr is (warps,
+    32) floats, each lane's first of 4 (a multiple of 4). 8 lanes at a time,
+    each group of 4 banks serves one 16-byte piece a wavefront."""
+    assert np.all(addr % 4 == 0)
+    quarters = addr.reshape(-1, 8)
+    bank4 = (quarters // 4) % 8
+    worst = np.zeros(quarters.shape[0], np.int64)
+    for b in range(8):
+        hit = np.where(bank4 == b, quarters, -1)
+        worst = np.maximum(worst, [len(set(row[row >= 0])) for row in hit])
+    return worst
 
 
 @pytest.mark.parametrize("L1,L2,R", UNPACK_MODE,
@@ -753,44 +866,50 @@ def _unpack_accesses(geo):
 def test_pass2_unpack_bank_conflicts(L1, L2, R):
     """Every shared-memory access of the unpack mode takes one wavefront
     per 32 floats: the FFT's exchanges, but the forward's first store at
-    L2 = 256 (pass 2's own, two); the writes into the staging (32
-    consecutive floats) and the store's reads of the staging (32 rows v of
-    one k2, an odd pitch apart). The unpack's reads take two: a warp on 32
-    consecutive k2 of one row spans 34 floats of the padded row, and the
-    pad's wrap puts one bank twice (as `stft_frames`' unpack). The store
-    puts a warp on 32 consecutive k1 of one k2."""
+    L2 = 256 (pass 2's own, two); and one wavefront per quarter warp of its
+    16-byte accesses: the asynchronous writes into the staging (8 lanes on
+    32 consecutive floats of one row) and the store's reads of the staging
+    (8 rows v of one k2, a pitch of 4 more than a multiple of 32 apart).
+    The unpack's reads take two: a warp on 128 consecutive k2 of one row,
+    a float of each of its 4 at a time, spans 34 floats' banks of the
+    padded row twice over. The store puts a warp on 32 consecutive k1 of
+    one k2."""
     geo = fourstep_vmem.pass2_unpack_geometry(L1, L2, R)
     worst = {}
     for kind, addr in _unpack_accesses(geo):
-        worst[kind] = max(worst.get(kind, 0), int(_wavefronts(addr).max()))
+        count = _wavefronts16 if kind.startswith("stage") else _wavefronts
+        worst[kind] = max(worst.get(kind, 0), int(count(addr).max()))
     want = {**dict.fromkeys(worst, 1), "unpack Z[k]": 2, "unpack Z[m-k]": 2}
     if L2 <= 256:
         want["0 store"] = 2
     assert worst == want, worst
     s = np.arange(geo.threads)
-    i = s // RUN
-    k = (i * L1 + s % RUN).reshape(-1, 32)  # rank 0 of the first cluster
-    assert np.all(np.diff(k, axis=1) == 1)
+    i = 4 * (s // RUN)
+    for r in range(4):
+        k = ((i + r) * L1 + s % RUN).reshape(-1, 32)  # rank 0 of the first cluster
+        assert np.all(np.diff(k, axis=1) == 1)
 
 
 @pytest.mark.parametrize("m,R", [(1 << e, R) for e in range(15, 21) for R in (8, 16)],
                          ids=lambda a: f"m2^{a.bit_length() - 1}" if a > 16 else f"R{a}")
 def test_pass2_unpack_indexing(m, R):
-    """The unpack mode's epilogue in float64 numpy, cluster by cluster as
-    the kernel runs it: the length-L2 spectra of each block's rows
-    (`_unpack_rows`); pair (u, k2) of row k1 = c*R/2 + u with its mirror
-    (element L2-1-k2 of transform R/2 + u; in block 0 row 0 with its own
-    element (L2 - k2) mod L2 for k2 < L2/2 and row L1/2 with its own
-    element L2-1-k2 after), w = W_n^{k1} * W_{2*L2}^{k2} from the
-    wrapper's float32 table; its outputs written into the staging of the
+    """The unpack mode's epilogue in float64 numpy, cluster by cluster and
+    group by group as the kernel runs it: the length-L2 spectra of each
+    block's rows (`_unpack_rows`); a thread's groups of 4 pairs of one row
+    (`_unpack_sends`: row k1 = c*R/2 + u at elements k2 .. k2 + 3 with its
+    mirror at L2-1-k2 .. L2-4-k2 of transform R/2 + u; in block 0 row 0
+    with its own elements (L2 - k2) mod L2 for k2 < L2/2 and row L1/2 with
+    its own elements L2-1-k2 after), w = W_n^{k1} * W_{2*L2}^{k2} from the
+    wrapper's float32 table; its outputs sent into the staging of the
     cluster's block that stores their k2 (low bins of cluster row v, high
-    bins of its mirror, row L1/2's as the high bins of v = 0), bin m/2 by
-    the thread of k = 0 and the Nyquist bin straight out; then each block
-    stores its elements k2 for the 32 rows: every bin 0..m once, equal to
+    bins of its mirror reversed, row L1/2's as the high bins of v = 0), a
+    float4 a plane on 16 bytes within the block's elements, block 0's
+    row-0 mirrors and bin m/2 a float at a time, the Nyquist bin straight
+    out; every staged bin once; then each block's store, a thread reading
+    4 consecutive k2 of its row v: every bin 0..m once, equal to
     np.fft.rfft."""
     L1, L2 = fourstep_vmem._split_sides(m)
     C, kr, S = _unpack_cluster(L2, R)
-    half = R // 2
     rng = np.random.default_rng(m + R)
     x = rng.standard_normal(2 * m)
     zc = x[0::2] + 1j * x[1::2]
@@ -803,65 +922,70 @@ def test_pass2_unpack_indexing(m, R):
     _, utw = fourstep_vmem._unpack_tables(L1, L2, torch.device("cpu"))
     utw = utw.numpy().astype(np.float64) @ np.array([1, 1j])
     assert utw.shape == (L2 + L1 // 2 + 1,)
-    h = 0.5
     out = np.full(m + 1, np.nan, complex)
     hits = np.zeros(m + 1, int)
-
-    def unpack(zl, zh, w):
-        e, o = h * (zl + np.conj(zh)), -1j * h * (zl - np.conj(zh))
-        return e + w * o, np.conj(e - w * o)
-
     threads = R * L2 // 16
-    pair = (np.arange(threads)[:, None] + np.arange(8)[None, :] * threads).ravel()
-    u, k2 = pair // L2, pair % L2
+    s = np.arange(threads)
+    vv = s % RUN
     for cl in range(L1 // R // C):
-        # each block's staging: (low, high) x 32 rows v x S, re and im as one
-        # value; column kr is the pitch's pad
-        stage = np.full((C, 2, RUN, S), np.nan, complex)
-
-        def put(hi, v, k, val):
-            stage[k // kr, hi, v, k % kr] = val
-
-        for rank in range(C):
-            c = cl * C + rank
-            tile = spec[_unpack_rows(L1, R, c)]  # (R, L2)
-            lo = c * half + u
-            v = rank * half + u
-            gen = lo != 0
-            a, b = unpack(tile[u[gen], k2[gen]], tile[half + u[gen], L2 - 1 - k2[gen]],
-                          utw[L2 + lo[gen]] * utw[k2[gen]])
-            put(0, v[gen], k2[gen], a)
-            put(1, v[gen], L2 - 1 - k2[gen], b)
-            if c:
-                continue
-            r0 = ~gen & (k2 < L2 // 2)
-            a, b = unpack(tile[0, k2[r0]], tile[0, (L2 - k2[r0]) % L2], utw[L2] * utw[k2[r0]])
-            put(0, 0, k2[r0], a)
-            nz = k2[r0] != 0
-            put(0, 0, L2 - k2[r0][nz], b[nz])
-            out[m] = b[~nz][0]  # the Nyquist bin, straight out
+        # each block's staging: (low, high) x 32 rows v x its L2/C elements,
+        # re and im as one value
+        stage = np.full((C, 2, RUN, kr), np.nan, complex)
+        staged = np.zeros(stage.shape, int)
+        sends, nyquist = _unpack_sends(L1, L2, R, cl, spec, utw)
+        for area, to, v, k2, width, vals in sends:
+            e = k2 % kr
+            assert np.all(e + width <= kr)  # within the receiving block's elements
+            if width == 4:
+                assert np.all((v * S + e) % 4 == 0)  # 16 bytes on 16 bytes
+            at = (to[:, None], area, v[:, None], e[:, None] + np.arange(width))
+            np.add.at(staged, at, 1)
+            stage[at] = vals
+        assert np.all(staged == 1)  # every staged bin once
+        if cl == 0:
+            assert nyquist.shape == (1,)
+            out[m] = nyquist[0]  # the Nyquist bin, straight out
             np.add.at(hits, m, 1)
-            rh = ~gen & (k2 >= L2 // 2)
-            k2h = k2[rh] - L2 // 2
-            a, b = unpack(tile[half, k2h], tile[half, L2 - 1 - k2h],
-                          utw[L2 + L1 // 2] * utw[k2h])
-            put(1, 0, k2h, a)
-            put(1, 0, L2 - 1 - k2h, b)
-            zm = tile[0, L2 // 2]
-            put(0, 0, L2 // 2, unpack(zm, zm, utw[L2] * utw[L2 // 2])[0])
-        assert not np.isnan(stage[..., :kr]).any()  # every staged bin written
         k1_c = cl * RUN
-        vv = np.arange(RUN)
         hi_k1 = np.where((k1_c == 0) & (vv == 0), L1 // 2, L1 - k1_c - vv)
         for rank in range(C):
-            for i in range(kr):
-                kk = (rank * kr + i) * L1
-                for hi, at in ((0, kk + k1_c + vv), (1, kk + hi_k1)):
-                    np.add.at(hits, at, 1)
-                    out[at] = stage[rank, hi, vv, i]
+            for j in range(2):
+                i = 4 * (s // RUN + j * (threads // RUN))
+                for r in range(4):
+                    kk = (rank * kr + i + r) * L1
+                    for hi, at in ((0, kk + k1_c + vv), (1, kk + hi_k1)):
+                        np.add.at(hits, at, 1)
+                        out[at] = stage[rank, hi, vv, i + r]
     assert np.all(hits == 1)
     want = np.fft.rfft(x)  # h = 0.5: scale 1
     assert np.max(np.abs(out - want)) <= 1e-6 * np.max(np.abs(want))  # float32 tables
+
+
+@pytest.mark.parametrize("L1,L2,R", UNPACK_MODE,
+                         ids=[f"L{a}x{b}-R{r or 'default'}" for a, b, r in UNPACK_MODE])
+def test_pass2_unpack_transaction_bytes(L1, L2, R):
+    """Every block of the unpack mode arms the transaction barrier of each
+    of its staging areas for exactly the bytes that the asynchronous
+    stores of its cluster bring that area (`unpack_tx_bytes`, which the
+    kernel's `unpack_tx_bytes` mirrors; `test_pass2_unpack_run_is_the_kernels`):
+    a float of re and one of im for each element of each send
+    (`_unpack_sends`), in every cluster of a batch row, block 0's row-0
+    mirrors, row L1/2 and bin m/2 included. A count too high never
+    completes and hangs the kernel; one too low lets a block read an area
+    before its last bins land. The count stays within an mbarrier's
+    transaction range (2^20 - 1)."""
+    R = R or fourstep_vmem.UNPACK_ROWS[L2]
+    C, kr, _ = _unpack_cluster(L2, R)
+    want = fourstep_vmem.unpack_tx_bytes(L2, R)
+    assert want == fourstep_vmem.UNPACK_BIN_BYTES * RUN * kr < 1 << 20
+    for cl in range(L1 // R // C):
+        got = np.zeros((C, 2), int)
+        sends, nyquist = _unpack_sends(L1, L2, R, cl)
+        assert nyquist is None
+        for area, to, _, _, width, vals in sends:
+            assert vals is None and np.all((0 <= to) & (to < C))
+            np.add.at(got, (to, area), 2 * 4 * width)
+        assert np.all(got == want), (cl, got, want)
 
 
 @pytest.mark.parametrize("m", [1 << e for e in range(15, 21)],
