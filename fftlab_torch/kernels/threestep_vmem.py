@@ -36,8 +36,7 @@ import torch
 
 from fftlab_torch.core.types import FORWARD, is_power_of_two, log2_int
 from fftlab_torch.kernels._ad import make_differentiable
-from fftlab_torch.kernels._common import (check_cuda, check_planes, effective_scale,
-                                          on_cpu, rows_of)
+from fftlab_torch.kernels._common import check_planes, effective_scale, on_cpu, rows_of
 from fftlab_torch.kernels.fourstep_vmem import (_launch_pass1, _launch_pass1_swap,
                                                 _launch_pass2, pass1_plain, pass2_plain)
 
@@ -120,13 +119,15 @@ def threestep_pass_a(xr: torch.Tensor, xi: torch.Tensor, direction=FORWARD):
 
 
 def threestep_pass_b(mr: torch.Tensor, mi: torch.Tensor, direction=FORWARD):
-    """Launch pass B on pass A's contiguous [B, n] CUDA output."""
+    """Launch pass B on pass A's contiguous [B, n] CUDA output. The planes
+    go to the launch as [B*F1, F2*F3] rows, whose checks run inside its
+    span; planes that are not one contiguous shape go as they are, for
+    those checks to refuse."""
     F1, F2, F3 = _sides(mr, "threestep_pass_b")
-    check_planes(mr, mi, "threestep_pass_b")
-    check_cuda(mr, mi, name="threestep_pass_b")  # before the row view
     B, n = mr.shape
-    yr, yi = _launch_pass1_swap("threestep_pass_b", mr.view(B * F1, F2 * F3),
-                                mi.view(B * F1, F2 * F3), direction, (F2, F3), LAUNCHES, F1)
+    if mr.shape == mi.shape and mr.is_contiguous() and mi.is_contiguous():
+        mr, mi = mr.view(B * F1, F2 * F3), mi.view(B * F1, F2 * F3)
+    yr, yi = _launch_pass1_swap("threestep_pass_b", mr, mi, direction, (F2, F3), LAUNCHES, F1)
     return yr.view(B, n), yi.view(B, n)
 
 

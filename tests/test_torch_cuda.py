@@ -324,6 +324,46 @@ def test_profiled_fused_real_calls_record_their_launches(no_tf32, kind):
         assert snr_db(got.cpu().numpy(), x.astype(np.float64)) >= 110.0
 
 
+def test_profiled_three_pass_call_records_its_launches(no_tf32):
+    """Under a profile of CUDA activity alone, a 1 x 2^24 c2c call (the
+    benchmark's `c2c_16m` on route `three_pass`) gives execute -> dispatch
+    -> wrapper and passes A, B and C under the wrapper, in order, each a
+    LAUNCHES count with all four phases; the spectrum >= 120 dB against
+    torch.fft.fft in complex128."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from fftlab_torch.utils import trace
+
+    n = 1 << 24
+    xr, xi = _cuda_pair(48, (1, n))
+    plan = fftlab_torch.plan_dft_1d_split(n)
+    assert plan.algorithm == "three_pass"
+    plan.execute((xr, xi))
+    torch.cuda.synchronize()
+    trace.clear()
+    before = _launches()
+    with profile(activities=[ProfilerActivity.CUDA]):
+        yr, yi = plan.execute((xr, xi))
+        torch.cuda.synchronize()
+    delta = {k: v - before[k] for k, v in _launches().items() if v != before[k]}
+    three = ("threestep_pass_a", "threestep_pass_b", "threestep_pass_c")
+    assert delta == dict.fromkeys(three, 1)
+    spans = trace.spans()
+    assert [(s[0], s[3]) for s in spans[:3]] == [("execute", -1), ("dispatch", 0),
+                                                 ("wrapper", 1)]
+    assert [s[0] for s in spans if s[3] < 0] == ["execute"]
+    launches = [i for i, s in enumerate(spans) if s[0] in delta]
+    assert [spans[i][0] for i in launches] == list(three)
+    for i in launches:
+        assert spans[i][3] == 2
+        _launch_has_its_phases(spans, i)
+    trace.clear()
+    want = torch.fft.fft(torch.complex(xr.double(), xi.double()))
+    got = torch.complex(yr.double(), yi.double())
+    snr = 10 * torch.log10(want.abs().square().sum() / (got - want).abs().square().sum())
+    assert snr.item() >= 120.0
+
+
 def test_pack_and_interleave_record_their_phases():
     from fftlab_torch.utils import trace
 

@@ -579,3 +579,61 @@ def test_every_wrapper_launches_through_the_one_path(key, entry, call, monkeypat
     assert [s[0] for s in last] == [key, *trace.PHASES]
     assert last[1][1] == last[0][1] and last[-1][2] == last[0][2]
     assert all(a[2] == b[1] for a, b in zip(last[1:], last[2:]))
+
+
+@pytest.mark.parametrize("direction", [Direction.FORWARD, Direction.INVERSE])
+def test_a_three_pass_call_records_its_three_launches(direction, monkeypatch):
+    """A recorded `plan_dft_1d_split(2^22).execute` on route `three_pass`
+    (F1 = F2 = 128, F3 = 256), its launches through a library that checks
+    its arguments: execute -> dispatch -> wrapper -> passes A, B and C in
+    that order, each with its four PHASES; each LAUNCHES key one up; pass
+    1 on its rank-1 side (L1 = 128 < STAGED_MIN_L1), so no staged twiddle
+    is counted; and every check of pass B's planes inside the `checks`
+    phase of pass B's span."""
+    threestep_vmem = _kernels("threestep_vmem")
+    _fake_launch(monkeypatch)
+    lib = _CheckedLib()
+    monkeypatch.setattr(_build, "load_library", lambda: lib)
+    monkeypatch.setattr(threestep_vmem, "on_cpu", lambda x, name: False)
+    checked = []
+    check_planes = fourstep_vmem.check_planes
+
+    def planes(xr, xi, name):
+        checked.append((name, trace.now()))
+        check_planes(xr, xi, name)
+
+    for mod in (fourstep_vmem, threestep_vmem):
+        monkeypatch.setattr(mod, "check_planes", planes)
+        monkeypatch.setattr(mod, "check_cuda",
+                            lambda *tensors, name: checked.append((name, trace.now())),
+                            raising=False)
+    n = 1 << 22
+    assert threestep_vmem._split_three(n) == (128, 128, 256)
+    assert 128 < fourstep_vmem.STAGED_MIN_L1
+    plan = plan_dft_1d_split(n, direction, device="cpu")
+    assert plan.algorithm == "three_pass"
+    before = dict(threestep_vmem.LAUNCHES)
+    staged = trace.COUNTS["pass1_staged_twiddle"]
+    with trace.recording():
+        yr, yi = plan.execute(_pair(n, rows=1))
+    assert yr.shape == yi.shape == (1, n)
+    keys = ["threestep_pass_a", "threestep_pass_b", "threestep_pass_c"]
+    assert {k: threestep_vmem.LAUNCHES[k] - before[k] for k in keys} == dict.fromkeys(keys, 1)
+    assert trace.COUNTS["pass1_staged_twiddle"] == staged
+    assert [c[0] for c in lib.calls] == ["fftlab_fourstep_pass1", "fftlab_fourstep_pass1_swap",
+                                         "fftlab_fourstep_pass2"]
+    spans = trace.spans()
+    assert [s[0] for s in spans] == ["execute", "dispatch", "wrapper", *[
+        name for key in keys for name in (key, *trace.PHASES)]]
+    assert [s[3] for s in spans[:3]] == [-1, 0, 1] and len({s[4] for s in spans}) == 1
+    at = {s[0]: i for i, s in enumerate(spans) if s[0] in keys}
+    for key in keys:
+        i = at[key]
+        assert spans[i][3] == 2 and [spans[j][3] for j in range(i + 1, i + 5)] == [i] * 4
+        assert spans[2][1] <= spans[i][1] <= spans[i][2] <= spans[2][2]
+    assert [spans[at[k]][1] for k in keys] == sorted(spans[at[k]][1] for k in keys)
+    b = at["threestep_pass_b"]
+    assert spans[b + 1][0] == "checks"
+    ours = [t for name, t in checked if name == "threestep_pass_b"]
+    assert len(ours) == 2  # the planes, then CUDA and contiguity
+    assert all(spans[b + 1][1] <= t <= spans[b + 1][2] for t in ours)
